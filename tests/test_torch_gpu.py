@@ -1,0 +1,96 @@
+"""Tests of xlb_tpu_torch's CUDA kernels on the card: each kernel against
+its plain version on a small seeded cavity, and the CUDA-tier window
+against the TORCH tier. They skip without a CUDA device. (torch is
+imported inside the tests; test_torch_setup.py says why.)
+
+This file imports nothing of JAX, so it also runs on a machine without it
+(there, skip tests/conftest.py, which configures JAX)::
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+
+SHAPE = (24, 20, 36)  # non-cubic, ragged against the k-step tiles
+OMEGA = 1.9
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def _reset_port():
+    from xlb_tpu_torch import DefaultConfig
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+
+    DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    yield
+
+
+def _cavity(policy, backend, device):
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import EquilibriumBC, FullwayBounceBackBC
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend[backend],
+             default_precision_policy=xlb.PrecisionPolicy[policy])
+    grid = xlb.grid_factory(SHAPE, device=device)
+    box, box_ne = grid.bounding_box_indices(), grid.bounding_box_indices(remove_edges=True)
+    walls = np.unique(
+        np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1
+    )
+    bcs = [FullwayBounceBackBC(indices=walls.tolist()), EquilibriumBC(rho=1.0, u=(0.02, 0.0, 0.0), indices=box_ne["top"])]
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
+    return stepper, stepper.prepare_fields()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_kernels_match_plain_versions(cuda_device, store):
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    store = getattr(torch, store)
+    stepper, (_, _, bc_mask, missing_mask) = _cavity("FP32FP32", "TORCH", cuda_device)
+    vs = stepper.velocity_set
+    specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+    mask = pack_masks(bc_mask, missing_mask)
+    shifted = store == torch.bfloat16
+    w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1, 1)
+    noise = torch.from_numpy(np.random.default_rng(0).standard_normal((vs.q,) + SHAPE).astype(np.float32))
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+    eps = torch.finfo(store).eps
+    # f32: reassociation and FMA contraction; bf16: the store dtype's 8-ulp bound
+    tol = dict(rtol=1e-5, atol=1e-6) if store == torch.float32 else dict(rtol=8 * eps, atol=8 * eps * 0.05)
+    for kernel in (CollideStreamStep, CollideStreamKStep):
+        fused = kernel(vs, SHAPE, bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+        torch.testing.assert_close(fused(f, mask, OMEGA).float(), fused.plain(f, mask, OMEGA).float(), **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_window_matches_torch_tier(cuda_device):
+    """21 steps: the fused window (k-step + single-step kernels) against the
+    plain TORCH tier on the card, FP32FP32 (rtol 1e-4: float32 roundoff and
+    FMA contraction over 21 steps)."""
+    import torch
+
+    from xlb_tpu_torch import ComputeBackend
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    cuda, (f_0, f_1, bc_mask, missing_mask) = _cavity("FP32FP32", "CUDA", cuda_device)
+    plain = IncompressibleNavierStokesStepper(cuda.grid, cuda.boundary_conditions, compute_backend=ComputeBackend.TORCH)
+    a, _ = cuda.build_multi_step(21)(f_0, f_1, bc_mask, missing_mask, OMEGA)
+    b, _ = plain.build_multi_step(21)(f_0.clone(), f_1.clone(), bc_mask, missing_mask, OMEGA)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

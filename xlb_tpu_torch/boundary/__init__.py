@@ -1,0 +1,15 @@
+from xlb_tpu_torch.boundary.registry import boundary_condition_registry, BoundaryConditionRegistry
+from xlb_tpu_torch.boundary.base import BoundaryCondition, ImplementationStep
+from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
+from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC
+from xlb_tpu_torch.boundary.maskers import IndicesBoundaryMasker
+
+__all__ = [
+    "boundary_condition_registry",
+    "BoundaryConditionRegistry",
+    "BoundaryCondition",
+    "ImplementationStep",
+    "EquilibriumBC",
+    "FullwayBounceBackBC",
+    "IndicesBoundaryMasker",
+]

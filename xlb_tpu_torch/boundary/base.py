@@ -1,0 +1,42 @@
+"""Boundary-condition base class.
+
+A BC is applied inside the step as a masked select: voxels whose
+``bc_mask`` equals the BC's id get the BC-specific populations, all others
+pass through. Prescribed values are kept on the BC object, in NumPy.
+"""
+
+from enum import Enum, auto
+
+from xlb_tpu_torch.operator import Operator
+from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+
+
+class ImplementationStep(Enum):
+    """Algorithmic stage at which a BC executes."""
+
+    COLLISION = auto()
+    STREAMING = auto()
+
+
+class BoundaryCondition(Operator):
+    """Abstract base for LBM boundary conditions.
+
+    Parameters
+    ----------
+    implementation_step : ImplementationStep
+    indices : array-like (d, n)
+        Explicit voxel indices this BC claims.
+    """
+
+    def __init__(self, implementation_step: ImplementationStep, velocity_set=None, precision_policy=None, compute_backend=None, indices=None):
+        self.id = boundary_condition_registry.register_boundary_condition(f"{type(self).__name__}_{id(self)}")
+        super().__init__(velocity_set, precision_policy, compute_backend)
+        self.indices = indices
+        self.implementation_step = implementation_step
+
+    def boundary_map(self, bc_mask):
+        """(1, *spatial) boolean: voxels claimed by this BC."""
+        return bc_mask == self.id
+
+    def __call__(self, f_pre, f_post, bc_mask, missing_mask):
+        raise NotImplementedError

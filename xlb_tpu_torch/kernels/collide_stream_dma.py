@@ -1,0 +1,134 @@
+"""Single fused collide-stream step: wrapper of the CUDA kernel and its
+plain version.
+
+``CollideStreamStep`` is the counterpart of
+``xlb_tpu.kernels.collide_stream_dma.build_fused_collide_stream_3d_dma``.
+Its CUDA kernel (``csrc/collide_stream.cu::step_kernel``) replaces that
+TPU kernel in its plain mode, with and without shifted storage. The TPU
+kernel's double-buffered halo DMAs have no counterpart: on Hopper each
+thread pulls its 19 neighbours straight from device memory, and L1/L2
+serve the reuse.
+
+A wrapper launches its kernel for a CUDA tensor and runs the plain version
+for a CPU tensor; any other device raises.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from xlb_tpu_torch.kernels import _cuda
+from xlb_tpu_torch.kernels.collide_stream import f32_weights, pointwise_core
+
+
+def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True):
+    """Plain torch version of one fused step: pull-stream gather with
+    periodic wrap, then ``pointwise_core``, then the (shifted) store."""
+    fc = f.to(torch.float32)
+    c = vs._c
+    dims = tuple(range(vs.d))
+    fs_raw = [torch.roll(fc[l], shifts=tuple(int(s) for s in c[:, l]), dims=dims) for l in range(vs.q)]
+    f_out = pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids)
+    w = f32_weights(vs)
+    return torch.stack([f_out[l] - w[l] if shifted else f_out[l] for l in range(vs.q)]).to(store_dtype)
+
+
+def kernel_params(vs, bc_specs, has_solids):
+    """The kernels' launch parameters (``XlbStepParams``) for a D3Q19 scene."""
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    ref = D3Q19()
+    if vs.d != 3 or vs.q != _cuda.Q or not np.array_equal(vs._c, ref._c):
+        raise NotImplementedError(f"the CUDA kernels are built for xlb_tpu's D3Q19 direction order, got {vs}")
+    if len(bc_specs) > _cuda.MAX_BC:
+        raise NotImplementedError(f"the CUDA kernels take at most {_cuda.MAX_BC} BCs, got {len(bc_specs)}")
+    p = _cuda.XlbStepParams()
+    p.w[:] = f32_weights(vs)
+    p.has_solids = int(bool(has_solids))
+    p.n_bc = len(bc_specs)
+    kinds = {"equilibrium": 0, "fullway": 1}
+    for b, spec in enumerate(bc_specs):
+        if spec["kind"] not in kinds:
+            raise NotImplementedError(f"BC kind {spec['kind']!r} is not ported to the CUDA kernels")
+        p.bc_kind[b] = kinds[spec["kind"]]
+        p.bc_id[b] = int(spec["id"])
+        if spec["kind"] == "equilibrium":
+            p.bc_feq[b][:] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
+    return p
+
+
+class FusedKernel:
+    """Shared wrapper logic of the fused kernels: configuration checks,
+    input checks, device dispatch and the launch counters.
+
+    Subclasses define ``launches`` and ``plain_calls`` (counts over all
+    their instances), ``plain`` and ``_launch``."""
+
+    def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
+                 store_dtype=torch.float32, shifted=False, has_solids=True):
+        if velocity_set.d != 3:
+            raise NotImplementedError("only the 3D fused step is ported")
+        if collision != "BGK":
+            raise NotImplementedError(f"only BGK is ported to the fused step, got {collision!r}")
+        if compute_dtype != torch.float32:
+            raise NotImplementedError(f"the fused step computes in float32, got {compute_dtype}")
+        if store_dtype not in _cuda.STORE_KIND:
+            raise NotImplementedError(f"the fused step stores float32 or bfloat16, got {store_dtype}")
+        self.vs = velocity_set
+        self.shape = tuple(int(s) for s in shape)
+        if int(np.prod(self.shape)) >= 2**31:
+            raise ValueError(f"domain {self.shape} exceeds the kernels' 32-bit voxel index")
+        self.bc_specs = list(bc_specs)
+        self.store_dtype = store_dtype
+        self.shifted = bool(shifted)
+        self.has_solids = bool(has_solids)
+        self.params = kernel_params(velocity_set, self.bc_specs, has_solids)
+
+    def _check(self, f, mask_i32):
+        """Raise on anything the kernels do not take."""
+        shape = (self.vs.q,) + self.shape
+        if f.shape != shape:
+            raise ValueError(f"f must have shape {shape}, got {tuple(f.shape)}")
+        if f.dtype != self.store_dtype:
+            raise TypeError(f"f must be {self.store_dtype}, got {f.dtype}")
+        if mask_i32.shape != self.shape or mask_i32.dtype != torch.int32:
+            raise ValueError(f"mask must be int32 of shape {self.shape}, got {mask_i32.dtype} {tuple(mask_i32.shape)}")
+        if mask_i32.device != f.device:
+            raise ValueError(f"f is on {f.device} but the mask is on {mask_i32.device}")
+        if not (f.is_contiguous() and mask_i32.is_contiguous()):
+            raise ValueError("f and the mask must be contiguous")
+        if f.requires_grad:
+            raise RuntimeError("the fused CUDA step has no backward yet; use the TORCH tier to differentiate")
+        if f.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"the fused step runs on CUDA (kernel) or CPU (plain version), not {f.device}")
+
+    def __call__(self, f, mask_i32, omega):
+        self._check(f, mask_i32)
+        if f.device.type == "cpu":
+            return self.plain(f, mask_i32, omega)
+        lib = _cuda.load_library()
+        out = torch.empty_like(f)
+        with torch.cuda.device(f.device):
+            err = self._launch(lib, f, mask_i32, out, float(omega), torch.cuda.current_stream(f.device).cuda_stream)
+        _cuda.check(lib, err, f"{type(self).__name__} launch")
+        type(self).launches += 1
+        return out
+
+
+class CollideStreamStep(FusedKernel):
+    """One fused LBM step: ``(f, mask_i32, omega) -> f_new``."""
+
+    launches = 0
+    plain_calls = 0
+
+    def plain(self, f, mask_i32, omega):
+        CollideStreamStep.plain_calls += 1
+        return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted, self.has_solids)
+
+    def _launch(self, lib, f, mask_i32, out, omega, stream):
+        X, Y, Z = self.shape
+        return lib.xlb_collide_stream_step(
+            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), f.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
+            X, Y, Z, omega, ctypes.byref(self.params), stream,
+        )

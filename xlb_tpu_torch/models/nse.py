@@ -1,0 +1,168 @@
+"""Single-resolution incompressible Navier-Stokes stepper.
+
+``prepare_fields()`` builds (f_0, f_1, bc_mask, missing_mask) and the call
+``stepper(f_0, f_1, bc_mask, missing_mask, omega, timestep) -> (f_0, f_1)``
+advances one LBM step with the caller swapping buffers -- the interface of
+``xlb_tpu.models.IncompressibleNavierStokesStepper``.
+
+Two tiers:
+
+- TORCH (default): the plain torch pull step below, on any device.
+- CUDA: the fused collide-stream kernels (``xlb_tpu_torch.kernels``); one
+  pass over device memory per step, or per k steps in a window. The grid
+  must live on a CUDA device.
+"""
+
+import torch
+
+from xlb_tpu_torch.cell_type import BC_SOLID
+from xlb_tpu_torch.compute_backend import ComputeBackend
+from xlb_tpu_torch.models.stepper import Stepper
+from xlb_tpu_torch.ops.stream import Stream
+from xlb_tpu_torch.ops.equilibrium import QuadraticEquilibrium
+from xlb_tpu_torch.ops.macroscopic import Macroscopic
+from xlb_tpu_torch.ops.collision import BGK
+from xlb_tpu_torch.boundary.base import ImplementationStep
+from xlb_tpu_torch.boundary.maskers import IndicesBoundaryMasker
+from xlb_tpu_torch.helper.check_boundary_overlaps import check_bc_overlaps
+from xlb_tpu_torch.helper.nse_fields import create_nse_fields
+from xlb_tpu_torch.helper.initializers import initialize_eq
+
+_COLLISIONS = {"BGK": BGK}
+
+
+class IncompressibleNavierStokesStepper(Stepper):
+    """Full LBM timestep: stream -> BCs -> macroscopic -> equilibrium ->
+    collide -> BCs.
+
+    Parameters
+    ----------
+    grid : Grid
+    boundary_conditions : list of BoundaryCondition
+    collision_type : {"BGK"}
+        The other collision models of ``xlb_tpu`` are not ported yet, nor
+        is its push streaming scheme: this stepper pulls.
+    """
+
+    def __init__(
+        self,
+        grid,
+        boundary_conditions=(),
+        collision_type="BGK",
+        velocity_set=None,
+        precision_policy=None,
+        compute_backend=None,
+    ):
+        super().__init__(grid, boundary_conditions, velocity_set, precision_policy, compute_backend)
+        if collision_type not in _COLLISIONS:
+            raise NotImplementedError(f"collision_type {collision_type!r} is not ported yet; choose from {sorted(_COLLISIONS)}")
+        self.collision_type = collision_type
+
+        common = dict(velocity_set=self.velocity_set, precision_policy=self.precision_policy, compute_backend=self.compute_backend)
+        self.collision = _COLLISIONS[collision_type](**common)
+        self.stream = Stream(**common)
+        self.equilibrium = QuadraticEquilibrium(**common)
+        self.macroscopic = Macroscopic(**common)
+
+        self._fused_step = None
+        if self.compute_backend == ComputeBackend.CUDA:
+            if grid.device.type != "cuda":
+                raise ValueError(f"ComputeBackend.CUDA needs a grid on a CUDA device, got {grid.device}")
+            from xlb_tpu_torch.kernels.fused_step import build_fused_step
+
+            self._fused_step = build_fused_step(self)
+
+    # ------------------------------------------------------------------
+    # Setup path
+    # ------------------------------------------------------------------
+    def prepare_fields(self, initializer=None):
+        """Allocate fields, rasterize BCs into the masks, and initialize f.
+
+        Returns (f_0, f_1, bc_mask, missing_mask)."""
+        _, f_0, f_1, missing_mask, bc_mask = create_nse_fields(
+            grid=self.grid, velocity_set=self.velocity_set, precision_policy=self.precision_policy
+        )
+        bc_mask, missing_mask = self._process_boundary_conditions(self.boundary_conditions, bc_mask, missing_mask)
+
+        # static hint for the fused kernels: a domain with no solid-tagged
+        # voxels skips the solid keep-out
+        self.has_solids = bool((bc_mask == BC_SOLID).any())
+
+        if initializer is not None:
+            f_0 = initializer(bc_mask, f_0)
+        else:
+            f_0 = initialize_eq(f_0, self.grid, self.velocity_set, self.precision_policy)
+        f_1 = f_0.clone()
+        return f_0, f_1, bc_mask, missing_mask
+
+    def _process_boundary_conditions(self, boundary_conditions, bc_mask, missing_mask):
+        check_bc_overlaps(boundary_conditions, self.velocity_set.d)
+        unsupported = [type(bc).__name__ for bc in boundary_conditions if bc.indices is None]
+        if unsupported:
+            raise NotImplementedError(f"BCs without voxel indices (mesh-based) are not ported yet: {unsupported}")
+        if boundary_conditions:
+            masker = IndicesBoundaryMasker(
+                velocity_set=self.velocity_set,
+                precision_policy=self.precision_policy,
+                compute_backend=self.compute_backend,
+            )
+            bc_mask, missing_mask = masker(boundary_conditions, bc_mask, missing_mask)
+        return bc_mask, missing_mask
+
+    # ------------------------------------------------------------------
+    # Hot loop
+    # ------------------------------------------------------------------
+    def __call__(self, f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
+        if self._fused_step is not None:
+            return self._fused_step(f_0, f_1, bc_mask, missing_mask, omega, timestep)
+        return self._step_pull(f_0, f_1, bc_mask, missing_mask, omega, timestep)
+
+    def _step_pull(self, f_0, f_1, bc_mask, missing_mask, omega, timestep):
+        pp = self.precision_policy
+        f_0c = pp.cast_to_compute(f_0)
+
+        f_post_stream = self.stream(f_0c)
+        for bc in self.boundary_conditions:
+            if bc.implementation_step == ImplementationStep.STREAMING:
+                f_post_stream = bc(f_0c, f_post_stream, bc_mask, missing_mask)
+
+        rho, u = self.macroscopic(f_post_stream)
+        feq = self.equilibrium(rho, u)
+        f_post_collision = self.collision(f_post_stream, feq, omega)
+
+        # the "pre-streaming" population a collision-step BC reflects is
+        # the post-stream one
+        for bc in self.boundary_conditions:
+            if bc.implementation_step == ImplementationStep.COLLISION:
+                f_post_collision = bc(f_post_stream, f_post_collision, bc_mask, missing_mask)
+
+        # solid voxels (cell type 255) keep their previous populations
+        f_post_collision = torch.where(bc_mask == BC_SOLID, f_0c, f_post_collision)
+        return f_0, pp.cast_to_store(f_post_collision)
+
+    # ------------------------------------------------------------------
+    def build_multi_step(self, num_steps):
+        """A ``num_steps``-step advance. The returned callable has signature
+        ``(f_0, f_1, bc_mask, missing_mask, omega, start_step=0)`` and
+        returns the post-window ``(f_0, f_1)`` with f_0 the current state.
+
+        On the CUDA tier this is the fused window
+        (``kernels.fused_step.build_fused_window``): 16-bit storage runs in
+        deviation form and returns f_0 in the compute dtype."""
+        if self.compute_backend == ComputeBackend.CUDA:
+            from xlb_tpu_torch.kernels.fused_step import build_fused_window
+
+            window = build_fused_window(self, num_steps)
+
+            def _run_fused(f_0, f_1, bc_mask, missing_mask, omega, start_step=0):
+                return window(f_0, f_1, bc_mask, missing_mask, omega)
+
+            return _run_fused
+
+        def _run(f_0, f_1, bc_mask, missing_mask, omega, start_step=0):
+            for i in range(num_steps):
+                f_0, f_1 = self(f_0, f_1, bc_mask, missing_mask, omega, start_step + i)
+                f_0, f_1 = f_1, f_0
+            return f_0, f_1
+
+        return _run

@@ -1,0 +1,43 @@
+"""Carry simulation state between ``xlb_tpu`` and this port as NumPy arrays.
+
+NumPy has no bfloat16 of its own: a bfloat16 field crosses as float32,
+which holds every bfloat16 value exactly, and is cast back on arrival.
+"""
+
+import numpy as np
+import torch
+
+
+def _to_tensor(a, device, dtype=None):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # e.g. an xlb_tpu bf16 field
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable copy: jax hands out read-only views
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def fields_from_numpy(f_0, f_1, bc_mask, missing_mask, device="cpu", dtype=None):
+    """Turn ``xlb_tpu``-layout fields (NumPy arrays) into the port's tensors
+    on ``device``. Dtypes are kept (NumPy bfloat16 arrives as bfloat16);
+    ``dtype``, when given, is the populations' dtype -- e.g. bfloat16 for
+    populations that crossed as float32."""
+    return (
+        _to_tensor(f_0, device, dtype),
+        _to_tensor(f_1, device, dtype),
+        _to_tensor(bc_mask, device, torch.uint8),
+        _to_tensor(missing_mask, device, torch.bool),
+    )
+
+
+def fields_to_numpy(f_0, f_1, bc_mask, missing_mask):
+    """The reverse of :func:`fields_from_numpy`: host NumPy arrays, with
+    bfloat16 populations as (exact) float32."""
+
+    def as_numpy(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tuple(as_numpy(t) for t in (f_0, f_1, bc_mask, missing_mask))
