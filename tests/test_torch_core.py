@@ -88,7 +88,7 @@ def test_bounding_box_indices_equal(remove_edges):
 
     shape = (7, 5, 6)
     ref = xlb_tpu.grid_factory(shape, mesh_shape=(1, 1, 1), devices=jax.devices()[:1])
-    grid = xlb_tpu_torch.grid_factory(shape)
+    grid = xlb_tpu_torch.grid_factory(shape, device="cpu")
     assert grid.bounding_box_indices(remove_edges=remove_edges) == ref.bounding_box_indices(remove_edges=remove_edges)
 
 

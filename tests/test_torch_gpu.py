@@ -94,3 +94,63 @@ def test_cuda_window_matches_torch_tier(cuda_device):
     a, _ = cuda.build_multi_step(21)(f_0, f_1, bc_mask, missing_mask, OMEGA)
     b, _ = plain.build_multi_step(21)(f_0.clone(), f_1.clone(), bc_mask, missing_mask, OMEGA)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solid", [True, False])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_adjoint_kernel_matches_plain_version(cuda_device, store, solid):
+    """The adjoint kernel against torch.func.vjp of the plain step, with a
+    solid block (cell type 255) or without. The hand-derived transpose and
+    autograd sum the same O(1) terms in other orders (and nvcc contracts
+    into FMAs), so df's near-zero entries keep a few float32 ulps of
+    |g| ~ 1 (atol 1e-6)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    store = getattr(torch, store)
+    stepper, (_, _, bc_mask, missing_mask) = _cavity("FP32FP32", "TORCH", cuda_device)
+    vs = stepper.velocity_set
+    specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+    mask = pack_masks(bc_mask, missing_mask)
+    if solid:
+        mask[6:12, 5:10, 10:20] = 255 << 19
+    shifted = store == torch.bfloat16
+    rng = np.random.default_rng(1)
+    w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1, 1)
+    noise = torch.from_numpy(rng.standard_normal((vs.q,) + SHAPE).astype(np.float32))
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+    g = (w * torch.from_numpy(rng.standard_normal((vs.q,) + SHAPE).astype(np.float32))).to(cuda_device)
+    adjoint = CollideStreamAdjoint(vs, SHAPE, bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=solid)
+    launches = CollideStreamAdjoint.launches
+    df, dom = adjoint(f, g, mask, 1.5)
+    assert CollideStreamAdjoint.launches == launches + 1
+    df_ref, dom_ref = adjoint.plain(f, g, mask, 1.5)
+    torch.testing.assert_close(df, df_ref, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dom, dom_ref, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_cuda_window_gradients_match_torch_tier(cuda_device):
+    """torch.autograd through the CUDA-tier window (adjoint kernel) against
+    the TORCH tier's autograd over 5 FP32FP32 steps."""
+    import torch
+
+    from xlb_tpu_torch import ComputeBackend
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    cuda, (f_0, f_1, bc_mask, missing_mask) = _cavity("FP32FP32", "CUDA", cuda_device)
+    plain = IncompressibleNavierStokesStepper(cuda.grid, cuda.boundary_conditions, compute_backend=ComputeBackend.TORCH)
+    noise = torch.from_numpy(np.random.default_rng(2).standard_normal(tuple(f_0.shape)).astype(np.float32))
+    f_in = f_0 * (1.0 + 0.05 * noise.to(cuda_device))
+    grads = []
+    for stepper in (cuda, plain):
+        f = f_in.clone().requires_grad_(True)
+        omega = torch.tensor(1.5, device=cuda_device, requires_grad=True)
+        out, _ = stepper.build_multi_step(5)(f, f_1, bc_mask, missing_mask, omega)
+        (out**2).sum().backward()
+        grads.append((f.grad, omega.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=2e-3, atol=0.0)

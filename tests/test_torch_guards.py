@@ -24,7 +24,7 @@ def _reset_port():
 
 def test_package_never_imports_jax():
     offenders = []
-    for path in sorted(PACKAGE.rglob("*.py")):
+    for path in sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             names = []
             if isinstance(node, ast.Import):
@@ -33,6 +33,26 @@ def test_package_never_imports_jax():
                 names = [node.module]
             offenders += [f"{path.name}: {n}" for n in names if n == "jax" or n.startswith(("jax.", "xlb_tpu.")) or n == "xlb_tpu"]
     assert not offenders, offenders
+
+
+def test_grids_default_to_the_card():
+    """Without ``device=`` a grid lives on CUDA; where there is no card it
+    raises torch's own error when it allocates, never building CPU tensors."""
+    import inspect
+
+    import torch
+
+    import xlb_tpu_torch
+    from xlb_tpu_torch.helper.nse_fields import create_nse_fields
+    from xlb_tpu_torch.utils import fields_from_numpy
+
+    grid = xlb_tpu_torch.grid_factory((4, 4, 4))
+    assert grid.device.type == "cuda"
+    for fn in (xlb_tpu_torch.grid_factory, xlb_tpu_torch.Grid, create_nse_fields, fields_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            grid.create_field(19, dtype=torch.float32)
 
 
 def test_cuda_stepper_on_cpu_grid_raises():
@@ -99,6 +119,60 @@ def test_wrappers_reject_bad_inputs(kernel, bad):
     with pytest.raises((ValueError, TypeError, RuntimeError)):
         fused(f, mask, 1.9)
     assert fused(*_wrapper_inputs()[2:], 1.9).shape == (19,) + SHAPE  # good inputs still run
+
+
+def test_adjoint_wrapper_rejects_bad_inputs():
+    """The adjoint kernel's wrapper takes a float32 cotangent of the
+    primal's shape that does not require grad, and a primal that does not
+    require grad either (it has no double backward)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+
+    vs, specs, f, mask = _wrapper_inputs()
+    adjoint = CollideStreamAdjoint(vs, SHAPE, bc_specs=specs)
+    g = torch.ones_like(f)
+    for bad_f, bad_g in ((f, g[:, :-1].contiguous()), (f, g.to(torch.bfloat16)), (f, g.clone().requires_grad_(True)),
+                         (f.clone().requires_grad_(True), g)):
+        with pytest.raises((ValueError, RuntimeError)):
+            adjoint(bad_f, bad_g, mask, 1.9)
+    df, dom = adjoint(f, g, mask, 1.9)
+    assert df.shape == f.shape and dom.shape == SHAPE and df.dtype == dom.dtype == torch.float32
+
+
+def test_every_fused_spec_kind_has_an_adjoint():
+    from xlb_tpu_torch.kernels.adjoint_step import adjoint_supported
+    from xlb_tpu_torch.kernels.collide_stream_dma import kernel_params
+
+    vs, specs, _, _ = _wrapper_inputs()
+    assert {s["kind"] for s in specs} == {"equilibrium", "fullway"}
+    kernel_params(vs, specs, has_solids=True)  # every kind the fused forward takes
+    assert all(adjoint_supported([s]) for s in specs) and adjoint_supported(specs)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_cuda_window_differentiates(steps):
+    """A CUDA-tier window whose input requires grad runs forward and
+    backward (the wrappers' plain versions here): the kernels see detached
+    tensors, the adjoint runs once per step, and a direct k-step call on a
+    tensor that requires grad still raises (it has no backward of its own)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.fused_step import build_fused_window
+
+    st, (f_0, f_1, bc_mask, missing_mask) = build_cavity("xlb_tpu_torch", SHAPE)
+    f = f_0.clone().requires_grad_(True)
+    omega = torch.tensor(1.9, requires_grad=True)
+    out, _ = build_fused_window(st, steps)(f, f_1, bc_mask, missing_mask, omega)
+    calls = CollideStreamAdjoint.plain_calls
+    out.sum().backward()
+    assert CollideStreamAdjoint.plain_calls == calls + steps
+    assert f.grad.shape == f.shape and omega.grad is not None and bool(torch.isfinite(f.grad).all())
+    vs, specs, _, mask = _wrapper_inputs()
+    with pytest.raises(RuntimeError, match="no autograd"):
+        CollideStreamKStep(vs, SHAPE, bc_specs=specs)(f, mask, 1.9)
 
 
 def test_kstep_shared_memory_budget():

@@ -33,7 +33,7 @@ def test_torch_tier_cavity_20_steps_matches_jnp_tier():
     st, (_, _, bmt, mmt) = build_cavity("xlb_tpu_torch", shape)
     f = _perturbed(f0j, seed=0)
     ref, _ = sj.build_multi_step(20)(jnp.asarray(f), jnp.asarray(f), bmj, mmj, OMEGA)
-    f_0, f_1, _, _ = fields_from_numpy(f, f, bmj, mmj)
+    f_0, f_1, _, _ = fields_from_numpy(f, f, bmj, mmj, device="cpu")
     ours, _ = st.build_multi_step(20)(f_0, f_1, bmt, mmt, OMEGA)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
@@ -55,7 +55,7 @@ def test_fused_window_bf16_shifted_matches_xlb_tpu():
     fj = jnp.asarray(_perturbed(f0j, seed=1), dtype=jnp.bfloat16)
     ref, _ = jax_build_fused_window(sj, 4, interpret=True)(fj, fj, bmj, mmj, OMEGA)
 
-    f_0, f_1, _, _ = fields_from_numpy(np.asarray(fj), np.asarray(fj), bmj, mmj)
+    f_0, f_1, _, _ = fields_from_numpy(np.asarray(fj), np.asarray(fj), bmj, mmj, device="cpu")
     assert f_0.dtype == torch.bfloat16
     counts = (CollideStreamStep.plain_calls, CollideStreamKStep.plain_calls)
     run = build_fused_window(st, 4)
@@ -81,7 +81,7 @@ def test_rest_state_window_shift_is_exact():
     )
     from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
 
-    stepper = IncompressibleNavierStokesStepper(xlb_tpu_torch.grid_factory((6, 5, 4)))
+    stepper = IncompressibleNavierStokesStepper(xlb_tpu_torch.grid_factory((6, 5, 4), device="cpu"))
     f_0, f_1, bc_mask, missing_mask = stepper.prepare_fields()
     out, _ = build_fused_window(stepper, 0)(f_0, f_1, bc_mask, missing_mask, OMEGA)
     assert torch.equal(out, f_0.float())
@@ -97,14 +97,14 @@ def test_interop_round_trip(policy):
     from xlb_tpu_torch.utils import fields_from_numpy, fields_to_numpy
 
     _, (f0j, f1j, bmj, mmj) = build_cavity("xlb_tpu", (6, 5, 4), policy)
-    tensors = fields_from_numpy(np.asarray(f0j), np.asarray(f1j), np.asarray(bmj), np.asarray(mmj))
+    tensors = fields_from_numpy(np.asarray(f0j), np.asarray(f1j), np.asarray(bmj), np.asarray(mmj), device="cpu")
     store = xlb_tpu_torch.PrecisionPolicy[policy].store_dtype
     assert [t.dtype for t in tensors] == [store, store, torch.uint8, torch.bool]
     arrays = fields_to_numpy(*tensors)
     np.testing.assert_array_equal(arrays[0], np.asarray(f0j).astype(np.float32))
     np.testing.assert_array_equal(arrays[2], np.asarray(bmj))
     np.testing.assert_array_equal(arrays[3], np.asarray(mmj))
-    back = fields_from_numpy(*arrays, dtype=store)
+    back = fields_from_numpy(*arrays, device="cpu", dtype=store)
     for a, b in zip(back, tensors):
         assert a.dtype == b.dtype and torch.equal(a, b)
 

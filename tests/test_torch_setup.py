@@ -139,7 +139,7 @@ def test_overlapping_bcs_raise():
     from xlb_tpu_torch.velocity_set import D3Q19
 
     xlb_tpu_torch.init(D3Q19())
-    grid = xlb_tpu_torch.grid_factory((6, 6, 6))
+    grid = xlb_tpu_torch.grid_factory((6, 6, 6), device="cpu")
     top = grid.bounding_box_indices()["top"]
     bcs = [FullwayBounceBackBC(indices=top), EquilibriumBC(rho=1.0, u=LID_U, indices=top)]
     with pytest.raises(ValueError, match="overlap"):

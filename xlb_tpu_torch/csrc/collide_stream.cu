@@ -43,8 +43,6 @@ constexpr int kStepThreads = 256;
 constexpr int kKstepThreads = 256;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in limit per block on sm_90
 
-__device__ __forceinline__ int wrap1(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
-
 __device__ __forceinline__ int wrapmod(int i, int n) {
   const int r = i % n;
   return r < 0 ? r + n : r;

@@ -1,5 +1,7 @@
 // Per-voxel body shared by the fused D3Q19 collide-stream kernels of
-// collide_stream.cu.
+// collide_stream.cu and, through its pieces (streamed_populations,
+// moments_equilibrium, is_fullway, is_solid), by the adjoint kernel of
+// adjoint_step.cu.
 //
 // It is the CUDA counterpart of the slice of
 // xlb_tpu/kernels/collide_stream.py::_build_kernel_body that the BGK
@@ -58,6 +60,11 @@ __host__ __device__ constexpr int c_opp(int l) {
   return kOpp[l];
 }
 
+__device__ __forceinline__ int cell_type(int packed) { return (packed >> XLB_BC_ID_SHIFT) & 0xFF; }
+
+// i + d wrapped into [0, n) for |d| <= n (periodic pull and push indices).
+__device__ __forceinline__ int wrap1(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -68,36 +75,17 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
-// One voxel of one step. pull(l) returns the raw (store-form, as f32)
-// population l pulled from x - c_l; center(l) the raw population l at x.
-// Writes the post-collision populations in store form (shifted back when
-// SHIFTED), still in f32, to out.
-template <bool SHIFTED, typename Pull, typename Center>
-__device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& center, int packed, float omega,
-                                              const XlbStepParams& p, float out[XLB_Q]) {
-  const int bc = (packed >> XLB_BC_ID_SHIFT) & 0xFF;
-
-  float fs[XLB_Q];
-#pragma unroll
-  for (int l = 0; l < XLB_Q; ++l) {
-    fs[l] = pull(l);
-    if constexpr (SHIFTED) fs[l] += p.w[l];
-  }
-
-  // streaming-step epilogues
-  for (int b = 0; b < p.n_bc; ++b) {
-    if (p.bc_kind[b] == XLB_BC_EQUILIBRIUM && bc == p.bc_id[b]) {
-#pragma unroll
-      for (int l = 0; l < XLB_Q; ++l) fs[l] = p.bc_feq[b][l];
-    }
-  }
-
+// Moments and the pair-shared quadratic equilibrium of one voxel's
+// post-streaming populations fs. Shared by the forward (collide_voxel) and
+// the adjoint kernel (adjoint_step.cu), so the adjoint linearises the very
+// arithmetic the forward ran.
+__device__ __forceinline__ void moments_equilibrium(const float fs[XLB_Q], const XlbStepParams& p, float& rho,
+                                                    float& inv_rho, float u[3], float feq[XLB_Q]) {
   // moments
-  float rho = fs[0];
+  rho = fs[0];
 #pragma unroll
   for (int l = 1; l < XLB_Q; ++l) rho = rho + fs[l];
-  const float inv_rho = 1.0f / rho;
-  float u[3];
+  inv_rho = 1.0f / rho;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     float acc = 0.0f;
@@ -119,7 +107,6 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
   usqr = usqr + u[1] * u[1];
   usqr = usqr + u[2] * u[2];
   const float base = 1.0f - 1.5f * usqr;
-  float feq[XLB_Q];
 #pragma unroll
   for (int l = 0; l < XLB_Q; ++l) {
     const int o = c_opp(l);
@@ -144,21 +131,67 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
     feq[l] = rw * (even + cu3);
     feq[o] = rw * (even - cu3);
   }
+}
+
+// The post-streaming populations of one voxel: the 19 pulls (store form,
+// as f32), the shifted load (+ w_l) and the streaming-step epilogues.
+// Returns whether an "equilibrium" BC replaced them by its constants.
+template <bool SHIFTED, typename Pull>
+__device__ __forceinline__ bool streamed_populations(const Pull& pull, int bc, const XlbStepParams& p,
+                                                     float fs[XLB_Q]) {
+#pragma unroll
+  for (int l = 0; l < XLB_Q; ++l) {
+    fs[l] = pull(l);
+    if constexpr (SHIFTED) fs[l] += p.w[l];
+  }
+  bool fixed = false;
+  for (int b = 0; b < p.n_bc; ++b) {
+    if (p.bc_kind[b] == XLB_BC_EQUILIBRIUM && bc == p.bc_id[b]) {
+#pragma unroll
+      for (int l = 0; l < XLB_Q; ++l) fs[l] = p.bc_feq[b][l];
+      fixed = true;
+    }
+  }
+  return fixed;
+}
+
+// Whether voxel cell type bc is a solid that keeps its populations.
+__device__ __forceinline__ bool is_solid(int bc, const XlbStepParams& p) { return p.has_solids && bc == XLB_SOLID_ID; }
+
+// Whether a collision-step "fullway" BC claims cell type bc.
+__device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) {
+  bool on = false;
+  for (int b = 0; b < p.n_bc; ++b) on = on || (p.bc_kind[b] == XLB_BC_FULLWAY && bc == p.bc_id[b]);
+  return on;
+}
+
+// One voxel of one step. pull(l) returns the raw (store-form, as f32)
+// population l pulled from x - c_l; center(l) the raw population l at x.
+// Writes the post-collision populations in store form (shifted back when
+// SHIFTED), still in f32, to out.
+template <bool SHIFTED, typename Pull, typename Center>
+__device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& center, int packed, float omega,
+                                              const XlbStepParams& p, float out[XLB_Q]) {
+  const int bc = cell_type(packed);
+
+  float fs[XLB_Q];
+  streamed_populations<SHIFTED>(pull, bc, p, fs);
+
+  float rho, inv_rho, u[3], feq[XLB_Q];
+  moments_equilibrium(fs, p, rho, inv_rho, u, feq);
 
   // BGK
 #pragma unroll
   for (int l = 0; l < XLB_Q; ++l) out[l] = fs[l] - omega * (fs[l] - feq[l]);
 
   // collision-step epilogues
-  for (int b = 0; b < p.n_bc; ++b) {
-    if (p.bc_kind[b] == XLB_BC_FULLWAY && bc == p.bc_id[b]) {
+  if (is_fullway(bc, p)) {
 #pragma unroll
-      for (int l = 0; l < XLB_Q; ++l) out[l] = fs[c_opp(l)];
-    }
+    for (int l = 0; l < XLB_Q; ++l) out[l] = fs[c_opp(l)];
   }
 
   // solid keep-out
-  if (p.has_solids && bc == XLB_SOLID_ID) {
+  if (is_solid(bc, p)) {
 #pragma unroll
     for (int l = 0; l < XLB_Q; ++l) {
       float v = center(l);

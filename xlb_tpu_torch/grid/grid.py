@@ -1,7 +1,9 @@
 """Single-device computational grid.
 
-Fields live on the grid's explicit ``torch.device``; there is no mesh and
-no guess between CUDA and CPU. Fields created by :meth:`Grid.create_field`
+Fields live on the grid's ``torch.device``: the card (``"cuda"``) unless
+the caller asks for another device, e.g. ``device="cpu"``. There is no
+mesh and no fallback: without CUDA, a grid left on its default device
+raises torch's own error as soon as it allocates a field. Fields created by :meth:`Grid.create_field`
 have shape ``(cardinality, *shape)``, the layout of ``xlb_tpu``.
 """
 
@@ -22,10 +24,11 @@ class Grid:
     shape : tuple of int
         Spatial extents ``(nx, ny[, nz])``.
     device : torch.device or str
-        Where every field of this grid is allocated.
+        Where every field of this grid is allocated; the current CUDA
+        device by default.
     """
 
-    def __init__(self, shape: Tuple[int, ...], device="cpu"):
+    def __init__(self, shape: Tuple[int, ...], device="cuda"):
         self.shape = tuple(int(s) for s in shape)
         self.dim = len(self.shape)
         if self.dim not in (2, 3):
@@ -83,8 +86,9 @@ class Grid:
         return f"Grid(shape={self.shape}, device={self.device})"
 
 
-def grid_factory(shape, compute_backend=None, velocity_set=None, device="cpu"):
-    """Create a grid on ``device``.
+def grid_factory(shape, compute_backend=None, velocity_set=None, device="cuda"):
+    """Create a grid on ``device`` (the card unless the caller asks for
+    another device).
 
     ``compute_backend`` / ``velocity_set`` are accepted for signature parity
     with ``xlb_tpu.grid_factory``; one grid serves both tiers.

@@ -7,7 +7,7 @@ from xlb_tpu_torch.grid import grid_factory
 from xlb_tpu_torch.precision_policy import Precision
 
 
-def create_nse_fields(grid_shape=None, grid=None, velocity_set=None, compute_backend=None, precision_policy=None, device="cpu"):
+def create_nse_fields(grid_shape=None, grid=None, velocity_set=None, compute_backend=None, precision_policy=None, device="cuda"):
     velocity_set = velocity_set or DefaultConfig.velocity_set
     precision_policy = precision_policy or DefaultConfig.default_precision_policy
 

@@ -88,6 +88,8 @@ def load_library():
     lib.xlb_collide_stream_step.restype = i32
     lib.xlb_collide_stream_kstep.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_kstep.restype = i32
+    lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_adjoint.restype = i32
     lib.xlb_error_string.argtypes = [i32]
     lib.xlb_error_string.restype = ctypes.c_char_p
     lib.xlb_params_size.argtypes = []

@@ -107,12 +107,16 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
 
     ``fs_raw[l]`` is the raw (store-form) pulled slab of direction l;
     ``fp_raw(l)`` returns the raw centered (pre-streaming) slab. ``packed``
-    is the int32 mask of ``fused_step.pack_masks``. Returns the list of
+    is the int32 mask of ``fused_step.pack_masks``. ``omega`` is a float
+    (rounded to float32, as the kernels read it) or a float32 tensor that
+    broadcasts against the slabs: a 0-d tensor, or the per-voxel field
+    through which the adjoint takes omega's cotangent. Returns the list of
     post-collision slabs (unshifted, uncast)."""
     q, d = vs.q, vs.d
     c, opp = vs._c, vs._opp_indices
     w = f32_weights(vs)
-    omega = float(np.float32(omega))
+    if not isinstance(omega, torch.Tensor):
+        omega = float(np.float32(omega))
     bc = unpack_bc_id(packed, q)
     f_s = [fs_raw[l] + w[l] if shifted else fs_raw[l] for l in range(q)]
 

@@ -22,16 +22,22 @@ from xlb_tpu_torch.kernels import _cuda
 from xlb_tpu_torch.kernels.collide_stream import f32_weights, pointwise_core
 
 
-def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True):
-    """Plain torch version of one fused step: pull-stream gather with
-    periodic wrap, then ``pointwise_core``, then the (shifted) store."""
-    fc = f.to(torch.float32)
-    c = vs._c
+def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=True):
+    """The plain step before its store: pull-stream gather of the float32
+    store-form field ``fc`` with periodic wrap, then ``pointwise_core``.
+    Returns the post-collision populations (q, *s), unshifted, float32."""
     dims = tuple(range(vs.d))
-    fs_raw = [torch.roll(fc[l], shifts=tuple(int(s) for s in c[:, l]), dims=dims) for l in range(vs.q)]
-    f_out = pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids)
-    w = f32_weights(vs)
-    return torch.stack([f_out[l] - w[l] if shifted else f_out[l] for l in range(vs.q)]).to(store_dtype)
+    fs_raw = [torch.roll(fc[l], shifts=tuple(int(s) for s in vs._c[:, l]), dims=dims) for l in range(vs.q)]
+    return torch.stack(pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids))
+
+
+def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True):
+    """Plain torch version of one fused step: ``plain_collide``, then the
+    (shifted) store."""
+    out = plain_collide(vs, bc_specs, f.to(torch.float32), mask_i32, omega, shifted, has_solids)
+    if shifted:
+        out = out - torch.tensor(f32_weights(vs), device=out.device).reshape((-1,) + (1,) * vs.d)
+    return out.to(store_dtype)
 
 
 def kernel_params(vs, bc_specs, has_solids):
@@ -63,7 +69,8 @@ class FusedKernel:
     input checks, device dispatch and the launch counters.
 
     Subclasses define ``launches`` and ``plain_calls`` (counts over all
-    their instances), ``plain`` and ``_launch``."""
+    their instances), ``plain`` and ``_launch``; a kernel with another
+    signature defines its own ``__call__`` around ``_dispatch``."""
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
                  store_dtype=torch.float32, shifted=False, has_solids=True):
@@ -99,21 +106,35 @@ class FusedKernel:
         if not (f.is_contiguous() and mask_i32.is_contiguous()):
             raise ValueError("f and the mask must be contiguous")
         if f.requires_grad:
-            raise RuntimeError("the fused CUDA step has no backward yet; use the TORCH tier to differentiate")
+            raise RuntimeError(
+                f"{type(self).__name__} has no autograd of its own: differentiate through stepper(...) or "
+                "build_multi_step (kernels.fused_step), whose autograd.Function runs the kernels on detached "
+                "tensors and pairs the single step with its adjoint kernel"
+            )
         if f.device.type not in ("cpu", "cuda"):
             raise ValueError(f"the fused step runs on CUDA (kernel) or CPU (plain version), not {f.device}")
 
-    def __call__(self, f, mask_i32, omega):
-        self._check(f, mask_i32)
+    def _dispatch(self, f, plain, launch):
+        """``plain()`` for a CPU tensor; for a CUDA tensor
+        ``launch(lib, stream) -> (result, cuda error)``, checked and
+        counted."""
         if f.device.type == "cpu":
-            return self.plain(f, mask_i32, omega)
+            return plain()
         lib = _cuda.load_library()
-        out = torch.empty_like(f)
         with torch.cuda.device(f.device):
-            err = self._launch(lib, f, mask_i32, out, float(omega), torch.cuda.current_stream(f.device).cuda_stream)
+            result, err = launch(lib, torch.cuda.current_stream(f.device).cuda_stream)
         _cuda.check(lib, err, f"{type(self).__name__} launch")
         type(self).launches += 1
-        return out
+        return result
+
+    def __call__(self, f, mask_i32, omega):
+        self._check(f, mask_i32)
+
+        def launch(lib, stream):
+            out = torch.empty_like(f)
+            return out, self._launch(lib, f, mask_i32, out, float(omega), stream)
+
+        return self._dispatch(f, lambda: self.plain(f, mask_i32, omega), launch)
 
 
 class CollideStreamStep(FusedKernel):

@@ -19,6 +19,7 @@ from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
 from xlb_tpu_torch.kernels.collide_stream import bc_id_shift
 from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
 
 TEMPORAL_STEPS = 2  # k of the window's k-step groups, as in xlb_tpu
 
@@ -58,14 +59,101 @@ def _stepper_config(stepper):
     )
 
 
+def _host_float(omega):
+    """omega as the Python float the kernels read (one read per call)."""
+    return float(omega.detach()) if isinstance(omega, torch.Tensor) else float(omega)
+
+
+class _FusedFunction(torch.autograd.Function):
+    """A fused step or window with the adjoint kernel's reverse sweep as its
+    backward, in place of ``xlb_tpu``'s ``custom_vjp``s
+    (``fused_step.py::build_fused_step`` and ``build_fused_window``). The
+    gradient of ``f_0`` comes back in ``f_0``'s dtype and that of a tensor
+    omega in omega's; the masks and BC prescriptions get none."""
+
+    @staticmethod
+    def forward(ctx, f_0, omega, mask_i32, omega_f, sweeps):
+        ctx.save_for_backward(f_0, mask_i32)
+        ctx.omega_f, ctx.sweeps = omega_f, sweeps
+        if isinstance(omega, torch.Tensor):
+            ctx.omega_like = (omega.device, omega.dtype, omega.shape)
+        return sweeps.value(f_0.detach(), mask_i32, omega_f)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        f_0, mask_i32 = ctx.saved_tensors
+        df, dom = ctx.sweeps.reverse(f_0.detach(), gbar, mask_i32, ctx.omega_f)
+        d_omega = None
+        if ctx.needs_input_grad[1]:
+            device, dtype, shape = ctx.omega_like
+            d_omega = dom.to(device=device, dtype=dtype).reshape(shape)
+        return df.to(f_0.dtype), d_omega, None, None, None
+
+
+class _FusedSweeps:
+    """The kernels of ``num_steps`` fused steps, and their forward and
+    reverse sweeps."""
+
+    def __init__(self, stepper, num_steps, shifted):
+        vs = stepper.velocity_set
+        self.pp = pp = stepper.precision_policy
+        self.shifted = shifted
+        self.num_steps = num_steps
+        self.k = k = min(TEMPORAL_STEPS, num_steps)
+        cfg = dict(_stepper_config(stepper), shifted=shifted, has_solids=getattr(stepper, "has_solids", True))
+        shape = stepper.grid.shape
+        self.single = CollideStreamStep(vs, shape, **cfg)
+        self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
+        self.n_k = num_steps // k if self.kstep is not None else 0
+        self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+        self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
+
+    def _to_store_form(self, f_0):
+        if not self.shifted:
+            return f_0
+        w_c = self.w_shift.to(device=f_0.device, dtype=self.pp.compute_dtype)
+        return (f_0.to(self.pp.compute_dtype) - w_c).to(self.pp.store_dtype)
+
+    def value(self, f_0, mask_i32, omega):
+        g = self._to_store_form(f_0)
+        for _ in range(self.n_k):
+            g = self.kstep(g, mask_i32, omega)
+        for _ in range(self.num_steps - self.n_k * self.k):
+            g = self.single(g, mask_i32, omega)
+        if self.shifted:
+            return g.to(self.pp.compute_dtype) + self.w_shift.to(device=g.device, dtype=self.pp.compute_dtype)
+        return g
+
+    def reverse(self, f_0, gbar, mask_i32, omega):
+        """Replay the forward with the single-step kernel, keeping every
+        step's input (store dtype), then run the adjoint kernel backwards
+        from the cotangent ``gbar``. The shift at the window boundary is
+        the identity for gradients. Returns (df_0 in the compute dtype,
+        d omega as a 0-d float32 tensor)."""
+        states = [self._to_store_form(f_0)] if self.num_steps else []
+        while len(states) < self.num_steps:
+            states.append(self.single(states[-1], mask_i32, omega))
+        ct = gbar.to(self.pp.compute_dtype).contiguous()
+        dom = torch.zeros((), dtype=torch.float32, device=ct.device)
+        while states:  # popped as the sweep goes, so each state is freed once used
+            ct, dom_field = self.adjoint(states.pop(), ct, mask_i32, omega)
+            dom = dom + torch.sum(dom_field.to(torch.float32))
+        return ct, dom
+
+
 def build_fused_step(stepper):
     """Build the CUDA-tier single step of an IncompressibleNavierStokesStepper:
     ``(f_0, f_1, bc_mask, missing_mask, omega, timestep) -> (f_0, f_1)``
-    with ``f_1`` the new state, in plain (unshifted) storage."""
-    fused = CollideStreamStep(stepper.velocity_set, stepper.grid.shape, **_stepper_config(stepper))
+    with ``f_1`` the new state, in plain (unshifted) storage.
+
+    The step is differentiable with respect to ``f_0`` and ``omega`` (a
+    float or a 0-d tensor): its backward is the adjoint kernel
+    (``kernels/adjoint_step.py``)."""
+    sweeps = _FusedSweeps(stepper, 1, shifted=False)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
-        return f_0, fused(f_0, pack_masks(bc_mask, missing_mask), omega)
+        mask_i32 = pack_masks(bc_mask, missing_mask)
+        return f_0, _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps)
 
     return step
 
@@ -83,35 +171,25 @@ def build_fused_window(stepper, num_steps):
     Groups of ``TEMPORAL_STEPS`` (k) steps run through the k-step kernel,
     the ``num_steps % k`` remainder through the single-step kernel.
 
+    The window is differentiable with respect to ``f_0`` and ``omega`` (a
+    float or a 0-d tensor; ``float(omega)`` is read once per window). Its
+    backward saves only the window's input, replays the forward with the
+    single-step kernel while keeping all ``num_steps`` states in the store
+    dtype -- memory is ``num_steps`` x one field -- and runs the adjoint
+    kernel in reverse. Differentiate long rollouts by chaining moderate
+    windows under ``torch.utils.checkpoint``. The gradient of ``f_0``
+    comes back in ``f_0``'s dtype.
+
     Returns ``run(f_0, f_1, bc_mask, missing_mask, omega) -> (f, f)``: the
     new state twice, in the compute dtype when shifted (quantizing g + w
     back to 16 bits would erase the deviations) and in the store dtype
     otherwise.
     """
-    vs = stepper.velocity_set
-    pp = stepper.precision_policy
-    shifted = pp.store_dtype.itemsize < 4
-    k = min(TEMPORAL_STEPS, num_steps)
-    cfg = dict(_stepper_config(stepper), shifted=shifted, has_solids=getattr(stepper, "has_solids", True))
-    shape = stepper.grid.shape
-
-    single = CollideStreamStep(vs, shape, **cfg)
-    kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
-    n_k = num_steps // k if kstep is not None else 0
-    w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
+    sweeps = _FusedSweeps(stepper, num_steps, shifted=stepper.precision_policy.store_dtype.itemsize < 4)
 
     def run(f_0, f_1, bc_mask, missing_mask, omega):
         mask_i32 = pack_masks(bc_mask, missing_mask)
-        if shifted:
-            w_c = w_shift.to(device=f_0.device, dtype=pp.compute_dtype)
-            g = (f_0.to(pp.compute_dtype) - w_c).to(pp.store_dtype)
-        else:
-            g = f_0
-        for _ in range(n_k):
-            g = kstep(g, mask_i32, omega)
-        for _ in range(num_steps - n_k * k):
-            g = single(g, mask_i32, omega)
-        f = g.to(pp.compute_dtype) + w_c if shifted else g
+        f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps)
         return f, f
 
     return run

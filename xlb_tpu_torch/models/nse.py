@@ -11,6 +11,13 @@ Two tiers:
 - CUDA: the fused collide-stream kernels (``xlb_tpu_torch.kernels``); one
   pass over device memory per step, or per k steps in a window. The grid
   must live on a CUDA device.
+
+Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
+and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
+per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
+``build_multi_step`` is the fused adjoint kernel
+(``kernels/adjoint_step.py``); the masks and BC prescriptions get no
+gradient.
 """
 
 import torch
@@ -148,7 +155,10 @@ class IncompressibleNavierStokesStepper(Stepper):
 
         On the CUDA tier this is the fused window
         (``kernels.fused_step.build_fused_window``): 16-bit storage runs in
-        deviation form and returns f_0 in the compute dtype."""
+        deviation form and returns f_0 in the compute dtype. Its backward
+        keeps ``num_steps`` states in the store dtype (memory = window x
+        one field); chain windows under ``torch.utils.checkpoint`` to
+        differentiate long rollouts."""
         if self.compute_backend == ComputeBackend.CUDA:
             from xlb_tpu_torch.kernels.fused_step import build_fused_window
 

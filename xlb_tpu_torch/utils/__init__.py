@@ -1,3 +1,3 @@
-from xlb_tpu_torch.utils.interop import fields_from_numpy, fields_to_numpy
+from xlb_tpu_torch.utils.interop import cotangent_from_numpy, fields_from_numpy, fields_to_numpy, gradients_to_numpy
 
-__all__ = ["fields_from_numpy", "fields_to_numpy"]
+__all__ = ["cotangent_from_numpy", "fields_from_numpy", "fields_to_numpy", "gradients_to_numpy"]

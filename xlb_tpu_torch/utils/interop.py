@@ -1,4 +1,5 @@
-"""Carry simulation state between ``xlb_tpu`` and this port as NumPy arrays.
+"""Carry simulation state, cotangents and gradients between ``xlb_tpu`` and
+this port as NumPy arrays.
 
 NumPy has no bfloat16 of its own: a bfloat16 field crosses as float32,
 which holds every bfloat16 value exactly, and is cast back on arrival.
@@ -19,9 +20,9 @@ def _to_tensor(a, device, dtype=None):
     return t.to(device)
 
 
-def fields_from_numpy(f_0, f_1, bc_mask, missing_mask, device="cpu", dtype=None):
+def fields_from_numpy(f_0, f_1, bc_mask, missing_mask, device="cuda", dtype=None):
     """Turn ``xlb_tpu``-layout fields (NumPy arrays) into the port's tensors
-    on ``device``. Dtypes are kept (NumPy bfloat16 arrives as bfloat16);
+    on ``device`` (the card unless the caller asks for another device). Dtypes are kept (NumPy bfloat16 arrives as bfloat16);
     ``dtype``, when given, is the populations' dtype -- e.g. bfloat16 for
     populations that crossed as float32."""
     return (
@@ -32,12 +33,25 @@ def fields_from_numpy(f_0, f_1, bc_mask, missing_mask, device="cpu", dtype=None)
     )
 
 
+def _as_numpy(t):
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def fields_to_numpy(f_0, f_1, bc_mask, missing_mask):
     """The reverse of :func:`fields_from_numpy`: host NumPy arrays, with
     bfloat16 populations as (exact) float32."""
+    return tuple(_as_numpy(t) for t in (f_0, f_1, bc_mask, missing_mask))
 
-    def as_numpy(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return tuple(as_numpy(t) for t in (f_0, f_1, bc_mask, missing_mask))
+def cotangent_from_numpy(g, device="cuda"):
+    """A cotangent of the populations (e.g. the ``g`` handed to
+    ``xlb_tpu``'s adjoint) as a float32 tensor on ``device``: cotangents
+    travel in the compute dtype."""
+    return _to_tensor(g, device, torch.float32)
+
+
+def gradients_to_numpy(df, dom_field):
+    """The adjoint's ``(df, dom_field)`` pair as host NumPy arrays
+    (bfloat16 as exact float32), to hold against ``xlb_tpu``'s."""
+    return _as_numpy(df), _as_numpy(dom_field)
