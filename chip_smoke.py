@@ -33,7 +33,27 @@
    device memory. Before it, CUDA-tier gradients are held against
    TORCH-tier autograd on the 64x48x40 cavity over 4 FP32FP32 steps.
    Launch counts are reset before and read after the training runs.
-7. Prints a JSON line of the card, MLUPS, training times and each
+7. Holds the 2D kernels (K3 single step, K4 k-step) against their plain
+   versions, f32 and bf16-shifted, on a seeded, perturbed 200x136 cavity
+   with halfway walls and on the 320x128 cylinder's BC set (Zou-He and
+   regularized inlet and outlet, halfway cylinder with its solid
+   interior), K4 at k = 2 and 8, and K4 (k = 8) against 8 K3 launches;
+   then, on the 2048^2 lid cavity, times each kernel and its plain version
+   beside the bound, K4 at k = 2, 4 and 8, and K4 (k = 8) over four output
+   tiles, each of which must give the default tile's result bit for bit.
+8. The 2D main path through the public API (examples/performance/
+   mlups_2d.py's scene and protocol): D2Q9, BGK, 2048^2, fullway walls,
+   equilibrium lid u = (0.02, 0), omega 1.6, build_multi_step(500) (K4 at
+   k = 8 and K3 for the remainder), 2 warm-up windows, then the best of 3
+   (MLUPS = 2048^2*500/s/1e6), under FP32FP32 and FP32BF16; then 10
+   FP32FP32 steps through stepper(...) against the TORCH tier. Launch
+   counts are reset before and read after this phase.
+9. The cylinder of examples/cfd/flow_past_cylinder_2d.py at its defaults
+   (320x128, Re 100, u_in 0.04, regularized inlet and outlet) on the CUDA
+   tier: 8000 steps in windows of 500, momentum-transfer drag after each;
+   prints Cd and the wake u_y amplitude, then holds 200 CUDA-tier steps
+   against the TORCH tier.
+10. Prints a JSON line of the card, MLUPS, training times and each
    kernel's per-dtype errors and times, then the kernels' JSON line, then
    the result line {"ok": true, "device": {...}} last.
 
@@ -69,7 +89,19 @@ FLOPS_PER_VOXEL = {
     "collide_stream_step": (202, 240),
     "collide_stream_kstep": (404, 480),
     "collide_stream_adjoint": (495, 514),
+    # D2Q9 (csrc/collide_stream_2d.cu, the lid cavity's epilogues): one step; the k-step k x that
+    "collide_stream_2d_step": (93, 111),
 }
+# the 2D main path: examples/performance/mlups_2d.py's scene and protocol
+N_2D = 2048
+WINDOW_2D = 500
+WARMUP_2D, REPS_2D = 2, 3
+OMEGA_2D = 1.6
+SMALL_2D = (200, 136)
+K_SWEEP_2D = (2, 4, 8)
+TILES_2D = ((24, 32), (32, 32), (40, 40), (32, 48))  # K4's output tiles (x, y) timed in [7]
+# the cylinder: examples/cfd/flow_past_cylinder_2d.py's defaults
+CYL_SHAPE, CYL_RE, CYL_U, CYL_STEPS, CYL_WINDOW = (320, 128), 100.0, 0.04, 8000, 500
 
 
 def check(cond, message):
@@ -123,12 +155,12 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(name, tensors, voxels, shifted):
+def bound(name, tensors, voxels, shifted, steps=1):
     """(least ms the card could take, "bytes" or "operations") for a kernel
     that reads its inputs once and writes its outputs once (``tensors``)
-    and does FLOPS_PER_VOXEL operations on each of ``voxels``."""
+    and does ``steps`` x FLOPS_PER_VOXEL operations on each of ``voxels``."""
     t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_VOXEL[name][int(shifted)] * voxels / F32_FLOPS_PER_S * 1e3
+    t_ops = steps * FLOPS_PER_VOXEL[name][int(shifted)] * voxels / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -426,6 +458,279 @@ def training_path(device):
     counts = {k.__name__: (k.launches, k.plain_calls) for k in kernels}
     return records, counts
 
+def scene_2d(kind, shape, policy, backend, device, inout="regularized"):
+    """A 2D scene through the port's public API: "cavity" (mlups_2d.py:
+    fullway walls, equilibrium lid), "halfway_cavity" (lid_driven_cavity_2d.py's
+    walls, same lid) or "cylinder" (flow_past_cylinder_2d.py at ``shape``,
+    Zou-He or regularized ``inout``, started from the uniform inflow).
+    Returns (stepper, (f_0, f_1, bc_mask, missing_mask), extras)."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import (EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC, RegularizedBC,
+                                        ZouHeBC)
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.helper import CustomInitializer
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.utils import omega_from_reynolds
+    from xlb_tpu_torch.velocity_set import D2Q9
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=D2Q9(), default_backend=backend, default_precision_policy=policy)
+    grid = xlb.grid_factory(shape, device=device)
+    box = grid.bounding_box_indices()
+    box_ne = grid.bounding_box_indices(remove_edges=True)
+    if kind in ("cavity", "halfway_cavity"):
+        walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right")], axis=1), axis=1)
+        wall_bc = FullwayBounceBackBC if kind == "cavity" else HalfwayBounceBackBC
+        bcs = [wall_bc(indices=walls.tolist()), EquilibriumBC(rho=1.0, u=(LID_U, 0.0), indices=box_ne["top"])]
+        stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type="BGK")
+        return stepper, stepper.prepare_fields(), {}
+    nx, ny = shape
+    d = ny // 4
+    cx, cy = nx // 4, ny // 2 + 1
+    X, Y = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    cyl = np.array(np.nonzero((X - cx) ** 2 + (Y - cy) ** 2 <= (d / 2) ** 2))
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+    bc_cyl = HalfwayBounceBackBC(indices=cyl.tolist())
+    inout_cls = {"zouhe": ZouHeBC, "regularized": RegularizedBC}[inout]
+    bcs = [
+        FullwayBounceBackBC(indices=walls.tolist()),
+        inout_cls("velocity", prescribed_value=(CYL_U, 0.0), indices=box_ne["left"]),
+        inout_cls("pressure", prescribed_value=1.0, indices=box_ne["right"]),
+        bc_cyl,
+    ]
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type="BGK")
+    fields = stepper.prepare_fields(initializer=CustomInitializer(rho_0=1.0, u_0=(CYL_U, 0.0)))
+    extras = {"bc_cyl": bc_cyl, "d": d, "probe": (cx + 2 * d, cy), "omega": omega_from_reynolds(CYL_RE, CYL_U, d)}
+    return stepper, fields, extras
+
+
+def kernel_variants_2d(kind, shape, device, seed, inout="regularized", steps=8):
+    """The 2D kernels on a seeded perturbed ``kind`` scene: one (store dtype,
+    K3, K4 at ``steps``, f, mask) per store dtype -- f32 plain storage and
+    bf16 deviation form."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    stepper, (_, _, bc_mask, missing_mask), _ = scene_2d(kind, shape, xlb.PrecisionPolicy.FP32FP32,
+                                                          xlb.ComputeBackend.TORCH, device, inout)
+    vs = stepper.velocity_set
+    specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+    mask = pack_masks(bc_mask, missing_mask)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1)
+    noise = torch.randn((vs.q,) + tuple(shape), generator=gen, device=device)
+    plain_f = (w * (1.0 + 0.05 * noise)).contiguous()
+    dev_g = (0.02 * w * noise).to(torch.bfloat16).contiguous()
+    out = []
+    for store, shifted, f in ((torch.float32, False, plain_f), (torch.bfloat16, True, dev_g)):
+        kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+        out.append((store, CollideStream2DStep(vs, shape, **kw), CollideStream2DKStep(vs, shape, steps=steps, **kw),
+                    f, mask))
+    return out
+
+
+def compare_kernels_2d(kind, shape, device, seed, inout="regularized"):
+    """K3 and K4 (k = 2 and 8) against their plain versions, and K4 (k = 8)
+    against 8 K3 launches, both store dtypes. Returns {kernel: {label: max |err|}}."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep
+
+    results = {"collide_stream_2d_step": {}, "collide_stream_2d_kstep": {}}
+    for store, one, k8, f, mask in kernel_variants_2d(kind, shape, device, seed, inout):
+        label = ("f32" if store == torch.float32 else "bf16-shifted") + f" {kind}" + (f" {inout}" if kind == "cylinder" else "")
+        eps = torch.finfo(store).eps
+        ulp8 = dict(rtol=8 * eps, atol=8 * eps * 0.05)  # store-dtype 8-ulp bound
+        tol = dict(rtol=1e-5, atol=1e-6) if store == torch.float32 else ulp8  # f32: reassociation and FMA contraction
+        k2 = CollideStream2DKStep(one.vs, shape, bc_specs=one.bc_specs, store_dtype=store, shifted=one.shifted,
+                                  has_solids=one.has_solids, steps=2)
+        r1, p1 = one(f, mask, OMEGA_2D), one.plain(f, mask, OMEGA_2D)
+        r2, p2 = k2(f, mask, OMEGA_2D), k2.plain(f, mask, OMEGA_2D)
+        r8, p8 = k8(f, mask, OMEGA_2D), k8.plain(f, mask, OMEGA_2D)
+        g = f
+        for _ in range(8):
+            g = one(g, mask, OMEGA_2D)
+        torch.cuda.synchronize()
+        for t in (r1, r2, r8, g):
+            check(bool(torch.isfinite(t.float()).all()), f"{label}: non-finite kernel output at {shape}")
+        e1, ok1 = within(r1, p1, **tol)
+        e2, ok2 = within(r2, p2, **tol)
+        e8, ok8 = within(r8, p8, **tol)
+        e88, ok88 = within(r8, g, **ulp8)
+        print(f"  {shape} {label}: K3 vs plain max|err| {e1:.3e} ok={ok1}; K4 k=2 vs plain {e2:.3e} ok={ok2}; "
+              f"K4 k=8 vs plain {e8:.3e} ok={ok8}; K4 k=8 vs 8 K3 launches {e88:.3e} ok={ok88}")
+        check(ok1 and ok2 and ok8 and ok88, f"{label}: a 2D kernel disagrees with its reference at {shape}")
+        results["collide_stream_2d_step"][label] = e1
+        results["collide_stream_2d_kstep"][label] = max(e2, e8, e88)
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_kernels_2d(device):
+    """K3 and K4 (k = 2, 4, 8) and their plain versions on the 2048^2 lid
+    cavity, CUDA events, beside the bound, then K4 (k = 8) over the output
+    tiles of TILES_2D. Returns {kernel: {label: record}}."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2d import TILE, CollideStream2DKStep
+
+    shape = (N_2D, N_2D)
+    results = {"collide_stream_2d_step": {}, "collide_stream_2d_kstep": {}, "collide_stream_2d_kstep_tiles": {}}
+    for store, one, _, f, mask in kernel_variants_2d("cavity", shape, device, seed=9):
+        label = "f32" if store == torch.float32 else "bf16-shifted"
+        voxels = mask.numel()
+        rec = {"ms": cuda_ms(lambda: one(f, mask, OMEGA_2D), 50), "plain_ms": cuda_ms(lambda: one.plain(f, mask, OMEGA_2D), 3)}
+        rec["bound_ms"], rec["bound_by"] = bound("collide_stream_2d_step", (f, mask, f), voxels, one.shifted)
+        results["collide_stream_2d_step"][label] = rec
+        print(f"  {shape} {label}: K3 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"by {rec['bound_by']})")
+        for k in K_SWEEP_2D:
+            ks = CollideStream2DKStep(one.vs, shape, bc_specs=one.bc_specs, store_dtype=store, shifted=one.shifted,
+                                      has_solids=one.has_solids, steps=k)
+            rec = {"ms": cuda_ms(lambda: ks(f, mask, OMEGA_2D), 20), "plain_ms": cuda_ms(lambda: ks.plain(f, mask, OMEGA_2D), 1)}
+            rec["bound_ms"], rec["bound_by"] = bound("collide_stream_2d_step", (f, mask, f), voxels, one.shifted, steps=k)
+            results["collide_stream_2d_kstep"][f"{label} k={k}"] = rec
+            print(f"  {shape} {label}: K4 k={k} {rec['ms']:.4f} ms = {rec['ms'] / k:.4f} ms/step (plain "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        # K4 at k = 8 over output tiles: every tile must give the default tile's result bit for bit
+        ks = CollideStream2DKStep(one.vs, shape, bc_specs=one.bc_specs, store_dtype=store, shifted=one.shifted,
+                                  has_solids=one.has_solids, steps=8)
+        want = ks(f, mask, OMEGA_2D)
+        for tile in TILES_2D:
+            ks.tile = tile
+            check(torch.equal(ks(f, mask, OMEGA_2D), want), f"{label}: K4 with a {tile} tile differs from {TILE}")
+            ms = cuda_ms(lambda: ks(f, mask, OMEGA_2D), 20)
+            results["collide_stream_2d_kstep_tiles"][f"{label} {tile[0]}x{tile[1]}"] = ms
+            print(f"  {shape} {label}: K4 k=8 tile {tile[0]}x{tile[1]} {ms:.4f} ms")
+        del want
+        torch.cuda.empty_cache()
+    return results
+
+
+def physics_checks_2d(stepper, f, bc_mask, label, u_max):
+    """Finite, |mean rho - 1| < 1e-2 and fluid max|u| <= u_max on the fluid
+    voxels. Returns (mean rho, max |u|)."""
+    import torch
+
+    from xlb_tpu_torch.ops.macroscopic import density, velocity
+
+    f = f.float()
+    check(bool(torch.isfinite(f).all()), f"{label}: non-finite populations")
+    rho = density(f)
+    u = velocity(f, rho, stepper.velocity_set._c)
+    fluid = bc_mask[0] == 0
+    mean_rho = float(rho[0][fluid].mean())
+    umax = float(torch.linalg.vector_norm(u, dim=0)[fluid].max())
+    print(f"  {label}: fluid mean rho {mean_rho:.6f}, fluid max|u| {umax:.6f}")
+    check(abs(mean_rho - 1.0) < 1e-2, f"{label}: |mean rho - 1| >= 1e-2")
+    check(umax <= u_max, f"{label}: max|u| {umax} above {u_max}")
+    return mean_rho, umax
+
+
+def tier_parity_2d(stepper, fields, omega, steps, rtol, atol, label):
+    """``steps`` steps of the CUDA tier's stepper(...) against the TORCH
+    tier on the card, from the same state. Returns max |err|."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    f_0, f_1, bc_mask, missing_mask = fields
+    plain = IncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=stepper.boundary_conditions,
+                                              collision_type="BGK", compute_backend=xlb.ComputeBackend.TORCH)
+    a0, a1 = f_0.contiguous(), f_1.clone()
+    b0, b1 = f_0.clone(), f_1.clone()
+    for i in range(steps):
+        a0, a1 = stepper(a0, a1, bc_mask, missing_mask, omega, i)
+        a0, a1 = a1, a0
+        b0, b1 = plain(b0, b1, bc_mask, missing_mask, omega, i)
+        b0, b1 = b1, b0
+    err, ok = within(a0, b0, rtol=rtol, atol=atol)
+    print(f"  {label}: {steps} steps, CUDA tier vs TORCH tier on the card: max|err| {err:.3e} ok={ok}")
+    check(ok, f"{label}: CUDA tier disagrees with the TORCH tier over {steps} steps")
+    return err
+
+
+def main_path_2d(device):
+    """mlups_2d.py's protocol under both policies, then 10 FP32FP32 steps
+    of stepper(...) against the TORCH tier. Returns ({policy: (mlups,
+    ms_per_step)}, launch counts)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+
+    shape = (N_2D, N_2D)
+    kernels = (CollideStream2DStep, CollideStream2DKStep)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    perf = {}
+    for policy in (xlb.PrecisionPolicy.FP32FP32, xlb.PrecisionPolicy.FP32BF16):
+        stepper, (f_0, f_1, bc_mask, missing_mask), _ = scene_2d("cavity", shape, policy, xlb.ComputeBackend.CUDA, device)
+        run = stepper.build_multi_step(WINDOW_2D)
+        for _ in range(WARMUP_2D):
+            f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA_2D)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(REPS_2D):
+            t0 = time.perf_counter()
+            f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA_2D)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        mlups = N_2D**2 * WINDOW_2D / best / 1e6
+        perf[policy.name] = (mlups, best / WINDOW_2D * 1e3)
+        print(f"  {policy.name}: {mlups:.1f} MLUPS, {best / WINDOW_2D * 1e3:.5f} ms/step "
+              f"(best of {REPS_2D} windows of {WINDOW_2D} after {WARMUP_2D} warm-up)")
+        physics_checks_2d(stepper, f_0, bc_mask, policy.name, 1.05 * LID_U)
+        if policy == xlb.PrecisionPolicy.FP32FP32:
+            tier_parity_2d(stepper, (f_0, f_1, bc_mask, missing_mask), OMEGA_2D, 10, 1e-4, 1e-6, "FP32FP32")
+        del stepper, f_0, f_1, bc_mask, missing_mask, run
+        torch.cuda.empty_cache()
+    counts = {k.__name__: (k.launches, k.plain_calls) for k in kernels}
+    return perf, counts
+
+
+def cylinder_path(device):
+    """flow_past_cylinder_2d.py at its defaults on the CUDA tier. Returns
+    the record of the run and the launch counts."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.ops import Macroscopic, MomentumTransfer
+
+    kernels = (CollideStream2DStep, CollideStream2DKStep)
+    for k in kernels:
+        k.launches = k.plain_calls = 0
+    stepper, fields, ex = scene_2d("cylinder", CYL_SHAPE, xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.CUDA, device)
+    f_0, f_1, bc_mask, missing_mask = fields
+    omega, d, (px, py) = ex["omega"], ex["d"], ex["probe"]
+    momentum_transfer = MomentumTransfer(ex["bc_cyl"])
+    run = stepper.build_multi_step(CYL_WINDOW)
+    uy, cd = [], []
+    t0 = time.perf_counter()
+    for start in range(0, CYL_STEPS, CYL_WINDOW):
+        f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega, start)
+        _, u = Macroscopic()(f_0)
+        uy.append(float(u[1, px, py]))
+        force = momentum_transfer(f_0, f_1, bc_mask, missing_mask)
+        cd.append(float(force[0]) / (0.5 * CYL_U**2 * d))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    half = np.asarray(uy[len(uy) // 2:])
+    amp = float(half.max() - half.min())
+    print(f"  cylinder {CYL_SHAPE} Re={CYL_RE} omega={omega:.6f}: Cd={cd[-1]:.4f}, wake u_y amplitude {amp:.3e} "
+          f"({'shedding' if amp > 1e-3 * CYL_U else 'steady'}), {CYL_STEPS} steps in {seconds:.2f} s")
+    check(all(np.isfinite(cd)) and all(np.isfinite(uy)), "cylinder: non-finite drag or probe velocity")
+    check(cd[-1] > 0.0, "cylinder: drag coefficient not positive")
+    mean_rho, umax = physics_checks_2d(stepper, f_0, bc_mask, "cylinder", float("inf"))
+    counts = {k.__name__: (k.launches, k.plain_calls) for k in kernels}
+    err = tier_parity_2d(stepper, (f_0, f_1, bc_mask, missing_mask), omega, 200, 1e-4, 1e-5, "cylinder FP32FP32")
+    return {"cd": cd, "uy_probe": uy, "uy_amplitude": amp, "seconds": seconds, "mean_rho": mean_rho,
+            "max_u": umax, "tier_err": err}, counts
+
 
 def main():
     import torch
@@ -479,6 +784,26 @@ def main():
         check(plain_calls == 0, f"{name}'s plain version ran on the training path")
     check(train_counts["CollideStreamAdjoint"][0] == 2 * TRAIN_ITERS * TRAIN_WINDOW, "adjoint launches != W per backward")
 
+    print("[7] the 2D kernels against their plain versions")
+    errs_2d = compare_kernels_2d("halfway_cavity", SMALL_2D, device, seed=11)
+    for inout in ("zouhe", "regularized"):
+        for name, recs in compare_kernels_2d("cylinder", CYL_SHAPE, device, seed=12, inout=inout).items():
+            errs_2d[name].update(recs)
+    big_2d = time_kernels_2d(device)
+
+    print(f"[8] 2D main path at {N_2D}^2, {smi}")
+    perf_2d, counts_2d = main_path_2d(device)
+    print(f"  launch counts (launches, plain calls): {counts_2d}")
+    for name, (launches, plain_calls) in counts_2d.items():
+        check(launches > 0, f"{name} was not launched on the 2D main path")
+        check(plain_calls == 0, f"{name}'s plain version ran on the 2D main path")
+
+    print(f"[9] the cylinder at its script's defaults, {smi}")
+    cylinder, cyl_counts = cylinder_path(device)
+    print(f"  launch counts (launches, plain calls): {cyl_counts}")
+    for name, (launches, plain_calls) in cyl_counts.items():
+        check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the cylinder")
+
     kernels = []
     for name, cls, source, rep, launches in (
         ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream.cu",
@@ -497,9 +822,22 @@ def main():
             "ms": prod["ms"], "plain_ms": prod["plain_ms"], "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
             "library_ms": None,  # no single PyTorch call computes an LBM step or its adjoint
         })
+    for name, cls, rep, label in (
+        ("collide_stream_2d_step", "CollideStream2DStep", "xlb_tpu/kernels/collide_stream_2d.py:111", "f32"),
+        ("collide_stream_2d_kstep", "CollideStream2DKStep", "xlb_tpu/kernels/collide_stream_2d.py:270", "f32 k=8"),
+    ):
+        prod = big_2d[name][label]  # mlups_2d.py's default policy, FP32FP32; K4 at the default k = 8
+        kernels.append({
+            "name": name, "route": "cuda", "source": "xlb_tpu_torch/csrc/collide_stream_2d.cu", "replaces": rep,
+            "launches": counts_2d[cls][0], "max_abs_err": max(errs_2d[name].values()),
+            "ms": prod["ms"], "plain_ms": prod["plain_ms"], "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"card": smi, "mlups": {k: v[0] for k, v in perf.items()},
                       "ms_per_step": {k: v[1] for k, v in perf.items()}, "training": training,
-                      "kernel_variants": big}))
+                      "kernel_variants": big, "mlups_2d": {k: v[0] for k, v in perf_2d.items()},
+                      "ms_per_step_2d": {k: v[1] for k, v in perf_2d.items()}, "kernel_variants_2d": big_2d,
+                      "kernel_errors_2d": errs_2d, "cylinder": cylinder}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -154,3 +154,91 @@ def test_cuda_window_gradients_match_torch_tier(cuda_device):
         grads.append((f.grad, omega.grad))
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=2e-4, atol=1e-6)
     torch.testing.assert_close(grads[0][1], grads[1][1], rtol=2e-3, atol=0.0)
+
+
+SHAPE_2D = (72, 52)  # ragged against the k-step's 32 x 48 tiles
+
+
+def _scene_2d(kind, backend, device, policy="FP32FP32"):
+    """The 2D scenes of chip_smoke.py at SHAPE_2D: "cavity" (fullway walls),
+    "halfway_cavity" (moving halfway walls and a solid block), or the
+    cylinder with "zouhe" or "regularized" inlet and outlet."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import (EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC, RegularizedBC,
+                                        ZouHeBC)
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.velocity_set import D2Q9
+
+    xlb.init(velocity_set=D2Q9(), default_backend=xlb.ComputeBackend[backend],
+             default_precision_policy=xlb.PrecisionPolicy[policy])
+    grid = xlb.grid_factory(SHAPE_2D, device=device)
+    box, box_ne = grid.bounding_box_indices(), grid.bounding_box_indices(remove_edges=True)
+    nx, ny = SHAPE_2D
+    if kind in ("cavity", "halfway_cavity"):
+        walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right")], axis=1), axis=1)
+        wall = (FullwayBounceBackBC(indices=walls.tolist()) if kind == "cavity"
+                else HalfwayBounceBackBC(indices=walls.tolist(), prescribed_value=(0.01, 0.0)))
+        bcs = [wall, EquilibriumBC(rho=1.0, u=(0.05, 0.0), indices=box_ne["top"])]
+    else:
+        d = ny // 4
+        X, Y = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+        cyl = np.array(np.nonzero((X - nx // 4) ** 2 + (Y - ny // 2 - 1) ** 2 <= (d / 2) ** 2))
+        walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+        inout = ZouHeBC if kind == "zouhe" else RegularizedBC
+        bcs = [FullwayBounceBackBC(indices=walls.tolist()), inout("velocity", prescribed_value=(0.04, 0.0), indices=box_ne["left"]),
+               inout("pressure", prescribed_value=1.0, indices=box_ne["right"]), HalfwayBounceBackBC(indices=cyl.tolist())]
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs)
+    return stepper, stepper.prepare_fields()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["cavity", "halfway_cavity", "zouhe", "regularized"])
+def test_2d_kernels_match_plain_versions(cuda_device, kind, store):
+    """K3 and K4 (k = 2, 8) against their plain versions for every 2D BC
+    kind: equilibrium and fullway (cavity), halfway with a moving wall and
+    a solid block, Zou-He and regularized with the cylinder's solid
+    interior. f32: reassociation and FMA contraction; bf16: the store
+    dtype's 8-ulp bound."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    store = getattr(torch, store)
+    stepper, (_, _, bc_mask, missing_mask) = _scene_2d(kind, "TORCH", cuda_device)
+    vs = stepper.velocity_set
+    specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+    mask = pack_masks(bc_mask, missing_mask)
+    if kind == "halfway_cavity":
+        mask[30:40, 20:28] = 255 << 19
+    shifted = store == torch.bfloat16
+    w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1)
+    noise = torch.from_numpy(np.random.default_rng(3).standard_normal((vs.q,) + SHAPE_2D).astype(np.float32))
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+    eps = torch.finfo(store).eps
+    tol = dict(rtol=1e-5, atol=1e-6) if store == torch.float32 else dict(rtol=8 * eps, atol=8 * eps * 0.05)
+    kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=True)
+    kernels = [CollideStream2DStep(vs, SHAPE_2D, **kw)] + [CollideStream2DKStep(vs, SHAPE_2D, steps=k, **kw) for k in (2, 8)]
+    for fused in kernels:
+        launches = type(fused).launches
+        torch.testing.assert_close(fused(f, mask, 1.6).float(), fused.plain(f, mask, 1.6).float(), **tol)
+        assert type(fused).launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cavity", "regularized"])
+def test_2d_cuda_window_matches_torch_tier(cuda_device, kind):
+    """21 steps: the 2D fused window (two K4 calls at k = 8 and five K3)
+    against the plain TORCH tier on the card, FP32FP32 (rtol 1e-4: float32
+    roundoff and FMA contraction over 21 steps)."""
+    import torch
+
+    from xlb_tpu_torch import ComputeBackend
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    cuda, (f_0, f_1, bc_mask, missing_mask) = _scene_2d(kind, "CUDA", cuda_device)
+    plain = IncompressibleNavierStokesStepper(cuda.grid, cuda.boundary_conditions, compute_backend=ComputeBackend.TORCH)
+    a, _ = cuda.build_multi_step(21)(f_0, f_1, bc_mask, missing_mask, 1.6)
+    b, _ = plain.build_multi_step(21)(f_0.clone(), f_1.clone(), bc_mask, missing_mask, 1.6)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

@@ -207,3 +207,111 @@ def test_kernel_params_layout():
     assert p.n_bc == 2 and list(p.bc_kind[:2]) == [1, 0] and list(p.bc_id[:2]) == [1, 2]
     np.testing.assert_array_equal(np.array(p.w[:]), vs._w.astype(np.float32))
     np.testing.assert_array_equal(np.array(p.bc_feq[1][:]), specs[1]["feq"])
+
+
+def test_no_jax_guard_covers_the_2d_modules():
+    scanned = {p.name for p in PACKAGE.rglob("*.py")}
+    assert {"collide_stream_2d.py", "bc_zouhe.py", "bc_regularized.py", "force.py", "units.py"} <= scanned
+
+
+def _wrapper_inputs_2d(kind="cylinder-regularized"):
+    from tests.test_torch_2d import build_scene_2d
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    st, (f_0, _, bc_mask, missing_mask), _ = build_scene_2d("xlb_tpu_torch", kind, (16, 12))
+    specs = [bc_to_spec(bc, st.velocity_set) for bc in st.boundary_conditions]
+    return st.velocity_set, specs, f_0, pack_masks(bc_mask, missing_mask)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "noncontiguous", "requires_grad"])
+@pytest.mark.parametrize("kernel", ["step_2d", "kstep_2d"])
+def test_2d_wrappers_reject_bad_inputs(kernel, bad):
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+
+    vs, specs, f, mask = _wrapper_inputs_2d()
+    fused = (CollideStream2DStep if kernel == "step_2d" else CollideStream2DKStep)(vs, (16, 12), bc_specs=specs)
+    if bad == "dtype":
+        f = f.to(torch.bfloat16)
+    elif bad == "shape":
+        f = f[:, :-1].contiguous()
+    elif bad == "mask_dtype":
+        mask = mask.to(torch.int64)
+    elif bad == "noncontiguous":
+        f = torch.empty((9, 12, 16)).permute(0, 2, 1)
+    else:
+        f = f.clone().requires_grad_(True)
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        fused(f, mask, 1.6)
+    assert fused(*_wrapper_inputs_2d()[2:], 1.6).shape == (9, 16, 12)  # good inputs still run
+
+
+def test_2d_kernel_configuration_guards():
+    """The 2D kernels take D2Q9 only, 2 <= k <= 8, and the 3D kernels none
+    of the 2D-only epilogue kinds; D3Q27 still raises."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream_2d import (
+        KSTEP_THREADS, KSTEP_VOXELS, TILE, CollideStream2DKStep, CollideStream2DStep, kstep_2d_smem_bytes)
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep, kernel_params
+    from xlb_tpu_torch.velocity_set import D3Q19, D3Q27
+
+    vs, specs, _, _ = _wrapper_inputs_2d()
+    assert {s["kind"] for s in specs} == {"fullway", "regularized", "halfway"}
+    for steps in (1, 9):
+        with pytest.raises(ValueError):
+            CollideStream2DKStep(vs, (16, 12), bc_specs=specs, steps=steps)
+    with pytest.raises(NotImplementedError):
+        CollideStream2DStep(D3Q19(), (4, 4, 4))
+    with pytest.raises(NotImplementedError):
+        CollideStreamStep(vs, (16, 12))
+    for kind in ("halfway", "zouhe", "regularized"):
+        spec = next(s for s in _wrapper_inputs_2d("cylinder-zouhe")[1] + specs if s["kind"] == kind)
+        with pytest.raises(NotImplementedError, match="3D"):
+            kernel_params(D3Q19(), [spec], has_solids=True)
+    with pytest.raises(NotImplementedError):
+        kernel_params(D3Q27(), [], has_solids=False)
+    # at every k a sweep's region fits the voxels the block holds, and the tile a block's shared memory
+    for steps in range(2, 9):
+        assert (TILE[0] + 2 * steps - 2) * (TILE[1] + 2 * steps - 2) <= KSTEP_THREADS * KSTEP_VOXELS
+        for store in (torch.float32, torch.bfloat16):
+            assert kstep_2d_smem_bytes(steps, TILE, store.itemsize) <= 227 * 1024
+
+
+def test_2d_kernel_params_layout():
+    """The BC table of the 2D kernels: halfway's moving-wall term and flag,
+    Zou-He / regularized velocity, density and velocity/pressure flag."""
+    from xlb_tpu_torch.kernels import _cuda
+    from xlb_tpu_torch.kernels.collide_stream_dma import kernel_params
+    from tests.test_torch_2d import build_scene_2d
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec
+
+    st, _, _ = build_scene_2d("xlb_tpu_torch", "halfway_cavity", (16, 12), u_wall=(0.01, 0.0))
+    vs = st.velocity_set
+    p = kernel_params(vs, [bc_to_spec(b, vs) for b in st.boundary_conditions], has_solids=True)
+    assert p.n_bc == 2 and p.bc_kind[0] == _cuda.BC_KIND["halfway"] and p.bc_flag[0] == 1
+    np.testing.assert_array_equal(np.array(p.bc_mw[0][:9]), (6.0 * vs._w * (vs._c.T @ [0.01, 0.0])).astype(np.float32))
+    np.testing.assert_array_equal(np.array(p.w[:9]), vs._w.astype(np.float32))
+    np.testing.assert_array_equal(np.array(p.w45[:9]), (4.5 * vs._w).astype(np.float32))
+    vs, specs, _, _ = _wrapper_inputs_2d("cylinder-zouhe")
+    p = kernel_params(vs, specs, has_solids=True)
+    assert list(p.bc_kind[:4]) == [1, 3, 3, 2] and list(p.bc_flag[:4]) == [0, 0, 1, 0]
+    assert list(p.bc_value[1][:2]) == [np.float32(0.04), 0.0] and p.bc_value[2][0] == 1.0
+
+
+def test_spatial_prescriptions_raise():
+    """Prescriptions that vary in space need the aux channels, which are
+    not ported: they raise and say so."""
+    import xlb_tpu_torch
+    from xlb_tpu_torch.boundary import HalfwayBounceBackBC, ZouHeBC
+    from xlb_tpu_torch.velocity_set import D2Q9
+
+    xlb_tpu_torch.init(D2Q9())
+    idx = [[0, 1], [3, 3]]
+    with pytest.raises(NotImplementedError, match="aux"):
+        HalfwayBounceBackBC(indices=idx, profile=lambda coords: np.zeros_like(coords))
+    with pytest.raises(NotImplementedError, match="aux"):
+        ZouHeBC("velocity", profile=lambda: np.zeros((2, 5)), indices=idx)
+    with pytest.raises(NotImplementedError, match="aux"):
+        ZouHeBC("pressure", profile=lambda coords: coords[0], indices=idx)

@@ -7,6 +7,8 @@ pass through. Prescribed values are kept on the BC object, in NumPy.
 
 from enum import Enum, auto
 
+import numpy as np
+
 from xlb_tpu_torch.operator import Operator
 from xlb_tpu_torch.boundary.registry import boundary_condition_registry
 
@@ -33,10 +35,28 @@ class BoundaryCondition(Operator):
         super().__init__(velocity_set, precision_policy, compute_backend)
         self.indices = indices
         self.implementation_step = implementation_step
+        # fluid-side BCs (halfway, Zou-He, regularized) dilate interior
+        # geometry into the shell where their missing directions live
+        self.needs_padding = False
 
     def boundary_map(self, bc_mask):
         """(1, *spatial) boolean: voxels claimed by this BC."""
         return bc_mask == self.id
+
+    def boundary_map_q(self, bc_mask):
+        """(q, *spatial) boolean: claimed voxels broadcast over directions."""
+        return (bc_mask == self.id).expand((self.velocity_set.q,) + tuple(bc_mask.shape[1:]))
+
+    def pad_indices(self):
+        """This BC's indices dilated by one stencil hop in every direction
+        when ``needs_padding`` (the masker tags that shell of interior
+        geometry), else the indices as given."""
+        bc_indices = np.asarray(self.indices)
+        if not self.needs_padding:
+            return bc_indices
+        c = self.velocity_set._c  # (d, q)
+        dilated = bc_indices[:, :, None] + c[:, None, :]
+        return np.unique(dilated.reshape(self.velocity_set.d, -1), axis=1)
 
     def __call__(self, f_pre, f_post, bc_mask, missing_mask):
         raise NotImplementedError

@@ -4,7 +4,10 @@
 algorithm of ``xlb_tpu.boundary.maskers``:
 
 1. pad the domain by one voxel, marking the exterior as "missing source";
-2. tag solid voxels of interior geometry as missing sources too;
+2. tag solid voxels of interior geometry as missing sources too, and give
+   the BC id to the dilated shell around them; a fluid-side BC
+   (``needs_padding``) tags the solid voxels themselves cell type 255, so
+   the steppers keep them out;
 3. pull-stream the boolean mask once: direction l of voxel x becomes missing
    iff its pull source x - c_l is a missing source;
 4. crop the padding and write BC ids into ``bc_mask``.
@@ -15,6 +18,7 @@ It runs once at setup time, on the grid's device.
 import numpy as np
 import torch
 
+from xlb_tpu_torch.cell_type import BC_SOLID
 from xlb_tpu_torch.operator import Operator
 from xlb_tpu_torch.ops.stream import stream_pull
 
@@ -45,12 +49,20 @@ class IndicesBoundaryMasker(Operator):
         for bc in bclist:
             if bc.indices is None:
                 raise ValueError(f"{type(bc).__name__} has no indices")
-            padded = as_index(np.asarray(bc.indices) + 1)
-            if self._interior_flags(bc.indices, grid_shape).any():
+            bc_indices = np.asarray(bc.indices)
+            solid = None
+            if self._interior_flags(bc_indices, grid_shape).any():
                 # interior geometry: the given indices are solid voxels and
-                # missing sources for their neighbours
-                miss_ext[(slice(None),) + padded] = True
-            bc_ext[padded] = bc.id
+                # missing sources for their neighbours; the BC claims the
+                # dilated shell
+                solid = as_index(bc_indices + 1)
+                miss_ext[(slice(None),) + solid] = True
+                tag = as_index(bc.pad_indices() + 1)
+            else:
+                tag = as_index(bc_indices + 1)
+            bc_ext[tag] = bc.id
+            if solid is not None and bc.needs_padding:
+                bc_ext[solid] = BC_SOLID
 
         miss_ext = stream_pull(miss_ext, self.velocity_set._c)
 

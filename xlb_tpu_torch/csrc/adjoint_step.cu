@@ -73,35 +73,36 @@ __global__ void __launch_bounds__(kAdjointThreads)
 
   // pull source of direction l = push target of direction l
   auto neighbour = [&](int l) {
-    const int xs = wrap1(x - c_dir(0, l), X);
-    const int ys = wrap1(y - c_dir(1, l), Y);
-    const int zs = wrap1(z - c_dir(2, l), Z);
+    const int xs = wrap1(x - D3Q19::c(0, l), X);
+    const int ys = wrap1(y - D3Q19::c(1, l), Y);
+    const int zs = wrap1(z - D3Q19::c(2, l), Z);
     return (size_t(xs) * Y + ys) * Z + zs;
   };
   auto pull = [&](int l) { return to_f32(f[l * plane + neighbour(l)]); };
 
-  const int bc = cell_type(mask[v]);
-  float fs[XLB_Q];
-  const bool fixed = streamed_populations<SHIFTED>(pull, bc, p, fs);
+  const int packed = mask[v];
+  const int bc = cell_type(packed);
+  float fs[D3Q19::q];
+  const bool fixed = streamed_populations<D3Q19, SHIFTED, false>(pull, pull, packed, p, fs);
 
-  float gv[XLB_Q];
+  float gv[D3Q19::q];
 #pragma unroll
-  for (int l = 0; l < XLB_Q; ++l) gv[l] = g[l * plane + v];
+  for (int l = 0; l < D3Q19::q; ++l) gv[l] = g[l * plane + v];
 
-  float h[XLB_Q];
+  float h[D3Q19::q];
   float d_omega = 0.0f;
   if (is_solid(bc, p)) {
 #pragma unroll
-    for (int m = 0; m < XLB_Q; ++m) h[m] = 0.0f;
+    for (int m = 0; m < D3Q19::q; ++m) h[m] = 0.0f;
   } else if (is_fullway(bc, p)) {
 #pragma unroll
-    for (int m = 0; m < XLB_Q; ++m) h[m] = gv[c_opp(m)];
+    for (int m = 0; m < D3Q19::q; ++m) h[m] = gv[D3Q19::opp(m)];
   } else {
-    float rho, inv_rho, u[3], feq[XLB_Q];
-    moments_equilibrium(fs, p, rho, inv_rho, u, feq);
+    float rho, inv_rho, u[3], feq[D3Q19::q];
+    moments_equilibrium<D3Q19>(fs, p, rho, inv_rho, u, feq);
     float G = 0.0f, gw = 0.0f, P[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int l = 0; l < XLB_Q; ++l) {
+    for (int l = 0; l < D3Q19::q; ++l) {
       G += gv[l] * feq[l];
       d_omega += gv[l] * (feq[l] - fs[l]);
       const float gwl = gv[l] * p.w[l];
@@ -109,14 +110,14 @@ __global__ void __launch_bounds__(kAdjointThreads)
       float cu = 0.0f;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        if (c_dir(a, l) == 1) cu += u[a];
-        if (c_dir(a, l) == -1) cu -= u[a];
+        if (D3Q19::c(a, l) == 1) cu += u[a];
+        if (D3Q19::c(a, l) == -1) cu -= u[a];
       }
       const float t = gwl * (3.0f + 9.0f * cu);
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        if (c_dir(a, l) == 1) P[a] += t;
-        if (c_dir(a, l) == -1) P[a] -= t;
+        if (D3Q19::c(a, l) == 1) P[a] += t;
+        if (D3Q19::c(a, l) == -1) P[a] -= t;
       }
     }
     float B[3];
@@ -124,23 +125,23 @@ __global__ void __launch_bounds__(kAdjointThreads)
     for (int a = 0; a < 3; ++a) B[a] = P[a] - 3.0f * u[a] * gw;
     const float A = G * inv_rho - (B[0] * u[0] + B[1] * u[1] + B[2] * u[2]);
 #pragma unroll
-    for (int m = 0; m < XLB_Q; ++m) {
+    for (int m = 0; m < D3Q19::q; ++m) {
       float jt = A;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        if (c_dir(a, m) == 1) jt += B[a];
-        if (c_dir(a, m) == -1) jt -= B[a];
+        if (D3Q19::c(a, m) == 1) jt += B[a];
+        if (D3Q19::c(a, m) == -1) jt -= B[a];
       }
       h[m] = (1.0f - omega) * gv[m] + omega * jt;
     }
   }
   if (fixed) {
 #pragma unroll
-    for (int m = 0; m < XLB_Q; ++m) h[m] = 0.0f;
+    for (int m = 0; m < D3Q19::q; ++m) h[m] = 0.0f;
   }
 
 #pragma unroll
-  for (int m = 0; m < XLB_Q; ++m) {
+  for (int m = 0; m < D3Q19::q; ++m) {
     const size_t t = neighbour(m);
     float d = h[m];
     if (p.has_solids && cell_type(mask[t]) == XLB_SOLID_ID) d += g[m * plane + t];

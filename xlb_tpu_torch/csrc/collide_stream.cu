@@ -43,13 +43,6 @@ constexpr int kStepThreads = 256;
 constexpr int kKstepThreads = 256;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in limit per block on sm_90
 
-__device__ __forceinline__ int wrapmod(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
-
 __host__ __device__ inline size_t halo_volume(int h, int tx, int ty, int tz) {
   return size_t(tx + 2 * h) * size_t(ty + 2 * h) * size_t(tz + 2 * h);
 }
@@ -58,8 +51,8 @@ __host__ __device__ inline size_t halo_volume(int h, int tx, int ty, int tz) {
 // buffer B (depth K-2, only for K > 2). Mirrored by kstep_smem_bytes in
 // collide_stream_2step.py.
 __host__ __device__ inline size_t kstep_smem_bytes(int k, int tx, int ty, int tz, size_t tsize) {
-  size_t b = align16(XLB_Q * halo_volume(k - 1, tx, ty, tz) * tsize);
-  if (k > 2) b += align16(XLB_Q * halo_volume(k - 2, tx, ty, tz) * tsize);
+  size_t b = align16(D3Q19::q * halo_volume(k - 1, tx, ty, tz) * tsize);
+  if (k > 2) b += align16(D3Q19::q * halo_volume(k - 2, tx, ty, tz) * tsize);
   return b;
 }
 
@@ -77,17 +70,17 @@ __global__ void __launch_bounds__(kStepThreads)
   const size_t plane = n;
 
   auto pull = [&](int l) {
-    const int xs = wrap1(x - c_dir(0, l), X);
-    const int ys = wrap1(y - c_dir(1, l), Y);
-    const int zs = wrap1(z - c_dir(2, l), Z);
+    const int xs = wrap1(x - D3Q19::c(0, l), X);
+    const int ys = wrap1(y - D3Q19::c(1, l), Y);
+    const int zs = wrap1(z - D3Q19::c(2, l), Z);
     return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
   };
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
-  float o[XLB_Q];
-  collide_voxel<SHIFTED>(pull, center, mask[v], omega, p, o);
+  float o[D3Q19::q];
+  collide_voxel<D3Q19, SHIFTED, false>(pull, center, mask[v], omega, p, o);
 #pragma unroll
-  for (int l = 0; l < XLB_Q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
+  for (int l = 0; l < D3Q19::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
 }
 
 template <typename T, bool SHIFTED>
@@ -98,7 +91,7 @@ __global__ void __launch_bounds__(kKstepThreads)
   const size_t plane = size_t(X) * Y * Z;
   const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
   T* s_a = reinterpret_cast<T*>(smem);
-  T* s_b = reinterpret_cast<T*>(smem + align16(XLB_Q * halo_volume(K - 1, TX, TY, TZ) * sizeof(T)));
+  T* s_b = reinterpret_cast<T*>(smem + align16(D3Q19::q * halo_volume(K - 1, TX, TY, TZ) * sizeof(T)));
 
   for (int s = 1; s <= K; ++s) {
     const int h = K - s;  // sweep s writes the depth-h region around the tile
@@ -116,32 +109,32 @@ __global__ void __launch_bounds__(kKstepThreads)
       const size_t g = (size_t(gx) * Y + gy) * Z + gz;
       const int packed = mask[g];
 
-      float o[XLB_Q];
+      float o[D3Q19::q];
       if (s == 1) {
         // first sweep: pull from device memory through L1/L2
         auto pull = [&](int l) {
-          const int xs = wrap1(gx - c_dir(0, l), X);
-          const int ys = wrap1(gy - c_dir(1, l), Y);
-          const int zs = wrap1(gz - c_dir(2, l), Z);
+          const int xs = wrap1(gx - D3Q19::c(0, l), X);
+          const int ys = wrap1(gy - D3Q19::c(1, l), Y);
+          const int zs = wrap1(gz - D3Q19::c(2, l), Z);
           return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
         };
         auto center = [&](int l) { return to_f32(f[l * plane + g]); };
-        collide_voxel<SHIFTED>(pull, center, packed, omega, p, o);
+        collide_voxel<D3Q19, SHIFTED, false>(pull, center, packed, omega, p, o);
       } else {
         // region-local index in the source: dst index + 1 - c_l
         auto pull = [&](int l) {
-          return to_f32(src[l * svol + ((ix + 1 - c_dir(0, l)) * sy + (iy + 1 - c_dir(1, l))) * sz +
-                            (iz + 1 - c_dir(2, l))]);
+          return to_f32(src[l * svol + ((ix + 1 - D3Q19::c(0, l)) * sy + (iy + 1 - D3Q19::c(1, l))) * sz +
+                            (iz + 1 - D3Q19::c(2, l))]);
         };
         auto center = [&](int l) { return to_f32(src[l * svol + ((ix + 1) * sy + (iy + 1)) * sz + (iz + 1)]); };
-        collide_voxel<SHIFTED>(pull, center, packed, omega, p, o);
+        collide_voxel<D3Q19, SHIFTED, false>(pull, center, packed, omega, p, o);
       }
       if (s < K) {
 #pragma unroll
-        for (int l = 0; l < XLB_Q; ++l) dst[l * vol + i] = from_f32<T>(o[l]);  // store-dtype rounding
+        for (int l = 0; l < D3Q19::q; ++l) dst[l * vol + i] = from_f32<T>(o[l]);  // store-dtype rounding
       } else if (x0 + ix < X && y0 + iy < Y && z0 + iz < Z) {
 #pragma unroll
-        for (int l = 0; l < XLB_Q; ++l) out[l * plane + g] = from_f32<T>(o[l]);
+        for (int l = 0; l < D3Q19::q; ++l) out[l * plane + g] = from_f32<T>(o[l]);
       }
     }
     __syncthreads();

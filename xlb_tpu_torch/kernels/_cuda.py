@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels of ``xlb_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links them into a shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), which is loaded with ``ctypes``. The library lands in
 ``build/xlb_tpu_torch/<hash>/`` beside the package, keyed by a hash of the
@@ -20,23 +21,30 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "xlb_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-Q = 19
+MAX_Q = 19
 MAX_BC = 8
 STORE_KIND = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' store_kind codes
+# the launchers' bc_kind codes (enum in csrc/collide_stream.cuh)
+BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4}
 
 
 class XlbStepParams(ctypes.Structure):
     """Mirror of ``struct XlbStepParams`` in ``csrc/collide_stream.cuh``."""
 
     _fields_ = [
-        ("w", ctypes.c_float * Q),
+        ("w", ctypes.c_float * MAX_Q),
+        ("w45", ctypes.c_float * MAX_Q),
         ("has_solids", ctypes.c_int),
         ("n_bc", ctypes.c_int),
         ("bc_kind", ctypes.c_int * MAX_BC),
         ("bc_id", ctypes.c_int * MAX_BC),
-        ("bc_feq", (ctypes.c_float * Q) * MAX_BC),
+        ("bc_flag", ctypes.c_int * MAX_BC),
+        ("bc_feq", (ctypes.c_float * MAX_Q) * MAX_BC),
+        ("bc_mw", (ctypes.c_float * MAX_Q) * MAX_BC),
+        ("bc_value", (ctypes.c_float * 3) * MAX_BC),
     ]
 
 
@@ -68,12 +76,27 @@ def build_library():
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib_path.exists():
-            tmp = out_dir / f"libxlb_tpu_torch.{os.getpid()}.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            pid = os.getpid()
+            sources = sorted(CSRC.glob("*.cu"))
+            objects = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+            outputs = [proc.communicate()[0] for proc in procs]
+            tmp = out_dir / f"libxlb_tpu_torch.{pid}.so"
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+            failed = [(cmd, out) for cmd, out, proc in zip(cmds, outputs, procs) if proc.returncode != 0]
+            if not failed:
+                proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                outputs.append(proc.stdout)
+                if proc.returncode != 0:
+                    failed.append((link, proc.stdout))
+            log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds + [link], outputs))
+            (out_dir / "build.log").write_text(log)
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+            if failed:
+                cmd, out = failed[0]
+                raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
             os.replace(tmp, lib_path)
     return lib_path
 
@@ -90,6 +113,10 @@ def load_library():
     lib.xlb_collide_stream_kstep.restype = i32
     lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_adjoint.restype = i32
+    lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_2d_step.restype = i32
+    lib.xlb_collide_stream_2d_kstep.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_2d_kstep.restype = i32
     lib.xlb_error_string.argtypes = [i32]
     lib.xlb_error_string.restype = ctypes.c_char_p
     lib.xlb_params_size.argtypes = []

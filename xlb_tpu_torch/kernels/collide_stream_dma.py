@@ -40,27 +40,46 @@ def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shi
     return out.to(store_dtype)
 
 
-def kernel_params(vs, bc_specs, has_solids):
-    """The kernels' launch parameters (``XlbStepParams``) for a D3Q19 scene."""
-    from xlb_tpu_torch.velocity_set import D3Q19
+# epilogue kinds built into the 2D kernels only (behind the EXT switch of
+# csrc/collide_stream.cuh); the 3D kernels (K1, K2, K8) do not take them yet
+EXT_KINDS = ("halfway", "zouhe", "regularized")
 
-    ref = D3Q19()
-    if vs.d != 3 or vs.q != _cuda.Q or not np.array_equal(vs._c, ref._c):
-        raise NotImplementedError(f"the CUDA kernels are built for xlb_tpu's D3Q19 direction order, got {vs}")
+
+def _f32_list(values):
+    return [float(x) for x in np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1)]
+
+
+def kernel_params(vs, bc_specs, has_solids):
+    """The kernels' launch parameters (``XlbStepParams``) for a D3Q19 or a
+    D2Q9 scene."""
+    from xlb_tpu_torch.velocity_set import D2Q9, D3Q19
+
+    ref = D3Q19() if vs.d == 3 else D2Q9()
+    if vs.q != ref.q or not np.array_equal(vs._c, ref._c):
+        raise NotImplementedError(f"the CUDA kernels are built for xlb_tpu's D3Q19 and D2Q9 direction orders, got {vs}")
     if len(bc_specs) > _cuda.MAX_BC:
         raise NotImplementedError(f"the CUDA kernels take at most {_cuda.MAX_BC} BCs, got {len(bc_specs)}")
+    q = vs.q
     p = _cuda.XlbStepParams()
-    p.w[:] = f32_weights(vs)
+    p.w[:q] = f32_weights(vs)
+    p.w45[:q] = _f32_list(4.5 * vs._w)
     p.has_solids = int(bool(has_solids))
     p.n_bc = len(bc_specs)
-    kinds = {"equilibrium": 0, "fullway": 1}
     for b, spec in enumerate(bc_specs):
-        if spec["kind"] not in kinds:
-            raise NotImplementedError(f"BC kind {spec['kind']!r} is not ported to the CUDA kernels")
-        p.bc_kind[b] = kinds[spec["kind"]]
+        kind = spec["kind"]
+        if kind not in _cuda.BC_KIND or (vs.d == 3 and kind in EXT_KINDS):
+            raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
+        p.bc_kind[b] = _cuda.BC_KIND[kind]
         p.bc_id[b] = int(spec["id"])
-        if spec["kind"] == "equilibrium":
-            p.bc_feq[b][:] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
+        if kind == "equilibrium":
+            p.bc_feq[b][:q] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
+        elif kind == "halfway" and spec["mw"] is not None:
+            p.bc_flag[b] = 1
+            p.bc_mw[b][:q] = _f32_list(spec["mw"])
+        elif kind in ("zouhe", "regularized"):
+            value = _f32_list(spec["value"])
+            p.bc_flag[b] = int(spec["bc_type"] == "pressure")
+            p.bc_value[b][: len(value)] = value
     return p
 
 
@@ -69,13 +88,16 @@ class FusedKernel:
     input checks, device dispatch and the launch counters.
 
     Subclasses define ``launches`` and ``plain_calls`` (counts over all
-    their instances), ``plain`` and ``_launch``; a kernel with another
-    signature defines its own ``__call__`` around ``_dispatch``."""
+    their instances), ``plain`` and ``_launch``, and ``dims`` when they run
+    another dimension than 3; a kernel with another signature defines its
+    own ``__call__`` around ``_dispatch``."""
+
+    dims = 3
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
                  store_dtype=torch.float32, shifted=False, has_solids=True):
-        if velocity_set.d != 3:
-            raise NotImplementedError("only the 3D fused step is ported")
+        if velocity_set.d != self.dims:
+            raise NotImplementedError(f"{type(self).__name__} runs {self.dims}D scenes, got {velocity_set}")
         if collision != "BGK":
             raise NotImplementedError(f"only BGK is ported to the fused step, got {collision!r}")
         if compute_dtype != torch.float32:

@@ -2,8 +2,10 @@
 
 Translates BC objects into static kernel epilogue specs, packs
 ``bc_mask`` / ``missing_mask`` into one int32 voxel field, and builds the
-CUDA-tier step and window. BCs supported in the fused step so far:
-EquilibriumBC and FullwayBounceBackBC; any other kind raises.
+CUDA-tier step and window, in 3D (D3Q19) and 2D (D2Q9). BCs supported in
+the fused step so far: EquilibriumBC and FullwayBounceBackBC, and in 2D
+HalfwayBounceBackBC (constant moving wall), ZouHeBC and RegularizedBC
+(constant prescriptions); any other kind raises.
 
 None of the TPU machinery of ``xlb_tpu.kernels.fused_step`` is carried
 over: no z padding to lane multiples, no tile estimators for on-chip
@@ -14,14 +16,18 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.boundary.base import ImplementationStep
-from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC
+from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC, HalfwayBounceBackBC
 from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
+from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
+from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC
 from xlb_tpu_torch.kernels.collide_stream import bc_id_shift
 from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
 from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
 
-TEMPORAL_STEPS = 2  # k of the window's k-step groups, as in xlb_tpu
+# default k of the window's k-step groups by dimension, as in xlb_tpu
+TEMPORAL_STEPS = {2: 8, 3: 2}
 
 
 def bc_to_spec(bc, velocity_set):
@@ -31,6 +37,13 @@ def bc_to_spec(bc, velocity_set):
         return {"kind": "equilibrium", "id": bc.id, "step": step, "feq": bc.prescribed_feq_np().astype(np.float32)}
     if isinstance(bc, FullwayBounceBackBC):
         return {"kind": "fullway", "id": bc.id, "step": step}
+    if isinstance(bc, HalfwayBounceBackBC):
+        return {"kind": "halfway", "id": bc.id, "step": step, "mw": bc.moving_wall_np()}
+    if isinstance(bc, (ZouHeBC, RegularizedBC)):
+        kind = "regularized" if isinstance(bc, RegularizedBC) else "zouhe"
+        value = np.asarray(bc.prescribed_values, dtype=np.float64)
+        spec_value = value.reshape(-1) if bc.bc_type == "velocity" else float(value.reshape(-1)[0])
+        return {"kind": kind, "id": bc.id, "step": step, "bc_type": bc.bc_type, "value": spec_value}
     raise NotImplementedError(
         f"{type(bc).__name__} is not yet supported by the fused CUDA kernels; use ComputeBackend.TORCH"
     )
@@ -65,15 +78,16 @@ def _host_float(omega):
 
 
 class _FusedFunction(torch.autograd.Function):
-    """A fused step or window with the adjoint kernel's reverse sweep as its
-    backward, in place of ``xlb_tpu``'s ``custom_vjp``s
-    (``fused_step.py::build_fused_step`` and ``build_fused_window``). The
-    gradient of ``f_0`` comes back in ``f_0``'s dtype and that of a tensor
-    omega in omega's; the masks and BC prescriptions get none."""
+    """A fused step or window with its reverse sweep as its backward, in
+    place of ``xlb_tpu``'s ``custom_vjp``s (``fused_step.py::
+    build_fused_step`` and ``build_fused_window``): the adjoint kernel in
+    3D, the TORCH tier's VJP for the 2D step. The gradient of ``f_0`` comes
+    back in ``f_0``'s dtype and that of a tensor omega in omega's; the
+    masks and BC prescriptions get none."""
 
     @staticmethod
-    def forward(ctx, f_0, omega, mask_i32, omega_f, sweeps):
-        ctx.save_for_backward(f_0, mask_i32)
+    def forward(ctx, f_0, omega, mask_i32, omega_f, sweeps, masks):
+        ctx.save_for_backward(f_0, mask_i32, *masks)
         ctx.omega_f, ctx.sweeps = omega_f, sweeps
         if isinstance(omega, torch.Tensor):
             ctx.omega_like = (omega.device, omega.dtype, omega.shape)
@@ -81,31 +95,43 @@ class _FusedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        f_0, mask_i32 = ctx.saved_tensors
-        df, dom = ctx.sweeps.reverse(f_0.detach(), gbar, mask_i32, ctx.omega_f)
+        f_0, mask_i32, *masks = ctx.saved_tensors
+        df, dom = ctx.sweeps.reverse(f_0.detach(), gbar, mask_i32, ctx.omega_f, masks)
         d_omega = None
         if ctx.needs_input_grad[1]:
             device, dtype, shape = ctx.omega_like
             d_omega = dom.to(device=device, dtype=dtype).reshape(shape)
-        return df.to(f_0.dtype), d_omega, None, None, None
+        return df.to(f_0.dtype), d_omega, None, None, None, None
 
 
 class _FusedSweeps:
     """The kernels of ``num_steps`` fused steps, and their forward and
-    reverse sweeps."""
+    reverse sweeps. Groups of k (``temporal_steps``) steps run through the
+    k-step kernel, the remainder through the single-step kernel; 3D takes
+    k <= num_steps and 2D the k it is given, as ``xlb_tpu``'s windows do."""
 
-    def __init__(self, stepper, num_steps, shifted):
+    def __init__(self, stepper, num_steps, shifted, temporal_steps=None):
         vs = stepper.velocity_set
+        self.stepper = stepper
         self.pp = pp = stepper.precision_policy
         self.shifted = shifted
         self.num_steps = num_steps
-        self.k = k = min(TEMPORAL_STEPS, num_steps)
+        k = TEMPORAL_STEPS[vs.d] if temporal_steps is None else int(temporal_steps)
         cfg = dict(_stepper_config(stepper), shifted=shifted, has_solids=getattr(stepper, "has_solids", True))
         shape = stepper.grid.shape
-        self.single = CollideStreamStep(vs, shape, **cfg)
-        self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
-        self.n_k = num_steps // k if self.kstep is not None else 0
-        self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+        if vs.d == 2:
+            self.k = k
+            self.single = CollideStream2DStep(vs, shape, **cfg)
+            self.kstep = CollideStream2DKStep(vs, shape, steps=k, **cfg) if k >= 2 and num_steps >= 2 else None
+            # xlb_tpu's 2D window has no backward and its step differentiates
+            # through the jnp tier; there is no 2D adjoint kernel
+            self.adjoint = None
+        else:
+            self.k = k = min(k, num_steps)
+            self.single = CollideStreamStep(vs, shape, **cfg)
+            self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
+            self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+        self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
     def _to_store_form(self, f_0):
@@ -124,12 +150,16 @@ class _FusedSweeps:
             return g.to(self.pp.compute_dtype) + self.w_shift.to(device=g.device, dtype=self.pp.compute_dtype)
         return g
 
-    def reverse(self, f_0, gbar, mask_i32, omega):
+    def reverse(self, f_0, gbar, mask_i32, omega, masks):
         """Replay the forward with the single-step kernel, keeping every
         step's input (store dtype), then run the adjoint kernel backwards
         from the cotangent ``gbar``. The shift at the window boundary is
         the identity for gradients. Returns (df_0 in the compute dtype,
-        d omega as a 0-d float32 tensor)."""
+        d omega as a 0-d float32 tensor). Without an adjoint kernel (2D),
+        the single step's backward is the TORCH tier's VJP, as ``xlb_tpu``
+        takes the jnp tier's (``fused_step.py:436-438``)."""
+        if self.adjoint is None:
+            return self._reverse_torch_tier(f_0, gbar, omega, masks)
         states = [self._to_store_form(f_0)] if self.num_steps else []
         while len(states) < self.num_steps:
             states.append(self.single(states[-1], mask_i32, omega))
@@ -140,6 +170,18 @@ class _FusedSweeps:
             dom = dom + torch.sum(dom_field.to(torch.float32))
         return ct, dom
 
+    def _reverse_torch_tier(self, f_0, gbar, omega, masks):
+        if self.num_steps != 1 or self.shifted:
+            raise NotImplementedError("only the unshifted single fused step differentiates without an adjoint kernel")
+        bc_mask, missing_mask = masks
+        om = torch.tensor(omega, dtype=self.pp.compute_dtype, device=f_0.device)
+
+        def step(f, o):
+            return self.stepper._step_pull(f, f, bc_mask, missing_mask, o, 0)[1]
+
+        _, vjp = torch.func.vjp(step, f_0, om)
+        return vjp(gbar.to(self.pp.store_dtype))
+
 
 def build_fused_step(stepper):
     """Build the CUDA-tier single step of an IncompressibleNavierStokesStepper:
@@ -148,17 +190,18 @@ def build_fused_step(stepper):
 
     The step is differentiable with respect to ``f_0`` and ``omega`` (a
     float or a 0-d tensor): its backward is the adjoint kernel
-    (``kernels/adjoint_step.py``)."""
+    (``kernels/adjoint_step.py``) in 3D, and ``torch.func.vjp`` of the
+    TORCH-tier step in 2D, where the forward still runs the 2D kernel."""
     sweeps = _FusedSweeps(stepper, 1, shifted=False)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
         mask_i32 = pack_masks(bc_mask, missing_mask)
-        return f_0, _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps)
+        return f_0, _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
 
     return step
 
 
-def build_fused_window(stepper, num_steps):
+def build_fused_window(stepper, num_steps, temporal_steps=None):
     """A ``num_steps``-window of the fused step.
 
     Under a 16-bit store dtype the populations live in device memory in
@@ -168,8 +211,10 @@ def build_fused_window(stepper, num_steps):
     at every load and store -- the same pair of constants as ``xlb_tpu``,
     under which a 16-bit rest state maps to g = 0 exactly.
 
-    Groups of ``TEMPORAL_STEPS`` (k) steps run through the k-step kernel,
-    the ``num_steps % k`` remainder through the single-step kernel.
+    Groups of ``temporal_steps`` (k; by default ``TEMPORAL_STEPS``: 8 in
+    2D, 2 in 3D, as in ``xlb_tpu``; 2 <= k <= 8 in 2D, or 1 for single
+    steps only) steps run through the k-step kernel, the
+    ``num_steps % k`` remainder through the single-step kernel.
 
     The window is differentiable with respect to ``f_0`` and ``omega`` (a
     float or a 0-d tensor; ``float(omega)`` is read once per window). Its
@@ -178,18 +223,29 @@ def build_fused_window(stepper, num_steps):
     dtype -- memory is ``num_steps`` x one field -- and runs the adjoint
     kernel in reverse. Differentiate long rollouts by chaining moderate
     windows under ``torch.utils.checkpoint``. The gradient of ``f_0``
-    comes back in ``f_0``'s dtype.
+    comes back in ``f_0``'s dtype. The 2D window has no backward, as in
+    ``xlb_tpu``: under autograd it raises ``NotImplementedError``.
 
     Returns ``run(f_0, f_1, bc_mask, missing_mask, omega) -> (f, f)``: the
     new state twice, in the compute dtype when shifted (quantizing g + w
     back to 16 bits would erase the deviations) and in the store dtype
     otherwise.
     """
-    sweeps = _FusedSweeps(stepper, num_steps, shifted=stepper.precision_policy.store_dtype.itemsize < 4)
+    sweeps = _FusedSweeps(stepper, num_steps, shifted=stepper.precision_policy.store_dtype.itemsize < 4,
+                          temporal_steps=temporal_steps)
 
     def run(f_0, f_1, bc_mask, missing_mask, omega):
         mask_i32 = pack_masks(bc_mask, missing_mask)
-        f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps)
+        if sweeps.adjoint is None:
+            wants_grad = f_0.requires_grad or (isinstance(omega, torch.Tensor) and omega.requires_grad)
+            if wants_grad and torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "the 2D fused window has no backward (as in xlb_tpu); differentiate 2D rollouts through "
+                    "ComputeBackend.TORCH, or the CUDA tier's single stepper(...)"
+                )
+            f = sweeps.value(f_0.detach(), mask_i32, _host_float(omega))
+        else:
+            f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
         return f, f
 
     return run

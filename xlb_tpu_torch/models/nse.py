@@ -8,15 +8,17 @@ advances one LBM step with the caller swapping buffers -- the interface of
 Two tiers:
 
 - TORCH (default): the plain torch pull step below, on any device.
-- CUDA: the fused collide-stream kernels (``xlb_tpu_torch.kernels``); one
-  pass over device memory per step, or per k steps in a window. The grid
-  must live on a CUDA device.
+- CUDA: the fused collide-stream kernels (``xlb_tpu_torch.kernels``), 3D
+  (D3Q19) and 2D (D2Q9); one pass over device memory per step, or per k
+  steps in a window. The grid must live on a CUDA device.
 
 Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
 and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
 per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
 ``build_multi_step`` is the fused adjoint kernel
-(``kernels/adjoint_step.py``); the masks and BC prescriptions get no
+(``kernels/adjoint_step.py``) in 3D; in 2D, as in ``xlb_tpu``, the
+backward of ``stepper(...)`` is the TORCH tier's VJP and the window has
+none (it raises under autograd). The masks and BC prescriptions get no
 gradient.
 """
 
@@ -85,7 +87,9 @@ class IncompressibleNavierStokesStepper(Stepper):
     def prepare_fields(self, initializer=None):
         """Allocate fields, rasterize BCs into the masks, and initialize f.
 
-        Returns (f_0, f_1, bc_mask, missing_mask)."""
+        ``initializer(bc_mask, f)``, e.g. ``helper.CustomInitializer``,
+        replaces the rest-state equilibrium. Returns (f_0, f_1, bc_mask,
+        missing_mask)."""
         _, f_0, f_1, missing_mask, bc_mask = create_nse_fields(
             grid=self.grid, velocity_set=self.velocity_set, precision_policy=self.precision_policy
         )
@@ -154,11 +158,12 @@ class IncompressibleNavierStokesStepper(Stepper):
         returns the post-window ``(f_0, f_1)`` with f_0 the current state.
 
         On the CUDA tier this is the fused window
-        (``kernels.fused_step.build_fused_window``): 16-bit storage runs in
-        deviation form and returns f_0 in the compute dtype. Its backward
-        keeps ``num_steps`` states in the store dtype (memory = window x
-        one field); chain windows under ``torch.utils.checkpoint`` to
-        differentiate long rollouts."""
+        (``kernels.fused_step.build_fused_window``, k-step groups of 8 in
+        2D and 2 in 3D): 16-bit storage runs in deviation form and returns
+        f_0 in the compute dtype. Its backward (3D) keeps ``num_steps``
+        states in the store dtype (memory = window x one field); chain
+        windows under ``torch.utils.checkpoint`` to differentiate long
+        rollouts."""
         if self.compute_backend == ComputeBackend.CUDA:
             from xlb_tpu_torch.kernels.fused_step import build_fused_window
 

@@ -1,3 +1,11 @@
 from xlb_tpu_torch.utils.interop import cotangent_from_numpy, fields_from_numpy, fields_to_numpy, gradients_to_numpy
+from xlb_tpu_torch.utils.units import omega_from_reynolds, viscosity_from_omega
 
-__all__ = ["cotangent_from_numpy", "fields_from_numpy", "fields_to_numpy", "gradients_to_numpy"]
+__all__ = [
+    "cotangent_from_numpy",
+    "fields_from_numpy",
+    "fields_to_numpy",
+    "gradients_to_numpy",
+    "omega_from_reynolds",
+    "viscosity_from_omega",
+]
