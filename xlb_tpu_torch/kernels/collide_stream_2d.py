@@ -82,7 +82,6 @@ class CollideStream2DKStep(_Fused2D):
         if not 2 <= steps <= MAX_STEPS:
             raise ValueError(f"2D temporal blocking takes 2 <= steps <= {MAX_STEPS}, got {steps}")
         self.steps = int(steps)
-        self.tile = TILE
 
     def plain(self, f, mask_i32, omega):
         """k single plain steps, each rounded to the store dtype."""
@@ -93,7 +92,7 @@ class CollideStream2DKStep(_Fused2D):
 
     def _launch(self, lib, f, mask_i32, out, omega, stream):
         X, Y = self.shape
-        TX, TY = self.tile
+        TX, TY = TILE
         return lib.xlb_collide_stream_2d_kstep(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), int(self.ext), self.steps, f.data_ptr(),
             mask_i32.data_ptr(), out.data_ptr(), X, Y, TX, TY, omega, ctypes.byref(self.params), stream,
