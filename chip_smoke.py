@@ -52,7 +52,30 @@
    tier: 8000 steps in windows of 500, momentum-transfer drag after each;
    prints Cd and the wake u_y amplitude, then holds 200 CUDA-tier steps
    against the TORCH tier.
-10. Prints a JSON line of the card, MLUPS, training times and each
+10. Holds the multires kernels against their plain versions at the
+   shapes of bench.py's multires scenes, f32 and bf16-shifted, with and
+   without solid blocks: K7 as the finest pair with ring freeze and the
+   coalesced average (194^3 ring box), the coarsest single sub-step
+   (96^3) and the middle single with ring freeze and average (98^3); K6's
+   configuration (the pair over a common ring, no side output); K5 on the
+   96^3 coarsest level. The pair must equal two single launches bit for
+   bit. The non-solid variants are timed (CUDA events) beside the bound.
+11. The multires main path (examples/performance/mlups_3d_multires.py's
+   scenes and protocol, as bench.py:129-137 runs them): the 2-level fully
+   refined 96^3/192^3 scene and the 3-level half-box pyramid of three
+   96^3 levels, FUSION_AT_FINEST, omega 1.6, through
+   MultiresSimulationManager.run(20, window=20): one warm-up window, then
+   the best of 3 (weighted MLUPS = sum_l cells_l 2^(L-1-l) x 20 / s /
+   1e6), FP32FP32 and FP32BF16; launch counts around the timed windows;
+   the tier attributes; one profiled window (device busy share, largest
+   kernels); physics checks; FP32FP32 also 2 coarse steps of the CUDA tier
+   against the TORCH tier from a seeded perturbed state (5e-6).
+12. The walled 2-level cavity (fullway walls, equilibrium lid, a coarse
+   fullway voxel inside the refined region, a halfway solid block on the
+   finest level) under FUSION_AT_FINEST_SFV_ALL: its kernels against
+   their plain versions, then 2 coarse steps with the coarsest collide
+   through K5 (launches counted), against the TORCH tier (5e-6).
+13. Prints a JSON line of the card, MLUPS, training times and each
    kernel's per-dtype errors and times, then the kernels' JSON line, then
    the result line {"ok": true, "device": {...}} last.
 
@@ -90,6 +113,10 @@ FLOPS_PER_VOXEL = {
     "collide_stream_adjoint": (495, 514),
     # D2Q9 (csrc/collide_stream_2d.cu, the lid cavity's epilogues): one step; the k-step k x that
     "collide_stream_2d_step": (93, 111),
+    # multires (csrc/collide_then_stream.cu, csrc/collide_only.cu): the same moments, equilibrium and
+    # BGK per voxel and sub-step as the 3D step; the pair 2 x that
+    "collide_then_stream": (202, 240),
+    "collide_only": (202, 202),
 }
 # the 2D main path: examples/performance/mlups_2d.py's scene and protocol
 N_2D = 2048
@@ -529,9 +556,9 @@ def kernel_variants_2d(kind, shape, device, seed, inout="regularized"):
     return out
 
 
-def held_2d(a, ref, store):
+def held(a, ref, store):
     """(max |a - ref|, the largest share of its tolerance any entry of ``a``
-    uses) for a 2D kernel's output against its plain version's. f32
+    uses) for a kernel's output against its plain version's. f32
     storage: rtol 1e-5, atol 1e-6 (reassociation and FMA contraction).
     bf16 deviation form: 8 bf16 ulps, of the entry (rtol) and of its
     direction's median |ref| (atol), so a direction lost or swapped fails."""
@@ -542,7 +569,7 @@ def held_2d(a, ref, store):
         rtol, atol = 1e-5, 1e-6
     else:
         rtol = 8 * torch.finfo(store).eps
-        atol = rtol * ref.abs().flatten(1).median(dim=1).values.reshape(-1, 1, 1)
+        atol = rtol * ref.abs().flatten(1).median(dim=1).values.reshape((-1,) + (1,) * (ref.ndim - 1))
     err = (a - ref).abs()
     return float(err.max()), float((err / (atol + rtol * ref.abs())).max())
 
@@ -568,7 +595,7 @@ def compare_kernels_2d(kind, shape, device, seed, inout="regularized", steps=(2,
             out, ref = kern(f, mask, OMEGA_2D), kern.plain(f, mask, OMEGA_2D)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out.float()).all()), f"{label}: non-finite {what} output at {shape}")
-            err, share = held_2d(out, ref, store)
+            err, share = held(out, ref, store)
             line = f"  {shape} {label}: {what} vs plain max|err| {err:.3e} ({share:.3f} of its tolerance)"
             check(share <= 1.0, f"{label}: {what} disagrees with its plain version at {shape}")
             if k > 1:
@@ -716,6 +743,368 @@ def cylinder_path(device):
             "max_u": umax, "tier_err": err}, counts
 
 
+# the multires scenes of bench.py:129-137, through examples/performance/mlups_3d_multires.py's
+# scene and protocol: (label, box_frac, levels) at a 96^3 coarsest level, FUSION_AT_FINEST
+MRES_EDGE = 96
+MRES_SCENES = (("2-level full", 1.0, 2), ("3-level half-box", 0.5, 3))
+MRES_STEPS, MRES_REPS, MRES_OMEGA = 20, 3, 1.6
+
+
+def mres_grid(box_frac, levels, device):
+    """mlups_3d_multires.py's grid: nested boxes of ``box_frac`` of their
+    parent (8-cell multiples), centred."""
+    from xlb_tpu_torch.grid.multires import MultiresGrid
+
+    shape = (MRES_EDGE,) * 3
+    boxes, parent = [], shape
+    for _ in range(levels - 1):
+        extent = tuple(min(p, max(8, int(p * box_frac) // 8 * 8)) for p in parent)
+        boxes.append((tuple((s - e) // 2 for s, e in zip(parent, extent)), extent))
+        parent = tuple(2 * e for e in extent)
+    return MultiresGrid(shape, boxes=boxes, device=device)
+
+
+def mres_init(policy):
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend.TORCH, default_precision_policy=policy)
+
+
+def mres_walled(device, perf):
+    """The walled 2-level cavity: a 96^3 coarse level with fullway walls, an
+    equilibrium lid u = (0.03, 0, 0) and one fullway voxel at the centre of
+    the refined region (so the coarsest level takes the TORCH tier's route
+    and, under SFV_ALL, the collide-only kernel), refined in the centred
+    48^3 box; a halfway solid block [40, 56)^3 on the 96^3 finest level
+    (the middle sixth of its extents)."""
+    from xlb_tpu_torch.boundary import EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC
+    from xlb_tpu_torch.grid import Grid
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+
+    grid = mres_grid(0.5, 2, device)
+    n = MRES_EDGE
+    helper = Grid((n,) * 3, device="cpu")
+    box, box_ne = helper.bounding_box_indices(), helper.bounding_box_indices(remove_edges=True)
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1)
+    nf = grid.levels[0].shape[0]
+    block = np.stack([a.ravel() for a in np.meshgrid(*[np.arange(5 * nf // 12, 7 * nf // 12)] * 3, indexing="ij")])
+    bcs = {1: [FullwayBounceBackBC(indices=walls.tolist()), EquilibriumBC(rho=1.0, u=(0.03, 0.0, 0.0), indices=box_ne["top"]),
+               FullwayBounceBackBC(indices=[[n // 2], [n // 2], [n // 2]])],
+           0: [HalfwayBounceBackBC(indices=block.tolist())]}
+    return MultiresIncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, mres_perf_opt=perf)
+
+
+def mres_perturbed(fs, device, seed):
+    """The rest state plus 0.01 x U(0, 1) noise per level (float32, on the card, from a seed)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [f.float() + 0.01 * torch.rand(f.shape, generator=gen, device=device) for f in fs]
+
+
+def mres_tier_parity(stepper, fs, bms, mms, label):
+    """2 coarse steps of the CUDA tier's routes against the TORCH tier on the
+    card from the same state; max |err| over the levels, held to 5e-6."""
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+
+    plain = MultiresIncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=stepper.boundary_conditions)
+    a, b = [f.clone() for f in fs], [f.clone() for f in fs]
+    for _ in range(2):
+        a = stepper(a, bms, mms, MRES_OMEGA)
+        b = plain(b, bms, mms, MRES_OMEGA)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    print(f"  {label}: 2 coarse steps from a perturbed state, CUDA tier vs TORCH tier on the card: max|err| {err:.3e}")
+    check(err < 5e-6, f"{label}: the CUDA tier's routes disagree with the TORCH tier ({err})")
+    return err
+
+
+def mres_physics(fs, label, rho_ref=1.0):
+    """Finite populations and a per-level mean rho within 1e-2 of ``rho_ref``
+    (not checked when None)."""
+    import torch
+
+    from xlb_tpu_torch.ops.macroscopic import density
+
+    rhos = []
+    for level, f in enumerate(fs):
+        f = f.float()
+        check(bool(torch.isfinite(f).all()), f"{label}: non-finite populations at level {level}")
+        rhos.append(float(density(f).mean()))
+        check(rho_ref is None or abs(rhos[-1] - rho_ref) < 1e-2, f"{label}: |mean rho - {rho_ref}| >= 1e-2 at level {level} ({rhos[-1]})")
+    print(f"  {label}: finite; mean rho per level (finest first) {', '.join(f'{r:.6f}' for r in rhos)}")
+    return rhos
+
+
+def mres_block(shape):
+    """The solid block of [10]: an eighth of each extent, a third of the way in."""
+    return tuple(slice(n // 3, n // 3 + n // 8) for n in shape)
+
+
+def mres_kernel_inputs(device, seed, solid):
+    """The masks of the benchmark's kernel launches -- the 2-level scene's
+    finest 194^3 ring box and 96^3 coarse level (its refined region 254),
+    the 3-level scene's 98^3 middle ring box -- with SOLID blocks of cell
+    type 255 when ``solid``, and seeded f32 / bf16-deviation populations."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+    from xlb_tpu_torch.mres_perf_optimization_type import MresPerfOptimizationType
+
+    masks = {}
+    for label, frac, levels in MRES_SCENES:
+        mres_init(xlb.PrecisionPolicy.FP32FP32)
+        st = MultiresIncompressibleNavierStokesStepper(mres_grid(frac, levels, device),
+                                                       mres_perf_opt=MresPerfOptimizationType.FUSION_AT_FINEST)
+        _, _, bms, mms = st.prepare_fields()
+        if levels == 2:
+            masks["finest"] = st._fine_mask_ext(bms, mms)
+            masks["coarsest"] = st._coarse_mask_packed(bms, mms)
+        else:
+            masks["middle"] = st._mid_mask_ext(1, bms, mms)
+    if solid:
+        for m in masks.values():
+            m[mres_block(m.shape)] = 255 << 19
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.as_tensor(st.velocity_set._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+    inputs = {}
+    for name, m in masks.items():
+        noise = torch.randn((19,) + tuple(m.shape), generator=gen, device=device)
+        inputs[name] = (m, (w * (1.0 + 0.05 * noise)).contiguous(), (0.02 * w * noise).to(torch.bfloat16).contiguous())
+    return st.velocity_set, inputs
+
+
+def compare_kernels_mres(device, seed, solid, time_them):
+    """[10]: K7 (pair + ring freeze + coalescence at the finest box, single
+    at the coarsest level, single + ring freeze + coalescence at the middle
+    box), K6's configuration (pair, no side output) and K5 (the coarsest
+    level's collide) against their plain versions, f32 and bf16-shifted;
+    the pair bit-equal to two single launches. Returns {kernel: {label: record}}."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_only import LevelCollide
+    from xlb_tpu_torch.kernels.collide_then_stream import CollideThenStream
+
+    vs, inputs = mres_kernel_inputs(device, seed, solid)
+    results = {"collide_only": {}, "collide_then_stream_k6": {}, "collide_then_stream": {}}
+    tag = " solid" if solid else ""
+    for store in (torch.float32, torch.bfloat16):
+        shifted = store == torch.bfloat16
+        kw = dict(store_dtype=store, shifted=shifted)
+        name = ("f32" if store == torch.float32 else "bf16-shifted") + tag
+        cases = (
+            ("collide_then_stream", "pair+coalesce", "finest",
+             CollideThenStream(vs, inputs["finest"][0].shape, pair=True, ring_freeze=True, coalesce=True, **kw), 2),
+            ("collide_then_stream_k6", "pair", "finest", CollideThenStream(vs, inputs["finest"][0].shape, pair=True, **kw), 2),
+            ("collide_then_stream", "single coarsest", "coarsest",
+             CollideThenStream(vs, inputs["coarsest"][0].shape, ring=(0, 0, 0), **kw), 1),
+            ("collide_then_stream", "single+freeze+coalesce middle", "middle",
+             CollideThenStream(vs, inputs["middle"][0].shape, ring_freeze=True, coalesce=True, **kw), 1),
+        )
+        for kname, mode, box, kern, steps in cases:
+            mask, f32_in, bf16_in = inputs[box]
+            f = f32_in if store == torch.float32 else bf16_in
+            out, ref = kern(f, mask, MRES_OMEGA), kern.plain(f, mask, MRES_OMEGA)
+            torch.cuda.synchronize()
+            outs, refs = (out, ref) if kern.coalesce else ((out,), (ref,))
+            errs, shares = zip(*(held(o, r, store) for o, r in zip(outs, refs)))
+            check(all(bool(torch.isfinite(o.float()).all()) for o in outs), f"{name} {mode}: non-finite output")
+            line = f"  {name} {mode} {tuple(mask.shape)}: vs plain max|err| {max(errs):.3e} ({max(shares):.3f} of its tolerance)"
+            check(max(shares) <= 1.0, f"{name} {mode}: the kernel disagrees with its plain version")
+            if kern.pair and kern.ring_freeze:
+                one = CollideThenStream(vs, mask.shape, ring_freeze=True, coalesce=True, **kw)
+                two = one(one(f, mask, MRES_OMEGA)[0], mask, MRES_OMEGA)
+                check(torch.equal(outs[0], two[0]) and torch.equal(outs[1], two[1]),
+                      f"{name}: the pair differs from two single launches")
+                line += ", bit-equal to two single launches"
+            rec = {"max_abs_err": max(errs), "tolerance_share": max(shares)}
+            del out, ref, outs, refs
+            if time_them:
+                rec["ms"] = cuda_ms(lambda: kern(f, mask, MRES_OMEGA), 20)
+                rec["plain_ms"] = cuda_ms(lambda: kern.plain(f, mask, MRES_OMEGA), 2)
+                io = (f, mask, f) + ((torch.empty((19,) + tuple(n // 2 for n in kern.core)),) if kern.coalesce else ())
+                rec["bound_ms"], rec["bound_by"] = bound("collide_then_stream", io, mask.numel(), shifted, steps=steps)
+                line += f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})"
+                if kern.pair and kern.ring_freeze:
+                    rec["two_singles_ms"] = cuda_ms(lambda: one(one(f, mask, MRES_OMEGA)[0], mask, MRES_OMEGA), 20)
+                    line += f"; two single launches {rec['two_singles_ms']:.4f} ms"
+            print(line)
+            results[kname][f"{name} {mode}"] = rec
+            torch.cuda.empty_cache()
+    # K5 on the coarsest level's shape (float32 in and out, as the stepper calls it)
+    _, f, _ = inputs["coarsest"]
+    mask = torch.zeros(f.shape[1:], dtype=torch.int32, device=device)
+    if solid:
+        mask[mres_block(mask.shape)] = 255 << 19
+        mask[10:20, 10:20, 10:20] = 1 << 19  # a fullway block, cell type 1
+    k5 = LevelCollide(vs, tuple(mask.shape), bc_specs=[{"kind": "fullway", "id": 1, "step": "collision"}])
+    out, ref = k5(f, mask, MRES_OMEGA), k5.plain(f, mask, MRES_OMEGA)
+    torch.cuda.synchronize()
+    err, share = held(out, ref, torch.float32)
+    check(share <= 1.0, f"collide-only kernel disagrees with its plain version{tag}")
+    rec = {"max_abs_err": err, "tolerance_share": share}
+    line = f"  f32{tag} K5 collide {tuple(mask.shape)}: vs plain max|err| {err:.3e} ({share:.3f} of its tolerance)"
+    if time_them:
+        rec["ms"] = cuda_ms(lambda: k5(f, mask, MRES_OMEGA), 50)
+        rec["plain_ms"] = cuda_ms(lambda: k5.plain(f, mask, MRES_OMEGA), 3)
+        rec["bound_ms"], rec["bound_by"] = bound("collide_only", (f, mask, f), mask.numel(), False)
+        line += f"; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})"
+    print(line)
+    results["collide_only"][f"f32{tag}"] = rec
+    return results
+
+
+def mres_kernel_counts():
+    from xlb_tpu_torch.kernels.collide_only import LevelCollide
+    from xlb_tpu_torch.kernels.collide_then_stream import CollideThenStream
+
+    return {"CollideThenStream": (CollideThenStream.launches, CollideThenStream.plain_calls),
+            "CollideThenStream pair": (CollideThenStream.pair_launches, 0),
+            "LevelCollide": (LevelCollide.launches, LevelCollide.plain_calls)}
+
+
+def mres_reset_counts():
+    from xlb_tpu_torch.kernels.collide_only import LevelCollide
+    from xlb_tpu_torch.kernels.collide_then_stream import CollideThenStream
+
+    CollideThenStream.launches = CollideThenStream.pair_launches = CollideThenStream.plain_calls = 0
+    LevelCollide.launches = LevelCollide.plain_calls = 0
+
+
+def mres_profile(sim):
+    """One more window under torch.profiler: the share of its span the
+    device was busy (kernel time over the host clock's span, the profiler
+    running) and the largest device-time entries in ms per coarse step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(MRES_STEPS, window=MRES_STEPS)
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            kernels[e.key[:60]] = kernels.get(e.key[:60], 0.0) + us / 1e3 / MRES_STEPS
+    busy = sum(kernels.values()) * MRES_STEPS / (span * 1e3)
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
+    return {"busy_share": busy, "span_ms_per_coarse_step": span * 1e3 / MRES_STEPS,
+            "device_ms_per_coarse_step": sum(kernels.values()), "top_ms_per_coarse_step": top}
+
+
+def mres_main_path(device):
+    """[11]: the two bench.py multires scenes under FUSION_AT_FINEST through
+    MultiresSimulationManager, FP32FP32 and FP32BF16: one warm-up window of
+    20 coarse steps, then the best of 3 (weighted MLUPS = sum_l cells_l
+    2^(L-1-l) x 20 / s / 1e6). Counts are reset before and read after the
+    timed windows of each run. Then, FP32FP32, 2 coarse steps of the CUDA
+    tier against the TORCH tier from a perturbed state."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.helper import MultiresSimulationManager
+    from xlb_tpu_torch.mres_perf_optimization_type import MresPerfOptimizationType
+
+    perf, counts, tiers, parity = {}, {k: [0, 0] for k in mres_kernel_counts()}, {}, {}
+    for label, frac, levels in MRES_SCENES:
+        for policy in (xlb.PrecisionPolicy.FP32FP32, xlb.PrecisionPolicy.FP32BF16):
+            mres_init(policy)
+            grid = mres_grid(frac, levels, device)
+            sim = MultiresSimulationManager(grid, MRES_OMEGA, mres_perf_opt=MresPerfOptimizationType.FUSION_AT_FINEST)
+            st = sim.stepper
+            tiers[f"{label} {policy.name}"] = {"finest": st.active_finest_tier, "coarsest": st.active_coarsest_tier,
+                            "middle": {str(k): v for k, v in st.active_mid_tiers.items()}}
+            sim.run(MRES_STEPS, window=MRES_STEPS)
+            torch.cuda.synchronize()
+            mres_reset_counts()
+            best = float("inf")
+            for _ in range(MRES_REPS):
+                t0 = time.perf_counter()
+                sim.run(MRES_STEPS, window=MRES_STEPS)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            for k, (n, p) in mres_kernel_counts().items():
+                counts[k][0] += n
+                counts[k][1] += p
+            updates = grid.weighted_updates_per_coarse_step()
+            mlups = updates * MRES_STEPS / best / 1e6
+            key = f"{label} {policy.name}"
+            perf[key] = {"mlups": mlups, "ms_per_coarse_step": best / MRES_STEPS * 1e3, "updates_per_coarse_step": updates}
+            print(f"  {key}: {mlups:.1f} weighted MLUPS, {best / MRES_STEPS * 1e3:.4f} ms per coarse step "
+                  f"({updates / 1e6:.2f}M updates per coarse step; best of {MRES_REPS} windows of {MRES_STEPS}); "
+                  f"tiers {tiers[key]}")
+            mres_physics(sim.f_0, key)
+            prof = mres_profile(sim)
+            perf[key]["profile"] = prof
+            print(f"  {key}, one profiled window: device busy {prof['busy_share']:.3f} of its span, "
+                  f"{prof['device_ms_per_coarse_step']:.4f} device ms per coarse step; largest: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in prof["top_ms_per_coarse_step"].items()))
+            if policy == xlb.PrecisionPolicy.FP32FP32:
+                fs = mres_perturbed(sim.f_0, device, seed=21 + levels)
+                parity[label] = mres_tier_parity(st, fs, sim.bc_mask, sim.missing_mask, key)
+                del fs
+            del sim, st, grid
+            torch.cuda.empty_cache()
+    return perf, {k: tuple(v) for k, v in counts.items()}, tiers, parity
+
+
+def mres_walled_path(device):
+    """[12]: the walled 2-level cavity under FUSION_AT_FINEST_SFV_ALL: its
+    kernels against their plain versions on its masks (halfway, equilibrium
+    and fullway epilogues, solids), then 2 coarse steps from a perturbed
+    state with counts reset before and read after, against the TORCH tier."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+    from xlb_tpu_torch.mres_perf_optimization_type import MresPerfOptimizationType
+
+    mres_init(xlb.PrecisionPolicy.FP32FP32)
+    st = mres_walled(device, MresPerfOptimizationType.FUSION_AT_FINEST_SFV_ALL)
+    fs, _, bms, mms = st.prepare_fields()
+    fs = mres_perturbed(fs, device, seed=31)
+    ok = st._coarse_bc_placement_ok()
+    check(not ok, "the walled cavity's inside voxel did not trip the coarse gate")
+    print(f"  tiers: finest {st.active_finest_tier}; coarsest {st.active_coarsest_tier}; "
+          f"collide-only levels {st.active_collide_levels}")
+    errs = {}
+    mask = st._fine_mask_ext(bms, mms)
+    f_ext = torch.nn.functional.pad(fs[0], (1, 1, 1, 1, 1, 1)).contiguous()
+    out, ref = st._cts(f_ext, mask, MRES_OMEGA), st._cts.plain(f_ext, mask, MRES_OMEGA)
+    pair = [held(o, r, torch.float32) for o, r in zip(out, ref)]
+    errs["finest pair"] = (max(e for e, _ in pair), max(sh for _, sh in pair))
+    coarse_mask = pack_masks(bms[1], mms[1])
+    k5 = st._fused_collide[1]
+    errs["coarsest K5"] = held(k5(fs[1], coarse_mask, MRES_OMEGA), k5.plain(fs[1], coarse_mask, MRES_OMEGA), torch.float32)
+    for what, (err, share) in errs.items():
+        print(f"  walled {what} vs plain: max|err| {err:.3e} ({share:.3f} of its tolerance)")
+        check(share <= 1.0, f"walled cavity: {what} disagrees with its plain version")
+    mres_reset_counts()
+    a = [f.clone() for f in fs]
+    for _ in range(2):
+        a = st(a, bms, mms, MRES_OMEGA)
+    torch.cuda.synchronize()
+    counts = mres_kernel_counts()
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+
+    plain = MultiresIncompressibleNavierStokesStepper(st.grid, boundary_conditions=st.boundary_conditions)
+    b = [f.clone() for f in fs]
+    for _ in range(2):
+        b = plain(b, bms, mms, MRES_OMEGA)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    print(f"  walled cavity, 2 coarse steps, CUDA tier (SFV_ALL) vs TORCH tier: max|err| {err:.3e}")
+    check(err < 5e-6, f"walled cavity: the CUDA tier disagrees with the TORCH tier ({err})")
+    mres_physics(a, "walled cavity", rho_ref=None)  # a perturbed start: finite only
+    return {"tier_err": err, "kernel_errs": {k: v[0] for k, v in errs.items()}}, counts
+
+
 def main():
     import torch
 
@@ -789,6 +1178,24 @@ def main():
     for name, (launches, plain_calls) in cyl_counts.items():
         check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the cylinder")
 
+    print("[10] the multires kernels against their plain versions at the benchmark's shapes")
+    big_mres = compare_kernels_mres(device, seed=41, solid=False, time_them=True)
+    for name, recs in compare_kernels_mres(device, seed=42, solid=True, time_them=False).items():
+        big_mres[name].update(recs)
+
+    print(f"[11] the bench.py multires scenes (mlups_3d_multires.py, FUSION_AT_FINEST), {smi}")
+    perf_mres, counts_mres, tiers_mres, parity_mres = mres_main_path(device)
+    print(f"  launch counts of the timed windows (launches, plain calls): {counts_mres}")
+    check(counts_mres["CollideThenStream"][0] > 0 and counts_mres["CollideThenStream pair"][0] > 0,
+          "the collide-then-stream kernel was not launched on the multires main path")
+    check(counts_mres["CollideThenStream"][1] == 0, "the collide-then-stream plain version ran on the multires main path")
+
+    print("[12] the walled 2-level cavity under FUSION_AT_FINEST_SFV_ALL")
+    walled, counts_walled = mres_walled_path(device)
+    print(f"  launch counts (launches, plain calls): {counts_walled}")
+    for name, (launches, plain_calls) in counts_walled.items():
+        check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the walled cavity")
+
     kernels = []
     for name, cls, source, rep, launches in (
         ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream.cu",
@@ -819,11 +1226,27 @@ def main():
             "ms": prod["ms"], "plain_ms": prod["plain_ms"], "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
             "library_ms": None,
         })
+    for name, rep, label, launches in (
+        ("collide_only", "xlb_tpu/kernels/collide_only.py:103", "f32", counts_walled["LevelCollide"][0]),
+        ("collide_then_stream_k6", "xlb_tpu/kernels/collide_then_stream.py:270", "f32 pair",
+         counts_mres["CollideThenStream pair"][0]),
+        ("collide_then_stream", "xlb_tpu/kernels/collide_then_stream.py:554", "f32 pair+coalesce",
+         counts_mres["CollideThenStream"][0]),
+    ):
+        prod = big_mres[name][label]  # mlups_3d_multires.py's default policy, FP32FP32, at 96^3 / 194^3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "xlb_tpu_torch/csrc/" + ("collide_only.cu" if name == "collide_only" else "collide_then_stream.cu"),
+            "replaces": rep, "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in big_mres[name].values()),
+            "ms": prod["ms"], "plain_ms": prod["plain_ms"], "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a collide or a collide-then-stream
+        })
     print(json.dumps({"card": smi, "mlups": {k: v[0] for k, v in perf.items()},
                       "ms_per_step": {k: v[1] for k, v in perf.items()}, "training": training,
                       "kernel_variants": big, "mlups_2d": {k: v[0] for k, v in perf_2d.items()},
                       "ms_per_step_2d": {k: v[1] for k, v in perf_2d.items()}, "kernel_variants_2d": big_2d,
-                      "cylinder": cylinder}))
+                      "cylinder": cylinder, "multires": perf_mres, "multires_tiers": tiers_mres,
+                      "multires_tier_err": parity_mres, "kernel_variants_mres": big_mres, "walled_multires": walled}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -252,3 +252,115 @@ def test_2d_cuda_window_matches_torch_tier(cuda_device, kind):
     a, _ = cuda.build_multi_step(21)(f_0, f_1, bc_mask, missing_mask, 1.6)
     b, _ = plain.build_multi_step(21)(f_0.clone(), f_1.clone(), bc_mask, missing_mask, 1.6)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def _mres(perf, device, policy="FP32FP32", levels=2):
+    """A small walled multires cavity on ``device``: a 24^3 coarse level
+    (fullway walls, equilibrium lid), a centred 12^3 box (two of them with
+    ``levels`` = 3, the middle level BC-less), a halfway solid block on the
+    finest level."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC
+    from xlb_tpu_torch.grid import Grid, MultiresGrid
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+    from xlb_tpu_torch.mres_perf_optimization_type import MresPerfOptimizationType
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend.TORCH,
+             default_precision_policy=xlb.PrecisionPolicy[policy])
+    grid = MultiresGrid((24, 24, 24), boxes=[((6, 6, 6), (12, 12, 12))] * (levels - 1), device=device)
+    helper = Grid((24, 24, 24), device="cpu")
+    box, box_ne = helper.bounding_box_indices(), helper.bounding_box_indices(remove_edges=True)
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1)
+    block = np.stack([a.ravel() for a in np.meshgrid(*[np.arange(10, 14)] * 3, indexing="ij")])
+    bcs = {levels - 1: [FullwayBounceBackBC(indices=walls.tolist()), EquilibriumBC(rho=1.0, u=(0.03, 0.0, 0.0), indices=box_ne["top"])],
+           0: [HalfwayBounceBackBC(indices=block.tolist())]}
+    st = MultiresIncompressibleNavierStokesStepper(grid, boundary_conditions=bcs,
+                                                   mres_perf_opt=MresPerfOptimizationType.from_string(perf))
+    fs, _, bms, mms = st.prepare_fields()
+    rng = np.random.default_rng(7)
+    import torch
+
+    fs = [(f.float() + 0.01 * torch.from_numpy(rng.random(tuple(f.shape)).astype(np.float32)).to(device)).to(f.dtype)
+          for f in fs]
+    return st, fs, bms, mms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["pair+coalesce", "pair", "single", "single+freeze+coalesce"])
+def test_multires_kernels_match_plain_versions(cuda_device, mode, store):
+    """K7 (and K6's configuration, "pair") against its plain version on the
+    finest ring box of a walled cavity (halfway solid block, 254 ring):
+    f32 to reassociation and FMA contraction, bf16-shifted within 8 bf16
+    ulps of each entry and of its direction's median magnitude; the pair
+    with ring freeze bit-equal to two single launches."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_then_stream import CollideThenStream
+
+    st, fs, bms, mms = _mres("fusion_at_finest", cuda_device)
+    mask = st._fine_mask_ext(bms, mms)
+    store = getattr(torch, store)
+    shifted = store == torch.bfloat16
+    w = st._w_col(cuda_device)
+    f = torch.nn.functional.pad(fs[0].float() - (w if shifted else 0), (1, 1, 1, 1, 1, 1)).to(store).contiguous()
+    freeze, coalesce = "freeze" in mode or mode == "pair+coalesce", "coalesce" in mode
+    kw = dict(bc_specs=st._cts.bc_specs, store_dtype=store, shifted=shifted, ring_freeze=freeze, coalesce=coalesce)
+    kern = CollideThenStream(st.velocity_set, tuple(mask.shape), pair=mode.startswith("pair"), **kw)
+    launches = CollideThenStream.launches
+    out, ref = kern(f, mask, 1.6), kern.plain(f, mask, 1.6)
+    assert CollideThenStream.launches == launches + 1
+    outs, refs = (out, ref) if coalesce else ((out,), (ref,))
+    for o, r in zip(outs, refs):
+        if shifted:
+            rtol = 8 * torch.finfo(store).eps
+            atol = rtol * r.float().abs().flatten(1).median(dim=1).values.reshape(-1, 1, 1, 1)
+            assert bool(((o.float() - r.float()).abs() <= atol + rtol * r.float().abs()).all())
+        else:
+            torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-6)
+    if mode == "pair+coalesce":
+        one = CollideThenStream(st.velocity_set, tuple(mask.shape), **kw)
+        two = one(one(f, mask, 1.6)[0], mask, 1.6)
+        assert torch.equal(out[0], two[0]) and torch.equal(out[1], two[1])
+
+
+@pytest.mark.gpu
+def test_collide_only_kernel_matches_plain_version(cuda_device):
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_only import LevelCollide
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    st, fs, bms, mms = _mres("fusion_at_finest_sfv_all", cuda_device)
+    mask = pack_masks(bms[1], mms[1])
+    mask[2:5, 2:5, 2:5] = 255 << 19
+    kern = LevelCollide(st.velocity_set, st.grid.levels[1].shape,
+                        bc_specs=[bc_to_spec(b, st.velocity_set) for b in st.boundary_conditions[1]])
+    f = fs[1].float().contiguous()
+    torch.testing.assert_close(kern(f, mask, 1.6), kern.plain(f, mask, 1.6), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perf,levels", [("fusion_at_finest", 2), ("fusion_at_finest", 3), ("fusion_at_finest_sfv_all", 2)])
+def test_multires_cuda_tier_matches_torch_tier(cuda_device, perf, levels):
+    """3 coarse steps of the fused routes (kernels on the card) against the
+    TORCH tier from a perturbed state, per call and through the window
+    (5e-6, xlb_tpu's fused-vs-naive bound)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_then_stream import CollideThenStream
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+
+    st, fs, bms, mms = _mres(perf, cuda_device, levels=levels)
+    plain = MultiresIncompressibleNavierStokesStepper(st.grid, boundary_conditions=st.boundary_conditions)
+    launches, plain_calls = CollideThenStream.launches, CollideThenStream.plain_calls
+    a, b = list(fs), list(fs)
+    for _ in range(3):
+        a = st(a, bms, mms, 1.6)
+        b = plain(b, bms, mms, 1.6)
+    assert CollideThenStream.launches > launches and CollideThenStream.plain_calls == plain_calls
+    c = st.build_window(3)(list(fs), bms, mms, 1.6)
+    for x, y, z in zip(a, b, c):
+        assert float((x.float() - y.float()).abs().max()) < 5e-6
+        assert float((z.float() - y.float()).abs().max()) < 5e-6

@@ -315,3 +315,40 @@ def test_spatial_prescriptions_raise():
         ZouHeBC("velocity", profile=lambda: np.zeros((2, 5)), indices=idx)
     with pytest.raises(NotImplementedError, match="aux"):
         ZouHeBC("pressure", profile=lambda coords: coords[0], indices=idx)
+
+
+def test_no_jax_guard_covers_the_multires_modules():
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {"models/multires.py", "grid/multires.py", "helper/simulation_manager.py", "kernels/collide_only.py",
+            "kernels/collide_then_stream.py", "mres_perf_optimization_type.py", "utils/tiers.py"} <= scanned
+
+
+def test_multires_routes_notify_and_refuse_as_the_reference():
+    """Route choices go through notify_fallback: a finest level with a BC
+    the CTS kernel does not take stays on the TORCH tier with a
+    RuntimeWarning, as does a middle level with BCs; the fused routes are
+    3-D; the CUDA tier never runs the plain versions for CUDA tensors (the
+    wrappers dispatch on the tensor's device alone)."""
+    import xlb_tpu_torch
+    from xlb_tpu_torch.boundary import FullwayBounceBackBC, ZouHeBC
+    from xlb_tpu_torch.grid import MultiresGrid
+    from xlb_tpu_torch.models.multires import MultiresIncompressibleNavierStokesStepper
+    from xlb_tpu_torch.mres_perf_optimization_type import MresPerfOptimizationType
+    from xlb_tpu_torch.velocity_set import D2Q9, D3Q19
+
+    fused = MresPerfOptimizationType.FUSION_AT_FINEST
+    xlb_tpu_torch.init(D3Q19())
+    grid = MultiresGrid((16, 16, 16), boxes=[((4, 4, 4), (8, 8, 8))] * 2, device="cpu")
+    zouhe = ZouHeBC("pressure", prescribed_value=1.0, indices=[[0] * 3, [1, 2, 3], [4] * 3])
+    with pytest.warns(RuntimeWarning, match="finest level stays on the TORCH tier"):
+        st = MultiresIncompressibleNavierStokesStepper(grid, boundary_conditions={0: [zouhe]}, mres_perf_opt=fused)
+    assert st._cts is None and st.active_finest_tier == "torch"
+    with pytest.warns(RuntimeWarning, match="middle level 1 has BCs"):
+        st = MultiresIncompressibleNavierStokesStepper(
+            grid, boundary_conditions={1: [FullwayBounceBackBC(indices=[[1], [1], [1]])]}, mres_perf_opt=fused)
+    assert st._cts_mid[1] is None and st.active_mid_tiers[1] == "torch" and st._cts is not None
+    xlb_tpu_torch.init(D2Q9())
+    with pytest.warns(RuntimeWarning, match="3-D"):
+        st = MultiresIncompressibleNavierStokesStepper(MultiresGrid((8, 8), boxes=[((2, 2), (4, 4))], device="cpu"),
+                                                       mres_perf_opt=fused)
+    assert st._cts is None

@@ -117,6 +117,11 @@ def load_library():
     lib.xlb_collide_stream_2d_step.restype = i32
     lib.xlb_collide_stream_2d_kstep.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_2d_kstep.restype = i32
+    lib.xlb_collide_only.argtypes = [ptr, ptr, ptr, i32, f32, params, ptr]
+    lib.xlb_collide_only.restype = i32
+    lib.xlb_collide_then_stream.argtypes = [i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                                            i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_then_stream.restype = i32
     lib.xlb_error_string.argtypes = [i32]
     lib.xlb_error_string.restype = ctypes.c_char_p
     lib.xlb_params_size.argtypes = []

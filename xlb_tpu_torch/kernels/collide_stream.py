@@ -45,6 +45,13 @@ def kernel_solid_id(q):
     return 255
 
 
+def kernel_sfv_id(q):
+    """Packed id of cell type 254 (the multires ghost ring and refined
+    region: kept through the collide)."""
+    bc_id_shift(q)
+    return 254
+
+
 def unpack_bc_id(packed, q):
     """Extract the BC id field from a packed int32 mask tensor."""
     return (packed >> bc_id_shift(q)) & bc_id_mask(q)

@@ -49,9 +49,10 @@ def _f32_list(values):
     return [float(x) for x in np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1)]
 
 
-def kernel_params(vs, bc_specs, has_solids):
+def kernel_params(vs, bc_specs, has_solids, kinds=None):
     """The kernels' launch parameters (``XlbStepParams``) for a D3Q19 or a
-    D2Q9 scene."""
+    D2Q9 scene. ``kinds`` is the set of epilogue kinds the calling kernel
+    takes; by default every kind in 2D and all but ``EXT_KINDS`` in 3D."""
     from xlb_tpu_torch.velocity_set import D2Q9, D3Q19
 
     ref = D3Q19() if vs.d == 3 else D2Q9()
@@ -67,7 +68,8 @@ def kernel_params(vs, bc_specs, has_solids):
     p.n_bc = len(bc_specs)
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
-        if kind not in _cuda.BC_KIND or (vs.d == 3 and kind in EXT_KINDS):
+        allowed = kinds if kinds is not None else (set(_cuda.BC_KIND) - set(EXT_KINDS) if vs.d == 3 else set(_cuda.BC_KIND))
+        if kind not in allowed:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
         p.bc_kind[b] = _cuda.BC_KIND[kind]
         p.bc_id[b] = int(spec["id"])
@@ -93,6 +95,7 @@ class FusedKernel:
     own ``__call__`` around ``_dispatch``."""
 
     dims = 3
+    bc_kinds = None  # the epilogue kinds the kernel takes (kernel_params' default when None)
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
                  store_dtype=torch.float32, shifted=False, has_solids=True):
@@ -112,7 +115,7 @@ class FusedKernel:
         self.store_dtype = store_dtype
         self.shifted = bool(shifted)
         self.has_solids = bool(has_solids)
-        self.params = kernel_params(velocity_set, self.bc_specs, has_solids)
+        self.params = kernel_params(velocity_set, self.bc_specs, has_solids, self.bc_kinds)
 
     def _check(self, f, mask_i32):
         """Raise on anything the kernels do not take."""

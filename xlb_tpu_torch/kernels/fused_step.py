@@ -49,6 +49,14 @@ def bc_to_spec(bc, velocity_set):
     )
 
 
+def ring_val(q):
+    """Packed mask value of a multires ring or refined-region cell: cell
+    type 254 with no missing directions (254 << 19 for q <= 19)."""
+    from xlb_tpu_torch.kernels.collide_stream import kernel_sfv_id
+
+    return kernel_sfv_id(q) << bc_id_shift(q)
+
+
 def pack_masks(bc_mask, missing_mask):
     """(bc_mask uint8 (1,*s), missing bool (q,*s)) -> one int32 (*s).
 

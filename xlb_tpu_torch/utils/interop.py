@@ -44,6 +44,23 @@ def fields_to_numpy(f_0, f_1, bc_mask, missing_mask):
     return tuple(_as_numpy(t) for t in (f_0, f_1, bc_mask, missing_mask))
 
 
+def level_fields_from_numpy(fs, bms, mms, device="cuda", dtype=None):
+    """Per-level multires state (lists finest first: populations, bc_mask,
+    missing_mask, as ``xlb_tpu``'s multires stepper holds them) from NumPy
+    arrays into lists of the port's tensors on ``device``."""
+    return (
+        [_to_tensor(f, device, dtype) for f in fs],
+        [_to_tensor(b, device, torch.uint8) for b in bms],
+        [_to_tensor(m, device, torch.bool) for m in mms],
+    )
+
+
+def level_fields_to_numpy(fs, bms=(), mms=()):
+    """The reverse of :func:`level_fields_from_numpy`: lists of host NumPy
+    arrays (bfloat16 populations as exact float32)."""
+    return [_as_numpy(f) for f in fs], [_as_numpy(b) for b in bms], [_as_numpy(m) for m in mms]
+
+
 def cotangent_from_numpy(g, device="cuda"):
     """A cotangent of the populations (e.g. the ``g`` handed to
     ``xlb_tpu``'s adjoint) as a float32 tensor on ``device``: cotangents
