@@ -75,9 +75,28 @@
    finest level) under FUSION_AT_FINEST_SFV_ALL: its kernels against
    their plain versions, then 2 coarse steps with the coarsest collide
    through K5 (launches counted), against the TORCH tier (5e-6).
-13. Prints a JSON line of the card, MLUPS, training times and each
-   kernel's per-dtype errors and times, then the kernels' JSON line, then
-   the result line {"ok": true, "device": {...}} last.
+13. The 3D collision zoo: K1, K2 and K0 (kernel="blocked") against their
+   plain versions for each (velocity set, collision) pair of ZOO -- D3Q19
+   BGK, SmagorinskyLESBGK, TRT, MRT, PowerLawBGK; D3Q27 BGK, KBC -- on the
+   256^3 lid cavity, a ragged 250x246x200 cavity and the 192x96x64
+   channel (body force, halfway walls), f32 and bf16-shifted, with and
+   without a solid block; K0 against K1 and K2 against two K1 launches,
+   bit for bit; on the 256^3 cavity each kernel and its plain version
+   timed (CUDA events) beside the bound.
+14. examples/performance/mlups_3d.py's protocol at 256^3 (omega 1.9, lid
+   0.02, windows of 50, 2 warm-up windows, best of 3) for each pair under
+   FP32FP32 and FP32BF16, through K1, K2 and K0, each route from the rest
+   state with its launch counts reset before and read after it; physics
+   checks after each route; FP32FP32 also 10 steps of stepper(...) against
+   the TORCH tier.
+15. examples/cfd/turbulent_channel_3d.py (D3Q27, KBC, exact-difference
+   force, halfway walls in z) on the CUDA tier: run()'s defaults against
+   the TORCH tier (the mean profile), then the validation shape 192x96x64
+   at u_tau 0.009 for 2000 steps (MLUPS, finite, bulk velocity rising).
+16. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+   training times and each kernel's per-dtype errors and times, then the
+   kernels' JSON line, then the result line {"ok": true, "device": {...}}
+   last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -1105,6 +1124,366 @@ def mres_walled_path(device):
     return {"tier_err": err, "kernel_errs": {k: v[0] for k, v in errs.items()}}, counts
 
 
+# the 3D collision zoo: the (velocity set, collision) pairs of examples/performance/mlups_3d.py that the
+# CUDA kernels K0, K1, K2 take, its 256^3 lid cavity and protocol, and examples/cfd/turbulent_channel_3d.py
+ZOO = (("D3Q19", "BGK"), ("D3Q19", "SmagorinskyLESBGK"), ("D3Q19", "TRT"), ("D3Q19", "MRT"),
+       ("D3Q19", "PowerLawBGK"), ("D3Q27", "BGK"), ("D3Q27", "KBC"))
+ZOO_PARAMS = {"PowerLawBGK": {"consistency": 0.05, "power_index": 0.8}}  # mlups_3d.py's
+ZOO_RAGGED = (250, 246, 200)
+ZOO_WINDOW, ZOO_WARMUP, ZOO_REPS = 50, 2, 3
+ZOO_PARITY_STEPS = 10
+ZOO_SOLID = (slice(100, 140), slice(90, 130), slice(60, 100))  # a solid block in every [13] scene
+# turbulent_channel_3d.py: run()'s defaults, and run_validation()'s shape and u_tau
+CHAN_RUN = {"shape": (64, 32, 32), "re_tau": 60.0, "u_tau": 0.002, "steps": 1000}
+CHAN_VAL = {"shape": (192, 96, 64), "re_tau": 180.0, "u_tau": 0.009, "steps": 2000}
+CHAN_WINDOW = 500
+# the largest relative difference of the run() channel's mean profile, CUDA tier against TORCH tier,
+# after 1000 steps (float32 roundoff through the KBC stabilizer; measured, PERF.md)
+CHAN_PROFILE_RTOL = 1e-4
+ZOO_POWER_ITER_OPS = 4  # a / tau, + eps, pow, 3K x + 1/2 per PowerLaw fixed-point iteration (pow counted once)
+
+
+def zoo_scene(kind, vs_name, collision, shape, policy, backend, device, re_tau=None, u_tau=None, seed=0):
+    """A scene of the collision zoo through the port's public API. "cavity":
+    mlups_3d.py's lid cavity (omega 1.9); "channel": turbulent_channel_3d.py's
+    _build_channel (halfway walls in z, the body force u_tau^2 / h along x,
+    the seeded streamwise profile with noise and rolls through
+    initialize_from_macroscopic). Returns (stepper, fields, omega)."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import velocity_set as vsets
+    from xlb_tpu_torch.boundary import EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.helper import initialize_from_macroscopic
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=getattr(vsets, vs_name)(), default_backend=backend, default_precision_policy=policy)
+    grid = xlb.grid_factory(shape, device=device)
+    box = grid.bounding_box_indices()
+    kw = dict(collision_type=collision, collision_params=ZOO_PARAMS.get(collision))
+    if kind == "cavity":
+        walls = np.unique(
+            np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1)
+        bcs = [FullwayBounceBackBC(indices=walls.tolist()),
+               EquilibriumBC(rho=1.0, u=(LID_U, 0.0, 0.0), indices=grid.bounding_box_indices(remove_edges=True)["top"])]
+        stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, **kw)
+        return stepper, stepper.prepare_fields(), OMEGA
+    nx, ny, nz = shape
+    h = nz / 2.0
+    visc = u_tau * h / re_tau
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=[HalfwayBounceBackBC(indices=walls.tolist())],
+                                                force_vector=np.array([u_tau**2 / h, 0.0, 0.0]), **kw)
+    _, f_1, bc_mask, missing_mask = stepper.prepare_fields()
+    rng = np.random.default_rng(seed)
+    z = (np.arange(nz) + 0.5) / nz
+    u0 = np.zeros((3, nx, ny, nz), dtype=np.float32)
+    u0[0] = (10 * u_tau * (1 - (2 * z - 1) ** 2))[None, None, :]
+    u0 += (0.05 * 10 * u_tau * rng.standard_normal(u0.shape)).astype(np.float32)
+    X, Y = (np.arange(nx) + 0.5) / nx, (np.arange(ny) + 0.5) / ny
+    amp, envelope = 0.1 * 10 * u_tau, np.sin(np.pi * z)[None, None, :]
+    u0[1] += amp * np.sin(4 * np.pi * X)[:, None, None] * envelope
+    u0[2] += amp * np.sin(2 * np.pi * X)[:, None, None] * np.cos(6 * np.pi * Y)[None, :, None] * envelope
+    rho0 = np.ones((1, nx, ny, nz), dtype=np.float32)
+    f_0 = initialize_from_macroscopic(grid, stepper.velocity_set, stepper.precision_policy, rho0, u0)
+    return stepper, (f_0, f_1, bc_mask, missing_mask), 1.0 / (3.0 * visc + 0.5)
+
+
+def zoo_flops(vs, collision, shifted, force):
+    """Float32 operations per voxel of the zoo kernels' body, counted from
+    csrc/collide_stream.cuh (a division, square root or power counts as
+    one): the shifted load and store, moments, the pair-shared
+    equilibrium, the collision and the body force."""
+    from xlb_tpu_torch.ops.collision import mrt_projectors
+
+    q, d, c = vs.q, vs.d, vs._c
+    nz = lambda row: int(np.count_nonzero(row))  # noqa: E731
+    pairs = [l for l in range(q) if vs._opp_indices[l] > l]
+    moments = (q - 1) + sum(nz(c[a]) for a in range(d)) + 1  # rho, the d first moments, 1 / rho
+    eq = (2 * d - 1) + 2 + sum(nz(c[:, l]) - 1 + 9 for l in pairs) + 2
+    pi = sum(nz(vs._cc[:, t]) - 1 for t in range(vs._cc.shape[1]))
+    strain, shear = 2 * vs._cc.shape[1], [l for l in range(q) if 0 < np.abs(c[:, l]).sum() < 3]
+    coll = {
+        "BGK": 3 * q,
+        "TRT": 5 + 16 * len(pairs) + 3,
+        "SmagorinskyLESBGK": q + pi + strain + 9 + 2 * q,
+        "PowerLawBGK": q + pi + strain + 4 + 5 * ZOO_POWER_ITER_OPS + 3 + 2 * q,
+        "MRT": 3 * q + sum(2 * int(np.count_nonzero(np.abs(P) >= 1e-14)) + 2 * q
+                           for g, P in mrt_projectors(vs).items() if g in ("ghost",)),
+        "KBC": q + pi + 2 + 15 + len(shear) + 2 + 13 * len(pairs) + 3 + 6 + 5 * len(shear) + 3 * (q - len(shear)),
+    }[collision]
+    return (2 * q if shifted else 0) + moments + eq + coll + ((d + eq + 2 * q) if force else 0)
+
+
+
+def zoo_bound(vs, collision, f, mask, shifted, force, steps=1):
+    """(least ms the card could take, "bytes" or "operations") for ``steps``
+    zoo steps reading f and the mask once and writing f once."""
+    t_bytes = (2 * f.numel() * f.element_size() + mask.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * zoo_flops(vs, collision, shifted, force) * mask.numel() / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_zoo(device):
+    """[13]: K1, K2 and K0 against their plain versions for every pair of
+    ZOO on the 256^3 cavity, a ragged cavity and the validation channel,
+    f32 and bf16-shifted, with and without a solid block; K0 against K1
+    and K2 against two K1 launches, bit for bit. On the 256^3 cavity
+    without the block, also times each kernel and its plain version beside
+    the bound. Returns {pair: {label: record}}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec, packed_cell
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks, stepper_force_vector
+
+    results = {}
+    scenes = (("cavity", (N_MAIN,) * 3, {}), ("cavity", ZOO_RAGGED, {}),
+              ("channel", CHAN_VAL["shape"], {"re_tau": CHAN_VAL["re_tau"], "u_tau": CHAN_VAL["u_tau"]}))
+    for vs_name, collision in ZOO:
+        pair = f"{vs_name} {collision}"
+        results[pair] = {}
+        for kind, shape, extra in scenes:
+            stepper, (_, _, bc_mask, missing_mask), omega = zoo_scene(
+                kind, vs_name, collision, shape, xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.TORCH, device, **extra)
+            vs = stepper.velocity_set
+            force = stepper_force_vector(stepper)
+            base = dict(collision=kernel_collision_spec(stepper), force_vector=force,
+                        bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions])
+            gen = torch.Generator(device=device).manual_seed(13)
+            noise = torch.randn((vs.q,) + shape, generator=gen, device=device)
+            w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+            for solid in (False, True):
+                mask = pack_masks(bc_mask, missing_mask)
+                if solid:
+                    mask[ZOO_SOLID] = packed_cell(255, vs.q)
+                for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+                    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).contiguous()
+                    kw = dict(base, store_dtype=store, shifted=shifted, has_solids=solid or stepper.has_solids)
+                    one, blocked = CollideStreamStep(vs, shape, **kw), CollideStreamBlocked(vs, shape, **kw)
+                    two = CollideStreamKStep(vs, shape, steps=2, **kw)
+                    k1, k0, k2 = one(f, mask, omega), blocked(f, mask, omega), two(f, mask, omega)
+                    k11 = one(k1, mask, omega)
+                    p1 = one.plain(f, mask, omega)
+                    p2 = one.plain(p1, mask, omega)
+                    torch.cuda.synchronize()
+                    label = (f"{kind} {'x'.join(map(str, shape))} {'f32' if store == torch.float32 else 'bf16-shifted'}"
+                             + (" solid" if solid else ""))
+                    for t, what in ((k1, "K1"), (k0, "K0"), (k2, "K2")):
+                        check(bool(torch.isfinite(t.float()).all()), f"{pair} {label}: non-finite {what} output")
+                    (e1, s1), (e0, s0), (e2, s2) = held(k1, p1, store), held(k0, p1, store), held(k2, p2, store)
+                    same01, same2 = torch.equal(k0, k1), torch.equal(k2, k11)
+                    print(f"  {pair} {label}: K1 {e1:.2e} ({s1:.3f} of tol), K0 {e0:.2e} ({s0:.3f}), "
+                          f"K2 {e2:.2e} ({s2:.3f}); K0 == K1 {same01}, K2 == 2 K1 {same2}")
+                    check(max(s1, s0, s2) <= 1.0, f"{pair} {label}: a kernel disagrees with its plain version")
+                    check(same01, f"{pair} {label}: K0 differs from K1")
+                    check(same2, f"{pair} {label}: K2 differs from two K1 launches")
+                    rec = {"K1": {"max_abs_err": e1, "tolerance_share": s1}, "K0": {"max_abs_err": e0, "tolerance_share": s0},
+                           "K2": {"max_abs_err": e2, "tolerance_share": s2}}
+                    del k1, k0, k2, k11, p1, p2
+                    if kind == "cavity" and shape == (N_MAIN,) * 3 and not solid:
+                        for name, kern, steps in (("K1", one, 1), ("K2", two, 2), ("K0", blocked, 1)):
+                            r = rec[name]
+                            r["ms"] = cuda_ms(lambda: kern(f, mask, omega), 20)
+                            r["plain_ms"] = cuda_ms(lambda: kern.plain(f, mask, omega), 1)
+                            r["bound_ms"], r["bound_by"] = zoo_bound(vs, collision, f, mask, shifted, force is not None,
+                                                                     steps)
+                        print("    " + "; ".join(f"{n} {rec[n]['ms']:.4f} ms (plain {rec[n]['plain_ms']:.2f}, bound "
+                                                 f"{rec[n]['bound_ms']:.4f} by {rec[n]['bound_by']})" for n in ("K1", "K2", "K0")))
+                    results[pair][label] = rec
+                    del f
+                    torch.cuda.empty_cache()
+            del stepper, bc_mask, missing_mask, noise
+            torch.cuda.empty_cache()
+    return results
+
+
+def zoo_counts(reset=False):
+    """{kernel class name: (launches, plain calls)} of K1, K2 and K0."""
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+
+    kernels = (CollideStreamStep, CollideStreamKStep, CollideStreamBlocked)
+    if reset:
+        for k in kernels:
+            k.launches = k.plain_calls = 0
+    return {k.__name__: (k.launches, k.plain_calls) for k in kernels}
+
+
+def zoo_tier_parity(stepper, fields, omega, collision, label):
+    """ZOO_PARITY_STEPS steps of stepper(...) (K1) against the TORCH tier on
+    the card from the same state (rtol 1e-4). Returns max |err|."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    f_0, f_1, bc_mask, missing_mask = fields
+    force = getattr(stepper.collision, "force_vector", None)
+    plain = IncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=stepper.boundary_conditions,
+                                              collision_type=collision, collision_params=ZOO_PARAMS.get(collision),
+                                              force_vector=force, compute_backend=xlb.ComputeBackend.TORCH)
+    a0, a1 = f_0.contiguous(), f_1.clone()
+    b0, b1 = f_0.clone(), f_1.clone()
+    for i in range(ZOO_PARITY_STEPS):
+        a0, a1 = stepper(a0, a1, bc_mask, missing_mask, omega, i)
+        a0, a1 = a1, a0
+        b0, b1 = plain(b0, b1, bc_mask, missing_mask, omega, i)
+        b0, b1 = b1, b0
+    err, ok = within(a0, b0, rtol=1e-4, atol=1e-6)
+    print(f"  {label}: {ZOO_PARITY_STEPS} steps of stepper(...), CUDA tier vs TORCH tier: max|err| {err:.3e} ok={ok}")
+    check(ok, f"{label}: CUDA tier disagrees with the TORCH tier")
+    return err
+
+
+def zoo_main_path(device):
+    """[14]: mlups_3d.py's protocol at 256^3 (omega 1.9, lid 0.02, windows
+    of 50, 2 warm-up windows, best of 3, MLUPS = 256^3 x 50 / s / 1e6, host
+    clock around work that ends in a synchronize) for every pair of ZOO
+    under FP32FP32 and FP32BF16, through K1 (build_fused_window with
+    temporal_steps=1), K2 (build_multi_step: the default window) and K0
+    (kernel="blocked"), each route from the rest state; physics checks
+    after each route; FP32FP32 also 10 steps of stepper(...) against the
+    TORCH tier after the K1 route. Each route's launch counts are
+    reset just before it and read just after. Returns ({pair: {policy:
+    {route: mlups}}}, total launches, parity errors)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.fused_step import build_fused_window
+
+    shape = (N_MAIN,) * 3
+    perf, parity = {}, {}
+    totals = {name: 0 for name in zoo_counts(reset=True)}
+    for vs_name, collision in ZOO:
+        pair = f"{vs_name} {collision}"
+        perf[pair] = {}
+        for policy in (xlb.PrecisionPolicy.FP32FP32, xlb.PrecisionPolicy.FP32BF16):
+            stepper, (f_0, f_1, bc_mask, missing_mask), omega = zoo_scene(
+                "cavity", vs_name, collision, shape, policy, xlb.ComputeBackend.CUDA, device)
+            routes = (("K1", "CollideStreamStep", build_fused_window(stepper, ZOO_WINDOW, temporal_steps=1), ZOO_WINDOW),
+                      ("K2", "CollideStreamKStep", stepper.build_multi_step(ZOO_WINDOW), ZOO_WINDOW // 2),
+                      ("K0", "CollideStreamBlocked", build_fused_window(stepper, ZOO_WINDOW, kernel="blocked"), ZOO_WINDOW))
+            perf[pair][policy.name] = {}
+            start = (f_0, f_1)
+            for route, cls, run, per_window in routes:
+                # each route starts from prepare_fields()'s rest state, as a run of mlups_3d.py does
+                f_0, f_1 = start[0].clone(), start[1].clone()
+                zoo_counts(reset=True)
+                for _ in range(ZOO_WARMUP):
+                    f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega)
+                torch.cuda.synchronize()
+                best = float("inf")
+                for _ in range(ZOO_REPS):
+                    t0 = time.perf_counter()
+                    f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                counts = zoo_counts()
+                launches = counts[cls][0]
+                check(launches == (ZOO_WARMUP + ZOO_REPS) * per_window, f"{pair} {route}: {launches} launches of {cls}")
+                check(all(p == 0 for _, p in counts.values()), f"{pair} {route}: a plain version ran on the main path")
+                totals = {k: totals[k] + counts[k][0] for k in totals}
+                mlups = N_MAIN**3 * ZOO_WINDOW / best / 1e6
+                perf[pair][policy.name][route] = mlups
+                print(f"  {pair} {policy.name} {route}: {mlups:.1f} MLUPS ({best / ZOO_WINDOW * 1e3:.4f} ms/step, "
+                      f"{launches} launches of {cls})")
+                physics_checks(stepper, f_0, bc_mask, f"{pair} {policy.name} {route}")
+                if policy == xlb.PrecisionPolicy.FP32FP32 and route == "K1":
+                    parity[pair] = zoo_tier_parity(stepper, (f_0, f_1, bc_mask, missing_mask), omega, collision, pair)
+            del stepper, f_0, f_1, start, bc_mask, missing_mask, routes, run
+            torch.cuda.empty_cache()
+    return perf, totals, parity
+
+
+def mean_profile(f, vs):
+    """The streamwise velocity averaged over x and y, per z (float64 NumPy)."""
+    from xlb_tpu_torch.ops.macroscopic import density, velocity
+
+    f = f.float()
+    u = velocity(f, density(f), vs._c)
+    return u[0].mean(dim=(0, 1)).double().cpu().numpy()
+
+
+def channel_path(device):
+    """[15]: turbulent_channel_3d.py on the CUDA tier (D3Q27, KBC, the body
+    force, halfway walls in z, FP32FP32). run()'s defaults against the TORCH
+    tier (mean profile); then the validation shape at run_validation()'s
+    u_tau for CHAN_VAL["steps"] steps in windows of CHAN_WINDOW (MLUPS,
+    finite, bulk velocity rising). Returns (record, launch counts)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+
+    fp32 = xlb.PrecisionPolicy.FP32FP32
+    args = dict(re_tau=CHAN_RUN["re_tau"], u_tau=CHAN_RUN["u_tau"])
+    profiles = []
+    counts = zoo_counts(reset=True)
+    for backend in (xlb.ComputeBackend.CUDA, xlb.ComputeBackend.TORCH):
+        stepper, fields, omega = zoo_scene("channel", "D3Q27", "KBC", CHAN_RUN["shape"], fp32, backend, device, **args)
+        f_0, _ = stepper.build_multi_step(CHAN_RUN["steps"])(*fields, omega)
+        check(bool(torch.isfinite(f_0).all()), f"channel run() on {backend.name}: non-finite populations")
+        profiles.append(mean_profile(f_0, stepper.velocity_set))
+        if backend == xlb.ComputeBackend.CUDA:
+            counts = zoo_counts()
+    cuda_p, torch_p = profiles
+    rel = float(np.abs(cuda_p - torch_p).max() / np.abs(torch_p).max())
+    print(f"  run() {CHAN_RUN['shape']} Re_tau {CHAN_RUN['re_tau']}, {CHAN_RUN['steps']} steps, omega {omega:.6f}: "
+          f"bulk u {cuda_p.mean():.6f}, centreline {cuda_p[len(cuda_p) // 2]:.6f}, wall-adjacent {cuda_p[0]:.6f}; "
+          f"mean profile CUDA vs TORCH tier max rel diff {rel:.3e} (bound {CHAN_PROFILE_RTOL:g})")
+    check(rel <= CHAN_PROFILE_RTOL, "the channel's CUDA tier disagrees with its TORCH tier")
+    check(counts["CollideStreamKStep"][0] > 0 and all(p == 0 for _, p in counts.values()),
+          "the channel window did not run through the k-step kernel alone")
+
+    args = dict(re_tau=CHAN_VAL["re_tau"], u_tau=CHAN_VAL["u_tau"])
+    stepper, (f_0, f_1, bc_mask, missing_mask), omega = zoo_scene(
+        "channel", "D3Q27", "KBC", CHAN_VAL["shape"], fp32, xlb.ComputeBackend.CUDA, device, **args)
+    run = stepper.build_multi_step(CHAN_WINDOW)
+    bulk, seconds = [float(mean_profile(f_0, stepper.velocity_set).mean())], []
+    for _ in range(CHAN_VAL["steps"] // CHAN_WINDOW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(f_0).all()), "validation channel: non-finite populations")
+        bulk.append(float(mean_profile(f_0, stepper.velocity_set).mean()))
+    mlups = int(np.prod(CHAN_VAL["shape"])) * CHAN_WINDOW / min(seconds) / 1e6
+    print(f"  validation shape {CHAN_VAL['shape']} Re_tau {CHAN_VAL['re_tau']} u_tau {CHAN_VAL['u_tau']}, omega "
+          f"{omega:.6f}: {mlups:.1f} MLUPS (best of {len(seconds)} windows of {CHAN_WINDOW}); bulk u "
+          f"{' -> '.join(f'{b:.6f}' for b in bulk)}")
+    check(all(b1 > b0 for b0, b1 in zip(bulk, bulk[1:])), "validation channel: the bulk velocity did not rise")
+    return {"run_profile_rel_diff": rel, "run_bulk_u": float(cuda_p.mean()), "validation_mlups": mlups,
+            "validation_bulk_u": bulk}, counts
+
+
+def ptxas_summary(report):
+    """One line per kernel family and (stencil, collision) of ptxas's
+    report: the register range over the store forms and variants, the
+    largest spill and the static shared memory."""
+    import re
+
+    groups = {}
+    for name, regs, spill_st, spill_ld, smem in report:
+        m = re.match(r"_ZN3xlb(\d+)", name)
+        kernel = name[m.end():m.end() + int(m.group(1))] if m else name
+        stencil = re.search(r"D3Q27|D3Q19|D2Q9", name)
+        coll = re.search(r"(Coll[A-Za-z]+?)E", name)
+        key = " ".join(x for x in (kernel, stencil.group(0) if stencil else "", coll.group(1) if coll else "") if x)
+        g = groups.setdefault(key, [])
+        g.append((regs, spill_st, spill_ld, smem))
+    lines = []
+    for key, g in groups.items():
+        regs = [r for r, _, _, _ in g]
+        spill = max(max(st, ld) for _, st, ld, _ in g)
+        lines.append(f"{key}: {len(g)} instantiations, {min(regs)}-{max(regs)} registers, largest spill {spill} B, "
+                     f"static smem {max(sm for *_, sm in g)} B")
+    return lines
+
+
 def main():
     import torch
 
@@ -1124,12 +1503,11 @@ def main():
     print(f"[1] device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _cuda.load_library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in (_cuda.build_log() or "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("    " + line.strip())
+    for line in ptxas_summary(_cuda.ptxas_report()):
+        print("    " + line)
 
     print("[3] kernels against their plain versions")
     compare_kernels(SMALL, device, seed=0, time_them=False)
@@ -1196,11 +1574,22 @@ def main():
     for name, (launches, plain_calls) in counts_walled.items():
         check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the walled cavity")
 
+    print("[13] the collision zoo's kernels (K1, K2, K0) against their plain versions")
+    big_zoo = compare_zoo(device)
+
+    print(f"[14] mlups_3d.py's cavity at {N_MAIN}^3 for every collision, through K1, K2 and K0, {smi}")
+    perf_zoo, counts_zoo, parity_zoo = zoo_main_path(device)
+    print(f"  launches over the timed routes: {counts_zoo}")
+
+    print(f"[15] the turbulent channel (turbulent_channel_3d.py), {smi}")
+    channel, counts_chan = channel_path(device)
+    print(f"  launch counts of the run() window (launches, plain calls): {counts_chan}")
+
     kernels = []
     for name, cls, source, rep, launches in (
-        ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream.cu",
+        ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
          "xlb_tpu/kernels/collide_stream_dma.py:237", counts),
-        ("collide_stream_kstep", "CollideStreamKStep", "xlb_tpu_torch/csrc/collide_stream.cu",
+        ("collide_stream_kstep", "CollideStreamKStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
          "xlb_tpu/kernels/collide_stream_2step.py:309", counts),
         ("collide_stream_adjoint", "CollideStreamAdjoint", "xlb_tpu_torch/csrc/adjoint_step.cu",
          "xlb_tpu/kernels/adjoint_step.py:366", train_counts),
@@ -1241,12 +1630,23 @@ def main():
             "ms": prod["ms"], "plain_ms": prod["plain_ms"], "bound_ms": prod["bound_ms"], "bound_by": prod["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a collide or a collide-then-stream
         })
+    k0 = big_zoo["D3Q19 BGK"][f"cavity {N_MAIN}x{N_MAIN}x{N_MAIN} bf16-shifted"]["K0"]  # as K1's record: bf16-shifted
+    kernels.append({
+        "name": "collide_stream_blocked", "route": "cuda", "source": "xlb_tpu_torch/csrc/collide_stream_blocked.cuh",
+        "replaces": "xlb_tpu/kernels/collide_stream.py:1032", "launches": counts_zoo["CollideStreamBlocked"],
+        "max_abs_err": max(rec["K0"]["max_abs_err"] for pair in big_zoo.values() for rec in pair.values()),
+        "ms": k0["ms"], "plain_ms": k0["plain_ms"], "bound_ms": k0["bound_ms"], "bound_by": k0["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes an LBM step
+    })
     print(json.dumps({"card": smi, "mlups": {k: v[0] for k, v in perf.items()},
                       "ms_per_step": {k: v[1] for k, v in perf.items()}, "training": training,
                       "kernel_variants": big, "mlups_2d": {k: v[0] for k, v in perf_2d.items()},
                       "ms_per_step_2d": {k: v[1] for k, v in perf_2d.items()}, "kernel_variants_2d": big_2d,
                       "cylinder": cylinder, "multires": perf_mres, "multires_tiers": tiers_mres,
-                      "multires_tier_err": parity_mres, "kernel_variants_mres": big_mres, "walled_multires": walled}))
+                      "multires_tier_err": parity_mres, "kernel_variants_mres": big_mres, "walled_multires": walled,
+                      "kernel_variants_zoo": big_zoo, "mlups_zoo": perf_zoo, "zoo_tier_err": parity_zoo,
+                      "channel": channel}))
+    print(f"[16] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -364,3 +364,117 @@ def test_multires_cuda_tier_matches_torch_tier(cuda_device, perf, levels):
     for x, y, z in zip(a, b, c):
         assert float((x.float() - y.float()).abs().max()) < 5e-6
         assert float((z.float() - y.float()).abs().max()) < 5e-6
+
+
+# the 3D collision zoo: (collision, q) pairs of the CUDA kernels K0, K1, K2
+ZOO = [("BGK", 19), ("SmagorinskyLESBGK", 19), ("TRT", 19), ("MRT", 19), ("PowerLawBGK", 19), ("BGK", 27),
+       ("KBC", 27)]
+ZOO_SHAPE = (20, 18, 36)  # ragged against the k-step and blocked tiles
+
+
+def _zoo_scene(kind, collision, q, device, backend="TORCH", policy="FP32FP32", shape=ZOO_SHAPE):
+    """A D3Q``q`` scene with ``collision``: "cavity" (fullway walls,
+    equilibrium lid) or "channel" (halfway walls in z, a body force)."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.velocity_set import D3Q19, D3Q27
+
+    xlb.init(velocity_set={19: D3Q19, 27: D3Q27}[q](), default_backend=xlb.ComputeBackend[backend],
+             default_precision_policy=xlb.PrecisionPolicy[policy])
+    grid = xlb.grid_factory(shape, device=device)
+    box = grid.bounding_box_indices()
+    kw = dict(collision_type=collision,
+              collision_params={"consistency": 0.05, "power_index": 0.8} if collision == "PowerLawBGK" else None)
+    if kind == "cavity":
+        walls = np.unique(
+            np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1)
+        bcs = [FullwayBounceBackBC(indices=walls.tolist()),
+               EquilibriumBC(rho=1.0, u=(0.02, 0.0, 0.0), indices=grid.bounding_box_indices(remove_edges=True)["top"])]
+    else:
+        walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+        bcs = [HalfwayBounceBackBC(indices=walls.tolist())]
+        kw["force_vector"] = np.array([2e-5, 0.0, 0.0])
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, **kw)
+    return stepper, stepper.prepare_fields()
+
+
+def _held(a, ref, store):
+    """f32: rtol 1e-5, atol 1e-6; bf16 deviation form: 8 bf16 ulps of each
+    entry and of its direction's median |ref|."""
+    import torch
+
+    a, ref = a.float(), ref.float()
+    if store == torch.float32:
+        torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-6)
+        return
+    rtol = 8 * torch.finfo(store).eps
+    atol = rtol * ref.abs().flatten(1).median(dim=1).values.reshape(-1, 1, 1, 1)
+    assert bool(((a - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["cavity", "channel"])
+@pytest.mark.parametrize("collision,q", ZOO)
+def test_zoo_kernels_match_plain_versions(cuda_device, collision, q, kind, store):
+    """K1, K2 and K0 against their plain versions, with a solid block, on a
+    seeded perturbed state; K0 (with its default and another tile) equals
+    K1 and K2 two K1 launches, bit for bit (one collide_voxel, the same
+    store-dtype rounding)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec, packed_cell
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks, stepper_force_vector
+
+    store = getattr(torch, store)
+    stepper, (_, _, bc_mask, missing_mask) = _zoo_scene(kind, collision, q, cuda_device)
+    vs = stepper.velocity_set
+    mask = pack_masks(bc_mask, missing_mask)
+    mask[6:12, 5:10, 10:20] = packed_cell(255, q)
+    shifted = store == torch.bfloat16
+    w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1, 1)
+    noise = torch.from_numpy(np.random.default_rng(q).standard_normal((vs.q,) + ZOO_SHAPE).astype(np.float32))
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+    kw = dict(collision=kernel_collision_spec(stepper), bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions],
+              store_dtype=store, shifted=shifted, has_solids=True, force_vector=stepper_force_vector(stepper))
+    one, two = CollideStreamStep(vs, ZOO_SHAPE, **kw), CollideStreamKStep(vs, ZOO_SHAPE, steps=2, **kw)
+    blocked = CollideStreamBlocked(vs, ZOO_SHAPE, **kw)
+    k1, k2, k0 = one(f, mask, 1.7), two(f, mask, 1.7), blocked(f, mask, 1.7)
+    _held(k1, one.plain(f, mask, 1.7), store)
+    _held(k2, two.plain(f, mask, 1.7), store)
+    _held(k0, blocked.plain(f, mask, 1.7), store)
+    assert torch.equal(k0, k1)
+    assert torch.equal(CollideStreamBlocked(vs, ZOO_SHAPE, tile=(2, 4, 16), **kw)(f, mask, 1.7), k1)
+    assert torch.equal(k2, one(k1, mask, 1.7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision,q", [("MRT", 19), ("KBC", 27)])
+def test_zoo_cuda_tier_matches_torch_tier(cuda_device, collision, q):
+    """10 FP32FP32 steps of the forced channel: the CUDA window (K2 + K1),
+    the blocked window (K0) and stepper(...) against the TORCH tier."""
+    import torch
+
+    from xlb_tpu_torch import ComputeBackend
+    from xlb_tpu_torch.kernels.fused_step import build_fused_window
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    cuda, (f_0, f_1, bc_mask, missing_mask) = _zoo_scene("channel", collision, q, cuda_device, "CUDA")
+    torch_tier = IncompressibleNavierStokesStepper(cuda.grid, cuda.boundary_conditions, collision_type=collision,
+                                                   force_vector=cuda.collision.force_vector,
+                                                   compute_backend=ComputeBackend.TORCH)
+    noise = torch.from_numpy(np.random.default_rng(3).standard_normal(tuple(f_0.shape)).astype(np.float32))
+    f_in = f_0 * (1.0 + 0.02 * noise.to(cuda_device))
+    ref, _ = torch_tier.build_multi_step(10)(f_in.clone(), f_1, bc_mask, missing_mask, 1.7)
+    for run in (cuda.build_multi_step(10), build_fused_window(cuda, 10, kernel="blocked")):
+        out, _ = run(f_in.clone(), f_1, bc_mask, missing_mask, 1.7)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-6)
+    a0, a1 = f_in.clone(), f_1.clone()
+    for t in range(10):
+        a0, a1 = cuda(a0, a1, bc_mask, missing_mask, 1.7, t)
+        a0, a1 = a1, a0
+    torch.testing.assert_close(a0, ref, rtol=1e-4, atol=1e-6)

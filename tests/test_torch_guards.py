@@ -64,6 +64,7 @@ def test_unported_pieces_raise():
     import torch
 
     from xlb_tpu_torch.boundary.base import BoundaryCondition, ImplementationStep
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
     from xlb_tpu_torch.kernels.fused_step import bc_to_spec
@@ -82,8 +83,12 @@ def test_unported_pieces_raise():
         IncompressibleNavierStokesStepper(st.grid, collision_type="KBC")
     with pytest.raises(NotImplementedError):
         CollideStreamStep(st.velocity_set, SHAPE, store_dtype=torch.float16)
+    # D3Q27 runs in the single step now; its adjoint and 3D Zou-He do not
     with pytest.raises(NotImplementedError):
-        CollideStreamStep(D3Q27(), SHAPE)
+        CollideStreamAdjoint(D3Q27(), SHAPE)
+    zouhe = {"kind": "zouhe", "id": 1, "step": "streaming", "bc_type": "pressure", "value": 1.0}
+    with pytest.raises(NotImplementedError):
+        CollideStreamStep(D3Q27(), SHAPE, bc_specs=[zouhe])
     with pytest.raises(ValueError):
         CollideStreamKStep(st.velocity_set, SHAPE, steps=1)
 
@@ -205,8 +210,8 @@ def test_kernel_params_layout():
     vs, specs, _, _ = _wrapper_inputs()
     p = CollideStreamStep(vs, SHAPE, bc_specs=specs).params
     assert p.n_bc == 2 and list(p.bc_kind[:2]) == [1, 0] and list(p.bc_id[:2]) == [1, 2]
-    np.testing.assert_array_equal(np.array(p.w[:]), vs._w.astype(np.float32))
-    np.testing.assert_array_equal(np.array(p.bc_feq[1][:]), specs[1]["feq"])
+    np.testing.assert_array_equal(np.array(p.w[: vs.q]), vs._w.astype(np.float32))
+    np.testing.assert_array_equal(np.array(p.bc_feq[1][: vs.q]), specs[1]["feq"])
 
 
 def test_no_jax_guard_covers_the_2d_modules():
@@ -249,7 +254,7 @@ def test_2d_wrappers_reject_bad_inputs(kernel, bad):
 
 def test_2d_kernel_configuration_guards():
     """The 2D kernels take D2Q9 only, 2 <= k <= 8, and the 3D kernels none
-    of the 2D-only epilogue kinds; D3Q27 still raises."""
+    of the 2D-only epilogue kinds, on D3Q19 or on D3Q27."""
     import torch
 
     from xlb_tpu_torch.kernels.collide_stream_2d import (
@@ -270,8 +275,9 @@ def test_2d_kernel_configuration_guards():
         spec = next(s for s in _wrapper_inputs_2d("cylinder-zouhe")[1] + specs if s["kind"] == kind)
         with pytest.raises(NotImplementedError, match="3D"):
             kernel_params(D3Q19(), [spec], has_solids=True)
-    with pytest.raises(NotImplementedError):
-        kernel_params(D3Q27(), [], has_solids=False)
+    zouhe = next(s for s in _wrapper_inputs_2d("cylinder-zouhe")[1] if s["kind"] == "zouhe")
+    with pytest.raises(NotImplementedError, match="3D"):
+        kernel_params(D3Q27(), [zouhe], has_solids=False)
     # at every k a sweep's region fits the voxels the block holds, and the tile a block's shared memory
     for steps in range(2, 9):
         assert (TILE[0] + 2 * steps - 2) * (TILE[1] + 2 * steps - 2) <= KSTEP_THREADS * KSTEP_VOXELS
@@ -352,3 +358,49 @@ def test_multires_routes_notify_and_refuse_as_the_reference():
         st = MultiresIncompressibleNavierStokesStepper(MultiresGrid((8, 8), boxes=[((2, 2), (4, 4))], device="cpu"),
                                                        mres_perf_opt=fused)
     assert st._cts is None
+
+
+def test_zoo_refuses_what_it_lacks_and_never_falls_back():
+    """KBC on D3Q19 raises on both tiers, as in xlb_tpu. Under autograd a
+    kernel="dma" step with another collision than BGK, or with a force,
+    raises NotImplementedError naming the missing adjoint kernel, while
+    kernel="blocked" differentiates through the TORCH tier's VJP. A
+    configuration outside the CUDA instantiation table raises, naming it,
+    before any launch and without running the plain version."""
+    import torch
+
+    from tests.test_torch_collisions import build_scene
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import build_fused_step
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    st, (f_0, f_1, bc_mask, missing_mask) = build_scene("xlb_tpu_torch", "cavity", SHAPE, "TRT")
+    with pytest.raises(NotImplementedError, match="KBC"):
+        IncompressibleNavierStokesStepper(st.grid, collision_type="KBC")
+    with pytest.raises(NotImplementedError, match="KBC"):
+        CollideStreamStep(D3Q19(), SHAPE, collision="KBC")
+
+    f = f_0.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K8.*D3Q19 TRT"):
+        build_fused_step(st)(f, f_1, bc_mask, missing_mask, 1.5)
+    _, out = build_fused_step(st, kernel="blocked")(f, f_1, bc_mask, missing_mask, 1.5)
+    out.square().sum().backward()
+    f_ref = f_0.clone().requires_grad_(True)
+    st(f_ref, f_1, bc_mask, missing_mask, 1.5)[1].square().sum().backward()
+    torch.testing.assert_close(f.grad, f_ref.grad)
+
+    forced, (g_0, g_1, bm, mm) = build_scene("xlb_tpu_torch", "channel", SHAPE)
+    with pytest.raises(NotImplementedError, match="K8.*body force"):
+        build_fused_step(forced)(g_0.clone().requires_grad_(True), g_1, bm, mm, 1.5)
+
+    class NoInstantiations:
+        @staticmethod
+        def xlb_has_instantiation(*args):
+            return 0
+
+    step = CollideStreamStep(st.velocity_set, SHAPE, collision="TRT")
+    calls = CollideStreamStep.plain_calls
+    with pytest.raises(NotImplementedError, match="no CUDA instantiation for D3Q19 TRT"):
+        step._require_instantiation(NoInstantiations)
+    assert CollideStreamStep.plain_calls == calls

@@ -1,26 +1,34 @@
-// Per-voxel body shared by the fused collide-stream kernels: the D3Q19
-// kernels of collide_stream.cu, the D2Q9 kernels of collide_stream_2d.cu
-// and, through its pieces (streamed_populations, moments_equilibrium,
-// is_fullway, is_solid), the adjoint kernel of adjoint_step.cu.
+// Per-voxel body shared by the fused collide-stream kernels: the 3D
+// kernels of collide_stream_3d.cuh and collide_stream_blocked.cuh, the D2Q9
+// kernels of collide_stream_2d.cu and, through its pieces
+// (streamed_populations, moments_equilibrium, is_fullway, is_solid), the
+// adjoint kernel of adjoint_step.cu and the multires kernels.
 //
 // It is the CUDA counterpart of the slice of
-// xlb_tpu/kernels/collide_stream.py::_build_kernel_body that BGK scenes
-// with the ported BCs use (pointwise_core):
+// xlb_tpu/kernels/collide_stream.py::_build_kernel_body that scenes with
+// the ported BCs use (pointwise_core):
 //
 //   pulled populations (store form) -> shifted load (+ w_l, f32)
 //   -> streaming-step epilogues: "equilibrium" (f_s := feq constant) and,
 //      when the kernel is built with EXT, "halfway" (missing l reflects
-//      the centred opp(l), plus a constant moving-wall term), "zouhe" and
-//      "regularized" (constant velocity or density)
-//   -> moments, pair-shared quadratic equilibrium, BGK
+//      the centred opp(l), plus a constant moving-wall term) and, with
+//      EXT == kExtAll only, "zouhe" and "regularized" (constant velocity
+//      or density)
+//   -> moments, pair-shared quadratic equilibrium, the collision
+//   -> with FORCE, the exact-difference body force
+//      f += feq(rho, u + F) - feq(rho, u) with the pre-collision rho, u
 //   -> collision-step "fullway" epilogue (f_out[l] := f_s[opp[l]])
 //   -> solid keep-out (cell type 255 keeps its pre-streaming populations)
 //   -> shifted store (- w_l, f32)
 //
-// The stencil is a compile-time trait (D3Q19, D2Q9): directions,
-// opposites, main directions and the second-moment / Q_i constants. EXT is
-// a compile-time switch, so the instantiations that run no such BC (the
-// 3D kernels and the 2D lid cavity) compile without the extra epilogues.
+// The stencil is a compile-time trait (D3Q19, D3Q27, D2Q9): directions,
+// opposites, main directions, the second-moment / Q_i constants and the
+// packed-mask id field. The collision is a compile-time trait too (BGK,
+// KBC, Smagorinsky, PowerLaw, TRT, MRT), in the form of xlb_tpu's kernel
+// body: TRT per opposite pair, MRT as unrolled rows of compile-time
+// projector tables without their zero entries, KBC with one IEEE
+// reciprocal per opposite pair. EXT and FORCE are compile-time switches,
+// so the instantiations that run no such BC or force compile without them.
 //
 // The arithmetic follows the Python body term by term (same summation
 // order, same pair-shared equilibrium), so the kernels agree with the plain
@@ -31,10 +39,11 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
-#define XLB_MAX_Q 19
+#include "mrt_projectors.cuh"
+
+#define XLB_MAX_Q 27
 #define XLB_MAX_BC 8
-#define XLB_BC_ID_SHIFT 19  // packed mask: missing bits 0..q-1 (q <= 19), cell type in bits 19..26
-#define XLB_SOLID_ID 255
+#define XLB_SOLID_ID 255  // packed solid id of D3Q19 and D2Q9 (cell type 255); D3Q27's is D3Q27::solid_id
 
 enum : int {
   XLB_BC_EQUILIBRIUM = 0,
@@ -42,6 +51,15 @@ enum : int {
   XLB_BC_HALFWAY = 2,
   XLB_BC_ZOUHE = 3,
   XLB_BC_REGULARIZED = 4,
+};
+
+enum : int {
+  XLB_COLL_BGK = 0,
+  XLB_COLL_KBC = 1,
+  XLB_COLL_SMAGORINSKY = 2,
+  XLB_COLL_TRT = 3,
+  XLB_COLL_MRT = 4,
+  XLB_COLL_POWERLAW = 5,
 };
 
 // Launch parameters: the f32 weights, the BC table and the solid flag.
@@ -58,6 +76,17 @@ struct XlbStepParams {
   float bc_feq[XLB_MAX_BC][XLB_MAX_Q];    // equilibrium: the prescribed feq
   float bc_mw[XLB_MAX_BC][XLB_MAX_Q];     // halfway: 6 w_l (c_l . u_wall)
   float bc_value[XLB_MAX_BC][3];          // zouhe / regularized: the velocity, or the density in [0]
+  // read by the kernels of the 3D collision zoo (collide_stream_3d.cuh)
+  int q;            // the stencil of the launch: 9, 19 or 27
+  int collision;    // XLB_COLL_*
+  int walled;       // 1: the instantiation with the halfway epilogue and the force term
+  int has_force;
+  float force[3];   // the body force F (exact difference)
+  float coll[3];    // TRT: [0] the magic Lambda; Smagorinsky: [0] 36 Cs^2;
+                    // PowerLaw: [0] 3K, [1] n - 1, [2] eps (all f32, from the host)
+  int coll_iters;   // PowerLaw: the fixed-point iterations
+  int mrt_on[2];    // MRT: the bulk / ghost group relaxes at its own rate
+  float mrt_rate[2];
 };
 
 namespace xlb {
@@ -66,6 +95,8 @@ namespace xlb {
 // with |c|_1 <= 2); the wrapper checks the velocity set against this table.
 struct D3Q19 {
   static constexpr int d = 3, q = 19;
+  // packed mask: missing bits 0..q-1, the raw cell type in bits 19..26
+  static constexpr int id_shift = 19, id_mask = 0xFF, solid_id = 255, sfv_id = 254;
   __host__ __device__ static constexpr int c(int a, int l) {
     constexpr int kC[3][19] = {
         {0, 0, 0, 0, 0, 0, 0, 0, 0, -1, -1, -1, -1, -1, 1, 1, 1, 1, 1},
@@ -78,11 +109,17 @@ struct D3Q19 {
     constexpr int kOpp[19] = {0, 2, 1, 6, 8, 7, 3, 5, 4, 14, 16, 15, 18, 17, 9, 11, 10, 13, 12};
     return kOpp[l];
   }
+  // MRT: out += coef P_g fneq for the bulk (g = 0) or ghost (g = 1) group
+  __device__ __forceinline__ static void mrt_rows(int g, const float* fneq, float coef, float* out) {
+    if (g == 0) mrt_d3q19_bulk(fneq, coef, out);
+    else mrt_d3q19_ghost(fneq, coef, out);
+  }
 };
 
 // D2Q9 in xlb_tpu's direction order (velocity_set/stencils.py).
 struct D2Q9 {
   static constexpr int d = 2, q = 9;
+  static constexpr int id_shift = 19, id_mask = 0xFF, solid_id = 255, sfv_id = 254;
   __host__ __device__ static constexpr int c(int a, int l) {
     constexpr int kC[2][9] = {
         {0, 0, 0, 1, -1, 1, -1, 1, -1},
@@ -93,6 +130,28 @@ struct D2Q9 {
   __host__ __device__ static constexpr int opp(int l) {
     constexpr int kOpp[9] = {0, 2, 1, 6, 5, 4, 3, 8, 7};
     return kOpp[l];
+  }
+};
+
+// D3Q27 in xlb_tpu's direction order (itertools.product([0, -1, 1],
+// repeat=3)): l = 9 i_x + 3 i_y + i_z with digit 0, 1, 2 for 0, -1, +1.
+struct D3Q27 {
+  static constexpr int d = 3, q = 27;
+  // packed mask: missing bits 0..26, a 5-bit id in bits 27..31 (ids 0..29,
+  // 254 -> 30, 255 -> 31), as xlb_tpu packs it
+  static constexpr int id_shift = 27, id_mask = 31, solid_id = 31, sfv_id = 30;
+  __host__ __device__ static constexpr int digit(int a, int l) {
+    return a == 0 ? l / 9 : (a == 1 ? (l / 3) % 3 : l % 3);
+  }
+  __host__ __device__ static constexpr int c(int a, int l) {
+    return digit(a, l) == 0 ? 0 : (digit(a, l) == 1 ? -1 : 1);
+  }
+  __host__ __device__ static constexpr int opp(int l) {
+    return 9 * ((3 - digit(0, l)) % 3) + 3 * ((3 - digit(1, l)) % 3) + (3 - digit(2, l)) % 3;
+  }
+  __device__ __forceinline__ static void mrt_rows(int g, const float* fneq, float coef, float* out) {
+    if (g == 0) mrt_d3q27_bulk(fneq, coef, out);
+    else mrt_d3q27_ghost(fneq, coef, out);
   }
 };
 
@@ -135,7 +194,9 @@ __host__ __device__ constexpr float qi(int l, int t) {
   return is_diagonal<S>(t) ? float(double(cc<S>(l, t)) - 1.0 / 3.0) : float(double(cc<S>(l, t)) * 2.0);
 }
 
-__device__ __forceinline__ int cell_type(int packed) { return (packed >> XLB_BC_ID_SHIFT) & 0xFF; }
+// The packed id field of a mask word (the raw cell type for q <= 19).
+template <class S = D3Q19>
+__device__ __forceinline__ int cell_type(int packed) { return (packed >> S::id_shift) & S::id_mask; }
 
 // i + d wrapped into [0, n) for |d| <= n (periodic pull and push indices).
 __device__ __forceinline__ int wrap1(int i, int n) { return i < 0 ? i + n : (i >= n ? i - n : i); }
@@ -193,11 +254,49 @@ __device__ __forceinline__ void equilibrium(float rho, const float u[S::d], cons
   }
 }
 
+// equilibrium in products and sums that nvcc never contracts into FMAs.
+// The forced step takes both of its equilibria, feq(rho, u) and
+// feq(rho, u + F), from it: their difference is the force term, and where
+// nvcc contracts (and shares terms between the two) would otherwise depend
+// on the kernel around the inlined body.
+template <class S>
+__device__ __forceinline__ void equilibrium_rn(float rho, const float u[S::d], const XlbStepParams& p,
+                                               float feq[S::q]) {
+  float usqr = __fmul_rn(u[0], u[0]);
+#pragma unroll
+  for (int a = 1; a < S::d; ++a) usqr = __fadd_rn(usqr, __fmul_rn(u[a], u[a]));
+  const float base = __fsub_rn(1.0f, __fmul_rn(1.5f, usqr));
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    const int o = S::opp(l);
+    if (o < l) continue;  // pair handled at its lower index
+    const float rw = __fmul_rn(rho, p.w[l]);
+    if (o == l) {
+      feq[l] = __fmul_rn(rw, base);
+      continue;
+    }
+    float cu = 0.0f;
+    bool have = false;
+#pragma unroll
+    for (int a = 0; a < S::d; ++a) {
+      const int ca = S::c(a, l);
+      if (ca == 0) continue;
+      const float t = ca == 1 ? u[a] : -u[a];
+      cu = have ? __fadd_rn(cu, t) : t;
+      have = true;
+    }
+    const float cu3 = __fmul_rn(3.0f, cu);
+    const float even = __fadd_rn(base, __fmul_rn(0.5f, __fmul_rn(cu3, cu3)));
+    feq[l] = __fmul_rn(rw, __fadd_rn(even, cu3));
+    feq[o] = __fmul_rn(rw, __fsub_rn(even, cu3));
+  }
+}
+
 // Moments and the pair-shared quadratic equilibrium of one voxel's
 // post-streaming populations fs. Shared by the forward (collide_voxel) and
 // the adjoint kernel (adjoint_step.cu), so the adjoint linearises the very
-// arithmetic the forward ran.
-template <class S>
+// arithmetic the forward ran. RN: the equilibrium through equilibrium_rn.
+template <class S, bool RN = false>
 __device__ __forceinline__ void moments_equilibrium(const float fs[S::q], const XlbStepParams& p, float& rho,
                                                     float& inv_rho, float u[S::d], float feq[S::q]) {
   rho = fs[0];
@@ -218,7 +317,8 @@ __device__ __forceinline__ void moments_equilibrium(const float fs[S::q], const 
     }
     u[a] = acc * inv_rho;
   }
-  equilibrium<S>(rho, u, p, feq);
+  if constexpr (RN) equilibrium_rn<S>(rho, u, p, feq);
+  else equilibrium<S>(rho, u, p, feq);
 }
 
 __device__ __forceinline__ bool missing_bit(int packed, int l) { return (packed >> l) & 1; }
@@ -340,13 +440,18 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   for (int l = 0; l < q; ++l) fs[l] = fbd[l];
 }
 
+// The EXT switch: which streaming-step epilogues besides "equilibrium" an
+// instantiation compiles. kExtAll (= true) is the 2D kernels' set; the 3D
+// kernels of the collision zoo take halfway alone.
+enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2 };
+
 // The post-streaming populations of one voxel: the q pulls (store form,
 // as f32), the shifted load (+ w_l) and the streaming-step epilogues.
 // Returns whether an "equilibrium" BC replaced them by its constants.
-template <class S, bool SHIFTED, bool EXT, typename Pull, typename Center>
+template <class S, bool SHIFTED, int EXT, typename Pull, typename Center>
 __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Center& center, int packed,
                                                      const XlbStepParams& p, float fs[S::q]) {
-  const int bc = cell_type(packed);
+  const int bc = cell_type<S>(packed);
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     fs[l] = pull(l);
@@ -359,10 +464,12 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
       for (int l = 0; l < S::q; ++l) fs[l] = p.bc_feq[b][l];
       fixed = true;
     }
-    if constexpr (EXT) {
+    if constexpr (EXT != kExtNone) {
       if (bc == p.bc_id[b]) {
         if (p.bc_kind[b] == XLB_BC_HALFWAY) halfway_epilogue<S, SHIFTED>(center, packed, p, b, fs);
-        if (p.bc_kind[b] == XLB_BC_ZOUHE || p.bc_kind[b] == XLB_BC_REGULARIZED) zouhe_epilogue<S>(packed, p, b, fs);
+        if constexpr (EXT == kExtAll) {
+          if (p.bc_kind[b] == XLB_BC_ZOUHE || p.bc_kind[b] == XLB_BC_REGULARIZED) zouhe_epilogue<S>(packed, p, b, fs);
+        }
       }
     }
   }
@@ -370,7 +477,10 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
 }
 
 // Whether voxel cell type bc is a solid that keeps its populations.
-__device__ __forceinline__ bool is_solid(int bc, const XlbStepParams& p) { return p.has_solids && bc == XLB_SOLID_ID; }
+template <class S = D3Q19>
+__device__ __forceinline__ bool is_solid(int bc, const XlbStepParams& p) {
+  return p.has_solids && bc == S::solid_id;
+}
 
 // Whether a collision-step "fullway" BC claims cell type bc.
 __device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) {
@@ -379,24 +489,252 @@ __device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) {
   return on;
 }
 
+// Packed upper-triangular second moment Pi_t = sum_l cc_l,t fneq_l, the
+// +-1 coefficients as adds in direction order (xlb_tpu's second_moment).
+template <class S>
+__device__ __forceinline__ void second_moment(const float fneq[S::q], float pi[n_moments<S>()]) {
+#pragma unroll
+  for (int t = 0; t < n_moments<S>(); ++t) {
+    float acc = 0.0f;
+    bool have = false;
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      const int k = cc<S>(l, t);
+      if (k == 0) continue;
+      const float term = k == 1 ? fneq[l] : -fneq[l];
+      acc = have ? acc + term : term;
+      have = true;
+    }
+    pi[t] = acc;
+  }
+}
+
+// Pi : Pi with the off-diagonal entries counted twice:
+// (sum of the diagonal squares) + 2 (sum of the off-diagonal squares).
+template <class S>
+__device__ __forceinline__ float strain_squared(const float pi[n_moments<S>()]) {
+  float diag = 0.0f, offd = 0.0f;
+  bool have_d = false, have_o = false;
+#pragma unroll
+  for (int t = 0; t < n_moments<S>(); ++t) {
+    const float sq = __fmul_rn(pi[t], pi[t]);
+    if (is_diagonal<S>(t)) {
+      diag = have_d ? __fadd_rn(diag, sq) : sq;
+      have_d = true;
+    } else {
+      offd = have_o ? __fadd_rn(offd, sq) : sq;
+      have_o = true;
+    }
+  }
+  return __fadd_rn(diag, __fmul_rn(2.0f, offd));
+}
+
+// The collisions: out = C::collide(fs, feq, rho, omega). fs are the
+// post-streaming populations, feq their equilibrium, rho their density.
+// Beyond BGK and KBC they spell their products and sums with __fmul_rn /
+// __fadd_rn / __fsub_rn, which nvcc never contracts into FMAs: where it
+// contracts depends on the kernel around the inlined body, and K0, K1 and
+// the sweeps of K2 must compute the same bits.
+struct CollBGK {
+  static constexpr int id = XLB_COLL_BGK;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
+                                                 const XlbStepParams&, float out[S::q]) {
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) out[l] = fs[l] - omega * (fs[l] - feq[l]);
+  }
+};
+
+// TRT: the parts of fs - feq even and odd under l -> opp(l) relax at omega
+// and at omega_minus = 1 / (Lambda / (1 / omega - 1/2) + 1/2), per pair.
+struct CollTRT {
+  static constexpr int id = XLB_COLL_TRT;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
+                                                 const XlbStepParams& p, float out[S::q]) {
+    const float tau_p_half = __fsub_rn(1.0f / omega, 0.5f);
+    const float om_m = 1.0f / __fadd_rn(p.coll[0] / tau_p_half, 0.5f);
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      const int o = S::opp(l);
+      if (o < l) continue;  // pair handled at its lower index
+      if (o == l) {
+        out[l] = __fsub_rn(fs[l], __fmul_rn(omega, __fsub_rn(fs[l], feq[l])));
+        continue;
+      }
+      const float h_even = __fmul_rn(omega, __fsub_rn(__fmul_rn(0.5f, __fadd_rn(fs[l], fs[o])),
+                                                      __fmul_rn(0.5f, __fadd_rn(feq[l], feq[o]))));
+      const float h_odd = __fmul_rn(om_m, __fsub_rn(__fmul_rn(0.5f, __fsub_rn(fs[l], fs[o])),
+                                                    __fmul_rn(0.5f, __fsub_rn(feq[l], feq[o]))));
+      out[l] = __fsub_rn(__fsub_rn(fs[l], h_even), h_odd);
+      out[o] = __fadd_rn(__fsub_rn(fs[o], h_even), h_odd);
+    }
+  }
+};
+
+// MRT: BGK plus (omega - s_g) P_g fneq for the bulk and ghost groups that
+// relax at their own rate s_g, bulk first. The contractions are written
+// out row by row in mrt_projectors.cuh, without the zero entries.
+struct CollMRT {
+  static constexpr int id = XLB_COLL_MRT;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
+                                                 const XlbStepParams& p, float out[S::q]) {
+    float fneq[S::q];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      fneq[l] = fs[l] - feq[l];
+      out[l] = __fsub_rn(fs[l], __fmul_rn(omega, fneq[l]));
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      if (p.mrt_on[g]) S::mrt_rows(g, fneq, __fsub_rn(omega, p.mrt_rate[g]), out);
+  }
+};
+
+// Smagorinsky LES: tau = (tau0 + sqrt(tau0^2 + 36 Cs^2 sqrt(Pi:Pi))) / 2.
+struct CollSmagorinsky {
+  static constexpr int id = XLB_COLL_SMAGORINSKY;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
+                                                 const XlbStepParams& p, float out[S::q]) {
+    float fneq[S::q], pi[n_moments<S>()];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
+    second_moment<S>(fneq, pi);
+    const float tau0 = 1.0f / omega;
+    const float root = sqrtf(__fadd_rn(__fmul_rn(tau0, tau0), __fmul_rn(p.coll[0], sqrtf(strain_squared<S>(pi)))));
+    const float om = 1.0f / __fmul_rn(0.5f, __fadd_rn(tau0, root));
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) out[l] = __fsub_rn(fs[l], __fmul_rn(om, fneq[l]));
+  }
+};
+
+// Power-law BGK: coll_iters Picard steps on tau = 3K (A / tau + eps)^(n-1)
+// + 1/2 from tau = 1 / omega, A = 1.5 sqrt(2 Pi:Pi) / rho; the local rate
+// 1 / tau clipped to [0.05, 1.99].
+struct CollPowerLaw {
+  static constexpr int id = XLB_COLL_POWERLAW;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float rho,
+                                                 float omega, const XlbStepParams& p, float out[S::q]) {
+    float fneq[S::q], pi[n_moments<S>()];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
+    second_moment<S>(fneq, pi);
+    const float a = __fmul_rn(1.5f, sqrtf(__fmul_rn(2.0f, strain_squared<S>(pi)))) / rho;
+    float tau = 1.0f / omega;
+    for (int it = 0; it < p.coll_iters; ++it)
+      tau = __fadd_rn(__fmul_rn(p.coll[0], powf(__fadd_rn(a / tau, p.coll[2]), p.coll[1])), 0.5f);
+    const float om = fminf(fmaxf(1.0f / tau, 0.05f), 1.99f);
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) out[l] = __fsub_rn(fs[l], __fmul_rn(om, fneq[l]));
+  }
+};
+
+// The KBC shear part ds_l of fneq on D3Q27 (zero for the rest and corner
+// directions), from N_xz = Pi_xx - Pi_zz, N_yz = Pi_yy - Pi_zz and Pi.
+__device__ __forceinline__ bool kbc_has_shear_d3q27(int l) {
+  const int n = (D3Q27::c(0, l) != 0) + (D3Q27::c(1, l) != 0) + (D3Q27::c(2, l) != 0);
+  return n == 1 || n == 2;
+}
+
+__device__ __forceinline__ float kbc_shear_d3q27(int l, float nxz, float nyz, const float pi[6]) {
+  switch (l) {
+    case 9: case 18: return (2.0f * nxz - nyz) / 6.0f;
+    case 3: case 6: return (-nxz + 2.0f * nyz) / 6.0f;
+    case 1: case 2: return (-nxz - nyz) / 6.0f;
+    case 12: case 24: return pi[1] / 4.0f;
+    case 21: case 15: return -pi[1] / 4.0f;
+    case 10: case 20: return pi[2] / 4.0f;
+    case 19: case 11: return -pi[2] / 4.0f;
+    case 8: case 4: return pi[4] / 4.0f;
+    case 7: case 5: return -pi[4] / 4.0f;
+    default: return 0.0f;
+  }
+}
+
+// KBC (D3Q27): fs - beta (2 ds + gamma dh) with dh = fneq - ds, beta =
+// omega / 2 and gamma from the entropic products <ds, dh> and <dh, dh>
+// weighted by 1 / feq, one IEEE reciprocal per opposite pair (ds is even).
+struct CollKBC {
+  static constexpr int id = XLB_COLL_KBC;
+  template <class S>
+  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
+                                                 const XlbStepParams&, float out[S::q]) {
+    static_assert(S::q == 27, "the 3D kernels run KBC on D3Q27");
+    float fneq[S::q], pi[6], ds[S::q], dh[S::q];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
+    second_moment<S>(fneq, pi);
+    const float nxz = pi[0] - pi[5], nyz = pi[3] - pi[5];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      ds[l] = kbc_shear_d3q27(l, nxz, nyz, pi);
+      dh[l] = kbc_has_shear_d3q27(l) ? fneq[l] - ds[l] : fneq[l];
+    }
+    const float beta = 0.5f * omega;
+    const float inv_beta = 1.0f / beta;
+    float sp1 = 0.0f, sp2 = 0.0f;
+    bool have1 = false, have2 = false;
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      const int o = S::opp(l);
+      if (o < l) continue;  // pair handled at its lower index
+      float t1 = 0.0f, t2;
+      if (o == l) {
+        const float tmp = dh[l] * (1.0f / feq[l]);
+        if (kbc_has_shear_d3q27(l)) t1 = tmp * ds[l];
+        t2 = tmp * dh[l];
+      } else {
+        const float inv = 1.0f / (feq[l] * feq[o]);
+        const float a = dh[l] * feq[o];
+        const float b = dh[o] * feq[l];
+        if (kbc_has_shear_d3q27(l)) t1 = ds[l] * ((a + b) * inv);
+        t2 = (dh[l] * a + dh[o] * b) * inv;
+      }
+      if (kbc_has_shear_d3q27(l)) {
+        sp1 = have1 ? sp1 + t1 : t1;
+        have1 = true;
+      }
+      sp2 = have2 ? sp2 + t2 : t2;
+      have2 = true;
+    }
+    const float gamma = inv_beta - (2.0f - inv_beta) * sp1 * (1.0f / (1e-32f + sp2));
+#pragma unroll
+    for (int l = 0; l < S::q; ++l)
+      out[l] = kbc_has_shear_d3q27(l) ? fs[l] - beta * (2.0f * ds[l] + gamma * dh[l]) : fs[l] - beta * (gamma * dh[l]);
+  }
+};
+
 // One voxel of one step. pull(l) returns the raw (store-form, as f32)
 // population l pulled from x - c_l; center(l) the raw population l at x.
 // Writes the post-collision populations in store form (shifted back when
-// SHIFTED), still in f32, to out.
-template <class S, bool SHIFTED, bool EXT, typename Pull, typename Center>
+// SHIFTED), still in f32, to out. C is the collision; FORCE compiles the
+// exact-difference body force (applied when p.has_force).
+template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, typename Pull, typename Center>
 __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& center, int packed, float omega,
                                               const XlbStepParams& p, float out[S::q]) {
-  const int bc = cell_type(packed);
+  const int bc = cell_type<S>(packed);
 
   float fs[S::q];
   streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
 
   float rho, inv_rho, u[S::d], feq[S::q];
-  moments_equilibrium<S>(fs, p, rho, inv_rho, u, feq);
+  moments_equilibrium<S, FORCE>(fs, p, rho, inv_rho, u, feq);
 
-  // BGK
+  C::template collide<S>(fs, feq, rho, omega, p, out);
+
+  if constexpr (FORCE) {
+    if (p.has_force) {
+      float uf[S::d], feqf[S::q];
 #pragma unroll
-  for (int l = 0; l < S::q; ++l) out[l] = fs[l] - omega * (fs[l] - feq[l]);
+      for (int a = 0; a < S::d; ++a) uf[a] = u[a] + p.force[a];
+      equilibrium_rn<S>(rho, uf, p, feqf);
+#pragma unroll
+      for (int l = 0; l < S::q; ++l) out[l] = out[l] + (feqf[l] - feq[l]);
+    }
+  }
 
   // collision-step epilogues
   if (is_fullway(bc, p)) {
@@ -405,7 +743,7 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
   }
 
   // solid keep-out
-  if (is_solid(bc, p)) {
+  if (is_solid<S>(bc, p)) {
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       float v = center(l);

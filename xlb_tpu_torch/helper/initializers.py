@@ -15,6 +15,16 @@ def initialize_eq(f, grid, velocity_set, precision_policy):
     return feq.to(precision_policy.store_dtype)
 
 
+def initialize_from_macroscopic(grid, velocity_set, precision_policy, rho, u):
+    """Equilibrium populations of the given (rho (1, *s), u (d, *s)) fields
+    (arrays or tensors), on the grid's device in the store dtype."""
+    cdt = precision_policy.compute_dtype
+    rho = torch.as_tensor(rho, device=grid.device).to(cdt)
+    u = torch.as_tensor(u, device=grid.device).to(cdt)
+    feq = quadratic_equilibrium(rho, u, velocity_set._c, velocity_set._w, cdt)
+    return feq.to(precision_policy.store_dtype)
+
+
 class CustomInitializer:
     """Per-region equilibrium initializer -- ``xlb_tpu.helper.initializers
     .CustomInitializer``: the whole domain at (rho_0, u_0) and the voxels

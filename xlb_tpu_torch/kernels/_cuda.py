@@ -24,11 +24,13 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "xlb_tpu_
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_Q = 19
+MAX_Q = 27
 MAX_BC = 8
 STORE_KIND = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' store_kind codes
 # the launchers' bc_kind codes (enum in csrc/collide_stream.cuh)
 BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4}
+# the collision codes of XlbStepParams::collision (enum in csrc/collide_stream.cuh)
+COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "PowerLawBGK": 5}
 
 
 class XlbStepParams(ctypes.Structure):
@@ -45,7 +47,70 @@ class XlbStepParams(ctypes.Structure):
         ("bc_feq", (ctypes.c_float * MAX_Q) * MAX_BC),
         ("bc_mw", (ctypes.c_float * MAX_Q) * MAX_BC),
         ("bc_value", (ctypes.c_float * 3) * MAX_BC),
+        ("q", ctypes.c_int),
+        ("collision", ctypes.c_int),
+        ("walled", ctypes.c_int),
+        ("has_force", ctypes.c_int),
+        ("force", ctypes.c_float * 3),
+        ("coll", ctypes.c_float * 3),
+        ("coll_iters", ctypes.c_int),
+        ("mrt_on", ctypes.c_int * 2),
+        ("mrt_rate", ctypes.c_float * 2),
     ]
+
+
+MRT_TABLE = CSRC / "mrt_projectors.cuh"
+
+
+def mrt_table_header():
+    """The text of ``csrc/mrt_projectors.cuh``: for D3Q19 and D3Q27 and the
+    bulk and ghost groups, the projector contraction out_i += coef sum_j
+    P_ij fneq_j written out row by row (``ops.collision.mrt_projectors``
+    rounded to float32; entries below 1e-14 in magnitude skipped and +-1
+    as adds, in column order, as ``xlb_tpu``'s kernel body unrolls it),
+    with the intrinsics that nvcc never contracts into FMAs. A CPU test
+    holds the committed file to this function."""
+    import numpy as np
+
+    from xlb_tpu_torch.ops.collision import mrt_projectors
+    from xlb_tpu_torch.velocity_set import D3Q19, D3Q27
+
+    out = [
+        "// The MRT projector contractions of D3Q19 and D3Q27: for the bulk (g = 0)",
+        "// and ghost (g = 1) groups, out[i] += coef * sum_j P_ij fneq[j], row by row,",
+        "// with P rounded to float32, entries below 1e-14 in magnitude skipped and",
+        "// +-1 as adds, in column order, in products and sums that nvcc never contracts",
+        "// into FMAs (the same bits in every kernel). Written by",
+        "// xlb_tpu_torch.kernels._cuda.mrt_table_header() from",
+        "// xlb_tpu_torch.ops.collision.mrt_projectors; a CPU test holds this file to it.",
+        "#pragma once",
+        "",
+        "namespace xlb {",
+    ]
+    for vs in (D3Q19(), D3Q27()):
+        P = mrt_projectors(vs)
+        q = vs.q
+        for g in ("bulk", "ghost"):
+            out.append("")
+            out.append(f"__device__ __forceinline__ void mrt_d3q{q}_{g}(const float* f, float coef, float* out) {{")
+            for i, row in enumerate(P[g]):
+                body = []
+                for j, v in enumerate(row):
+                    if abs(v) < 1e-14:
+                        continue
+                    if v in (1.0, -1.0):
+                        op, term = ("__fadd_rn" if v > 0 else "__fsub_rn"), f"f[{j}]"
+                        first = f"f[{j}]" if v > 0 else f"-f[{j}]"
+                    else:
+                        op, term = "__fadd_rn", f"__fmul_rn(f[{j}], {float(np.float32(v))!r}f)"
+                        first = term
+                    body.append(f"    a = {op}(a, {term});" if body else f"    float a = {first};")
+                if body:
+                    out += ["  {", *body, f"    out[{i}] = __fadd_rn(out[{i}], __fmul_rn(coef, a));", "  }"]
+            out.append("}")
+    out.append("")
+    out.append("}  // namespace xlb")
+    return "\n".join(out) + "\n"
 
 
 def find_nvcc():
@@ -111,6 +176,10 @@ def load_library():
     lib.xlb_collide_stream_step.restype = i32
     lib.xlb_collide_stream_kstep.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_kstep.restype = i32
+    lib.xlb_collide_stream_blocked.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_blocked.restype = i32
+    lib.xlb_has_instantiation.argtypes = [i32, i32, i32, i32, i32, i32]
+    lib.xlb_has_instantiation.restype = i32
     lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_adjoint.restype = i32
     lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, params, ptr]
@@ -135,6 +204,32 @@ def check(lib, err, what):
     """Raise when a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({lib.xlb_error_string(err).decode()})")
+
+
+def ptxas_report():
+    """Per kernel of the current build: (mangled name, registers, spill
+    stores, spill loads, static shared bytes), from ptxas's -v report in
+    the build log; [] before the first build."""
+    import re
+
+    entries, cur = [], None
+    for line in (build_log() or "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1), "registers": None, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return [(e["name"], e["registers"], e["spill_stores"], e["spill_loads"], e["smem"]) for e in entries]
 
 
 def build_log():

@@ -57,10 +57,11 @@ class CollideStreamAdjoint(FusedKernel):
     plain_calls = 0
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
-                 store_dtype=torch.float32, shifted=False, has_solids=True):
+                 store_dtype=torch.float32, shifted=False, has_solids=True, force_vector=None):
         if not adjoint_supported(bc_specs):
             raise NotImplementedError(f"no fused adjoint for BC kinds {ADJOINT_UNSUPPORTED_KINDS}")
-        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids)
+        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids,
+                         force_vector)
 
     def plain(self, f_primal, g, mask_i32, omega):
         CollideStreamAdjoint.plain_calls += 1

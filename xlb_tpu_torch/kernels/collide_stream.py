@@ -6,55 +6,118 @@ kinds this port supports: the streaming-step ``equilibrium``,
 ``halfway`` (constant moving wall), ``zouhe`` and ``regularized`` BCs
 (constant prescriptions), the collision-step ``fullway`` BC, the solid
 keep-out and shifted (g = f - w) load and store, around moments, the
-pair-shared quadratic equilibrium and BGK. The CUDA kernels
-(``csrc/collide_stream.cuh``) compute the same terms in the same order;
-this version is what the CPU tests run and what ``chip_smoke.py`` holds
-the kernels against.
+pair-shared quadratic equilibrium, the collision (BGK, KBC, Smagorinsky,
+PowerLaw, TRT, MRT, in the kernel body's form: TRT per opposite pair, MRT
+as unrolled projector rows without their zero entries, KBC with the
+pair-shared entropic products) and the exact-difference body force. The
+CUDA kernels (``csrc/collide_stream.cuh``) compute the same terms in the
+same order; this version is what the CPU tests run and what
+``chip_smoke.py`` holds the kernels against.
 """
 
 import numpy as np
 import torch
 
+from xlb_tpu_torch.ops.collision import kbc_shear
+
 
 def bc_id_shift(q):
-    """Bit position of the BC id field in the packed int32 mask: the
-    missing-direction bitfield occupies bits 0..q-1, and for q <= 19 bits
-    19..26 hold the raw uint8 cell type. The q > 19 (D3Q27) layout is not
-    ported yet."""
-    if q > 19:
-        raise NotImplementedError("the D3Q27 packed-mask layout is not ported yet")
-    return 19
+    """Bit position of the BC id field in the packed int32 mask. The
+    missing-direction bitfield occupies bits 0..q-1, so:
+
+    - q <= 19 (D2Q9, D3Q19): bits 19..26 hold the raw uint8 cell type;
+    - q > 19 (D3Q27): bits 27..31 hold a 5-bit id: ids 0..29 as they are,
+      254 -> 30 and 255 -> 31 (the packed value is then negative).
+    """
+    return 19 if q <= 19 else 27
 
 
 def bc_id_mask(q):
     """Bitmask of the BC id field width (after shifting)."""
-    return 0xFF
+    return 0xFF if q <= 19 else 31
 
 
 def kernel_bc_id(bc_id, q):
     """Packed-mask kernel id of a cell-type code (identity for q <= 19)."""
-    bc_id_shift(q)
-    if not 0 <= bc_id <= 255:
-        raise ValueError(f"BC id {bc_id} outside the uint8 cell-type space")
+    if q <= 19:
+        if not 0 <= bc_id <= 255:
+            raise ValueError(f"BC id {bc_id} outside the uint8 cell-type space")
+        return bc_id
+    if bc_id in (254, 255):
+        return bc_id - 224
+    if not 0 <= bc_id < 30:
+        raise ValueError(
+            f"BC id {bc_id} does not fit the D3Q27 packed-mask 5-bit id space (0..29 + specials); "
+            "D2Q9/D3Q19 scenes carry the full uint8 id space"
+        )
     return bc_id
 
 
 def kernel_solid_id(q):
     """Packed id of cell type 255 (solid)."""
-    bc_id_shift(q)
-    return 255
+    return kernel_bc_id(255, q)
 
 
 def kernel_sfv_id(q):
     """Packed id of cell type 254 (the multires ghost ring and refined
     region: kept through the collide)."""
-    bc_id_shift(q)
-    return 254
+    return kernel_bc_id(254, q)
+
+
+def packed_cell(cell_type, q):
+    """The packed int32 value of a cell of type ``cell_type`` with no
+    missing directions, as a Python int with int32 wraparound."""
+    v = kernel_bc_id(cell_type, q) << bc_id_shift(q)
+    return v - (1 << 32) if v >= (1 << 31) else v
 
 
 def unpack_bc_id(packed, q):
     """Extract the BC id field from a packed int32 mask tensor."""
     return (packed >> bc_id_shift(q)) & bc_id_mask(q)
+
+
+def kernel_collision_spec(stepper):
+    """The collision argument of the fused kernels: the collision-type
+    string when the operator has no parameters, else ``(string, params)``
+    with the operator's constructor parameters (TRT magic, MRT rates and
+    projectors, Smagorinsky coefficient, PowerLaw consistency, index and
+    iterations), so the kernels match the TORCH tier exactly."""
+    ct = stepper.collision_type
+    inner = getattr(stepper.collision, "collision_operator", stepper.collision)  # unwrap ForcedCollision
+    if ct == "TRT":
+        return (ct, {"magic": inner.magic})
+    if ct == "MRT":
+        return (ct, {"fixed": inner.fixed_projectors, "bulk_rate": inner.bulk_rate, "ghost_rate": inner.ghost_rate})
+    if ct == "SmagorinskyLESBGK":
+        return (ct, {"smagorinsky_coef": inner.smagorinsky_coef})
+    if ct == "PowerLawBGK":
+        return (ct, {"consistency": inner.consistency, "power_index": inner.power_index,
+                     "iterations": inner.iterations})
+    return ct
+
+
+def split_collision(collision):
+    """(collision-type string, params dict) of a ``kernel_collision_spec``."""
+    return collision if isinstance(collision, tuple) else (collision, {})
+
+
+def collision_constants(collision):
+    """The float32 constants of a collision's kernel body, derived on the
+    host once, as the kernels and the plain version read them."""
+    name, params = split_collision(collision)
+    f32 = np.float32
+    if name == "TRT":
+        return {"magic": float(f32(params.get("magic", 0.25)))}
+    if name == "SmagorinskyLESBGK":
+        cs = f32(params.get("smagorinsky_coef", 0.17))
+        return {"c36": float(f32(36.0 * cs * cs))}  # 36 Cs^2
+    if name == "PowerLawBGK":
+        return {"k3": float(f32(3.0 * f32(params["consistency"]))),
+                "nm1": float(f32(params["power_index"] - 1.0)), "eps": float(f32(1e-12)),
+                "iterations": int(params.get("iterations", 5))}
+    if name == "MRT":
+        return {"fixed": [(float(f32(s)), P) for s, P in params["fixed"]]}
+    return {}
 
 
 def f32_weights(vs):
@@ -192,7 +255,113 @@ def _zouhe_epilogue(vs, spec, on, missing, f_s, w):
     return [torch.where(on, f_bd[l], f_s[l]) for l in range(q)]
 
 
-def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, has_solids=True):
+def _scalar_f32(x, like):
+    """A float or tensor as float32 on ``like``'s device (the kernels hold
+    omega and the per-voxel rates in float32)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _strain(pi, d):
+    diag, offd = ((0, 3, 5), (1, 2, 4)) if d == 3 else ((0, 2), (1,))
+    acc_d = pi[diag[0]] * pi[diag[0]]
+    for t in diag[1:]:
+        acc_d = acc_d + pi[t] * pi[t]
+    acc_o = pi[offd[0]] * pi[offd[0]]
+    for t in offd[1:]:
+        acc_o = acc_o + pi[t] * pi[t]
+    return acc_d + 2.0 * acc_o
+
+
+def collide(vs, collision, f_s, feq, rho, omega):
+    """The collision of the kernel body (``_build_kernel_body.collide``)
+    on the lists of post-streaming and equilibrium slabs; float32."""
+    name, _ = split_collision(collision)
+    k = collision_constants(collision)
+    q, d, opp = vs.q, vs.d, vs._opp_indices
+    if name == "BGK":
+        return [f_s[l] - omega * (f_s[l] - feq[l]) for l in range(q)]
+    om = _scalar_f32(omega, f_s[0])
+    fneq = [f_s[l] - feq[l] for l in range(q)]
+    if name == "TRT":
+        # even part at omega, odd part at omega_minus, per opposite pair
+        om_m = 1.0 / (k["magic"] / (1.0 / om - 0.5) + 0.5)
+        out = [None] * q
+        for l in range(q):
+            o = int(opp[l])
+            if out[l] is not None:
+                continue
+            if o == l:
+                out[l] = f_s[l] - om * (f_s[l] - feq[l])
+                continue
+            h_even = om * (0.5 * (f_s[l] + f_s[o]) - 0.5 * (feq[l] + feq[o]))
+            h_odd = om_m * (0.5 * (f_s[l] - f_s[o]) - 0.5 * (feq[l] - feq[o]))
+            out[l] = f_s[l] - h_even - h_odd
+            out[o] = f_s[o] - h_even + h_odd
+        return out
+    if name == "MRT":
+        # BGK plus one projector correction per fixed-rate group: unrolled
+        # rows, entries below 1e-14 skipped, +-1 as adds
+        out = [f_s[l] - om * fneq[l] for l in range(q)]
+        for rate, P in k["fixed"]:
+            coef = om - rate
+            for i in range(q):
+                acc = None
+                for j in range(q):
+                    m = float(P[i, j])
+                    if abs(m) < 1e-14:
+                        continue
+                    t = fneq[j] if m == 1.0 else (-fneq[j] if m == -1.0 else fneq[j] * _f32(m))
+                    acc = t if acc is None else acc + t
+                if acc is not None:
+                    out[i] = out[i] + coef * acc
+        return out
+    pi = second_moment(vs, fneq)
+    if name == "SmagorinskyLESBGK":
+        tau0 = 1.0 / om
+        tau = 0.5 * (tau0 + torch.sqrt(tau0 * tau0 + k["c36"] * torch.sqrt(_strain(pi, d))))
+        om_loc = 1.0 / tau
+        return [f_s[l] - om_loc * fneq[l] for l in range(q)]
+    if name == "PowerLawBGK":
+        a_sh = 1.5 * torch.sqrt(2.0 * _strain(pi, d)) / rho
+        k3, nm1 = _scalar_f32(k["k3"], a_sh), _scalar_f32(k["nm1"], a_sh)
+        tau = torch.broadcast_to(1.0 / om, a_sh.shape)
+        for _ in range(k["iterations"]):
+            tau = k3 * torch.pow(a_sh / tau + k["eps"], nm1) + 0.5
+        om_loc = torch.clamp(1.0 / tau, 0.05, 1.99)
+        return [f_s[l] - om_loc * fneq[l] for l in range(q)]
+    if name == "KBC":
+        ds = kbc_shear(q, pi)
+        beta = 0.5 * om
+        inv_beta = 1.0 / beta
+        dh = [fneq[l] if ds[l] is None else fneq[l] - ds[l] for l in range(q)]
+        # entropic products <ds, dh> and <dh, dh> weighted by 1 / feq, one
+        # reciprocal per opposite pair (ds is even: ds_l == ds_opp)
+        sp1 = sp2 = None
+        for l in range(q):
+            o = int(opp[l])
+            if o < l:
+                continue
+            if o == l:
+                tmp = dh[l] * (1.0 / feq[l])
+                t1 = None if ds[l] is None else tmp * ds[l]
+                t2 = tmp * dh[l]
+            else:
+                inv = 1.0 / (feq[l] * feq[o])
+                a = dh[l] * feq[o]
+                b = dh[o] * feq[l]
+                t1 = None if ds[l] is None else ds[l] * ((a + b) * inv)
+                t2 = (dh[l] * a + dh[o] * b) * inv
+            if t1 is not None:
+                sp1 = t1 if sp1 is None else sp1 + t1
+            sp2 = t2 if sp2 is None else sp2 + t2
+        gamma = inv_beta - (2.0 - inv_beta) * sp1 * (1.0 / (_f32(1e-32) + sp2))
+        return [f_s[l] - beta * (gamma * dh[l]) if ds[l] is None else f_s[l] - beta * (2.0 * ds[l] + gamma * dh[l])
+                for l in range(q)]
+    raise NotImplementedError(f"collision {name!r} is not ported to the fused step")
+
+
+def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, has_solids=True, collision="BGK",
+                   force_vector=None):
     """Per-voxel physics given already-gathered populations (float32).
 
     ``fs_raw[l]`` is the raw (store-form) pulled slab of direction l;
@@ -200,8 +369,9 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
     is the int32 mask of ``fused_step.pack_masks``. ``omega`` is a float
     (rounded to float32, as the kernels read it) or a float32 tensor that
     broadcasts against the slabs: a 0-d tensor, or the per-voxel field
-    through which the adjoint takes omega's cotangent. Returns the list of
-    post-collision slabs (unshifted, uncast)."""
+    through which the adjoint takes omega's cotangent. ``collision`` is a
+    ``kernel_collision_spec``; ``force_vector`` a constant body force or
+    None. Returns the list of post-collision slabs (unshifted, uncast)."""
     q, d = vs.q, vs.d
     c, opp = vs._c, vs._opp_indices
     w = f32_weights(vs)
@@ -235,7 +405,14 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
 
     rho, u = _moments(f_s, c, q, d)
     feq = _equilibrium(rho, u, c, w, opp, q, d)
-    f_out = [f_s[l] - omega * (f_s[l] - feq[l]) for l in range(q)]
+    f_out = collide(vs, collision, f_s, feq, rho, omega)
+
+    # exact-difference body force with the pre-collision rho and u:
+    # f += feq(rho, u + F) - feq(rho, u)
+    if force_vector is not None:
+        u_f = [u[a] + _f32(force_vector[a]) for a in range(d)]
+        feq_f = _equilibrium(rho, u_f, c, w, opp, q, d)
+        f_out = [f_out[l] + (feq_f[l] - feq[l]) for l in range(q)]
 
     for spec in bc_specs:
         if spec["step"] != "collision":

@@ -24,7 +24,7 @@ import torch
 
 from xlb_tpu_torch.kernels import _cuda
 from xlb_tpu_torch.kernels.collide_stream_2step import _align16
-from xlb_tpu_torch.kernels.collide_stream_dma import EXT_KINDS, FusedKernel, collide_stream_step_plain
+from xlb_tpu_torch.kernels.collide_stream_dma import EXT_KINDS, FusedKernel
 
 MAX_STEPS = 8  # 2 <= k <= 8, as in xlb_tpu
 # the k-step's output tile (x, y): the fastest of those timed on an H100
@@ -59,7 +59,7 @@ class CollideStream2DStep(_Fused2D):
 
     def plain(self, f, mask_i32, omega):
         CollideStream2DStep.plain_calls += 1
-        return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted, self.has_solids)
+        return self._plain_step(f, mask_i32, omega)
 
     def _launch(self, lib, f, mask_i32, out, omega, stream):
         X, Y = self.shape
@@ -77,8 +77,9 @@ class CollideStream2DKStep(_Fused2D):
     plain_calls = 0
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
-                 store_dtype=torch.float32, shifted=False, has_solids=True, steps=MAX_STEPS):
-        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids)
+                 store_dtype=torch.float32, shifted=False, has_solids=True, steps=MAX_STEPS, force_vector=None):
+        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids,
+                         force_vector)
         if not 2 <= steps <= MAX_STEPS:
             raise ValueError(f"2D temporal blocking takes 2 <= steps <= {MAX_STEPS}, got {steps}")
         self.steps = int(steps)
@@ -87,7 +88,7 @@ class CollideStream2DKStep(_Fused2D):
         """k single plain steps, each rounded to the store dtype."""
         CollideStream2DKStep.plain_calls += 1
         for _ in range(self.steps):
-            f = collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted, self.has_solids)
+            f = self._plain_step(f, mask_i32, omega)
         return f
 
     def _launch(self, lib, f, mask_i32, out, omega, stream):

@@ -3,8 +3,9 @@ k-step kernel and its plain version.
 
 ``CollideStreamKStep`` is the counterpart of
 ``xlb_tpu.kernels.collide_stream_2step.build_fused_collide_stream_3d_kstep``.
-Its CUDA kernel (``csrc/collide_stream.cu::kstep_kernel``) replaces that
-TPU kernel in its plain mode. Each block sweeps k times over regions that
+Its CUDA kernel (``csrc/collide_stream_3d.cuh::kstep_kernel``) replaces
+that TPU kernel in its plain mode, for the configurations of the single
+step (D3Q19 and D3Q27, every collision, force, halfway walls). Each block sweeps k times over regions that
 shrink around its (TX, TY, TZ) tile, keeping the intermediate sweeps in
 shared memory rounded to the store dtype -- so its result equals k single
 steps to store-dtype roundoff, which is exactly what the plain version
@@ -16,7 +17,7 @@ import ctypes
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream_dma import FusedKernel, collide_stream_step_plain
+from xlb_tpu_torch.kernels.collide_stream_dma import FusedKernel
 
 # default tiles leave room for two blocks on one SM (228 KB, 1 KB reserved per block)
 TILE_BUDGET = 113 * 1024
@@ -32,7 +33,7 @@ def _align16(b):
 
 def kstep_smem_bytes(steps, tile, itemsize, q=19):
     """Dynamic shared memory of the k-step kernel; mirrors
-    ``kstep_smem_bytes`` in ``csrc/collide_stream.cu``."""
+    ``kstep_smem_bytes`` in ``csrc/collide_stream_3d.cuh``."""
     tx, ty, tz = tile
 
     def vol(h):
@@ -44,10 +45,10 @@ def kstep_smem_bytes(steps, tile, itemsize, q=19):
     return b
 
 
-def default_tile(steps, store_dtype):
+def default_tile(steps, store_dtype, q=19):
     """Largest candidate tile whose sweep buffers let two blocks share an SM."""
     for tile in TILE_CANDIDATES:
-        if kstep_smem_bytes(steps, tile, store_dtype.itemsize) <= TILE_BUDGET:
+        if kstep_smem_bytes(steps, tile, store_dtype.itemsize, q) <= TILE_BUDGET:
             return tile
     raise ValueError(f"no k-step tile fits shared memory at steps={steps}, store {store_dtype}")
 
@@ -57,20 +58,23 @@ class CollideStreamKStep(FusedKernel):
 
     launches = 0
     plain_calls = 0
+    zoo = True
+    kernel_kind = 2  # XLB_KERNEL_KSTEP
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
-                 store_dtype=torch.float32, shifted=False, has_solids=True, steps=2):
-        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids)
+                 store_dtype=torch.float32, shifted=False, has_solids=True, steps=2, force_vector=None):
+        super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids,
+                         force_vector)
         if steps < 2:
             raise ValueError(f"temporal blocking needs steps >= 2, got {steps}")
         self.steps = int(steps)
-        self.tile = default_tile(self.steps, store_dtype)
+        self.tile = default_tile(self.steps, store_dtype, velocity_set.q)
 
     def plain(self, f, mask_i32, omega):
         """k single plain steps, each rounded to the store dtype."""
         CollideStreamKStep.plain_calls += 1
         for _ in range(self.steps):
-            f = collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted, self.has_solids)
+            f = self._plain_step(f, mask_i32, omega)
         return f
 
     def _launch(self, lib, f, mask_i32, out, omega, stream):

@@ -3,11 +3,12 @@ plain version.
 
 ``CollideStreamStep`` is the counterpart of
 ``xlb_tpu.kernels.collide_stream_dma.build_fused_collide_stream_3d_dma``.
-Its CUDA kernel (``csrc/collide_stream.cu::step_kernel``) replaces that
-TPU kernel in its plain mode, with and without shifted storage. The TPU
-kernel's double-buffered halo DMAs have no counterpart: on Hopper each
-thread pulls its 19 neighbours straight from device memory, and L1/L2
-serve the reuse.
+Its CUDA kernel (``csrc/collide_stream_3d.cuh::step_kernel``) replaces
+that TPU kernel in its plain mode, with and without shifted storage, for
+D3Q19 and D3Q27, every collision, the exact-difference force and halfway
+walls. The TPU kernel's double-buffered halo DMAs have no counterpart: on
+Hopper each thread pulls its q neighbours straight from device memory, and
+L1/L2 serve the reuse.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 for a CPU tensor; any other device raises.
@@ -19,45 +20,58 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream import f32_weights, pointwise_core
+from xlb_tpu_torch.kernels.collide_stream import (collision_constants, f32_weights, kernel_bc_id, pointwise_core,
+                                                  split_collision)
 
 
-def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=True):
+def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=True, collision="BGK",
+                  force_vector=None):
     """The plain step before its store: pull-stream gather of the float32
     store-form field ``fc`` with periodic wrap, then ``pointwise_core``.
     Returns the post-collision populations (q, *s), unshifted, float32."""
     dims = tuple(range(vs.d))
     fs_raw = [torch.roll(fc[l], shifts=tuple(int(s) for s in vs._c[:, l]), dims=dims) for l in range(vs.q)]
-    return torch.stack(pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids))
+    return torch.stack(pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids,
+                                      collision, force_vector))
 
 
-def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True):
+def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True,
+                              collision="BGK", force_vector=None):
     """Plain torch version of one fused step: ``plain_collide``, then the
     (shifted) store."""
-    out = plain_collide(vs, bc_specs, f.to(torch.float32), mask_i32, omega, shifted, has_solids)
+    out = plain_collide(vs, bc_specs, f.to(torch.float32), mask_i32, omega, shifted, has_solids, collision,
+                        force_vector)
     if shifted:
         out = out - torch.tensor(f32_weights(vs), device=out.device).reshape((-1,) + (1,) * vs.d)
     return out.to(store_dtype)
 
 
-# epilogue kinds built into the 2D kernels only (behind the EXT switch of
-# csrc/collide_stream.cuh); the 3D kernels (K1, K2, K8) do not take them yet
+# epilogue kinds behind the EXT switch of csrc/collide_stream.cuh: all of
+# them in the 2D kernels (K3, K4); halfway alone in the 3D kernels of the
+# collision zoo (K0, K1, K2)
 EXT_KINDS = ("halfway", "zouhe", "regularized")
+# the kinds of the 3D kernels that take no EXT epilogue (K5, K7, K8) and of
+# those that take halfway
+BASE_KINDS_3D = frozenset({"equilibrium", "fullway"})
+ZOO_KINDS_3D = BASE_KINDS_3D | {"halfway"}
 
 
 def _f32_list(values):
     return [float(x) for x in np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1)]
 
 
-def kernel_params(vs, bc_specs, has_solids, kinds=None):
-    """The kernels' launch parameters (``XlbStepParams``) for a D3Q19 or a
-    D2Q9 scene. ``kinds`` is the set of epilogue kinds the calling kernel
-    takes; by default every kind in 2D and all but ``EXT_KINDS`` in 3D."""
-    from xlb_tpu_torch.velocity_set import D2Q9, D3Q19
+def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_vector=None):
+    """The kernels' launch parameters (``XlbStepParams``) for a D3Q19,
+    D3Q27 or D2Q9 scene. ``kinds`` is the set of epilogue kinds the calling
+    kernel takes; by default every kind in 2D and ``BASE_KINDS_3D`` in 3D.
+    ``collision`` (a ``kernel_collision_spec``) and ``force_vector`` fill
+    the collision fields that the kernels of the zoo read."""
+    from xlb_tpu_torch.velocity_set import D2Q9, D3Q19, D3Q27
 
-    ref = D3Q19() if vs.d == 3 else D2Q9()
-    if vs.q != ref.q or not np.array_equal(vs._c, ref._c):
-        raise NotImplementedError(f"the CUDA kernels are built for xlb_tpu's D3Q19 and D2Q9 direction orders, got {vs}")
+    ref = {9: D2Q9, 19: D3Q19, 27: D3Q27}.get(vs.q)
+    if ref is None or vs.d != ref().d or not np.array_equal(vs._c, ref()._c):
+        raise NotImplementedError(
+            f"the CUDA kernels are built for xlb_tpu's D3Q19, D3Q27 and D2Q9 direction orders, got {vs}")
     if len(bc_specs) > _cuda.MAX_BC:
         raise NotImplementedError(f"the CUDA kernels take at most {_cuda.MAX_BC} BCs, got {len(bc_specs)}")
     q = vs.q
@@ -66,13 +80,13 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None):
     p.w45[:q] = _f32_list(4.5 * vs._w)
     p.has_solids = int(bool(has_solids))
     p.n_bc = len(bc_specs)
+    allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else set(_cuda.BC_KIND))
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
-        allowed = kinds if kinds is not None else (set(_cuda.BC_KIND) - set(EXT_KINDS) if vs.d == 3 else set(_cuda.BC_KIND))
         if kind not in allowed:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
         p.bc_kind[b] = _cuda.BC_KIND[kind]
-        p.bc_id[b] = int(spec["id"])
+        p.bc_id[b] = kernel_bc_id(int(spec["id"]), q)
         if kind == "equilibrium":
             p.bc_feq[b][:q] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
         elif kind == "halfway" and spec["mw"] is not None:
@@ -82,6 +96,37 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None):
             value = _f32_list(spec["value"])
             p.bc_flag[b] = int(spec["bc_type"] == "pressure")
             p.bc_value[b][: len(value)] = value
+
+    name, _ = split_collision(collision)
+    if name not in _cuda.COLLISION:
+        raise NotImplementedError(f"collision {name!r} has no CUDA kernel")
+    if name == "KBC" and q not in (9, 27):
+        raise NotImplementedError(f"KBC supports D2Q9 and D3Q27 only, got {vs}")
+    k = collision_constants(collision)
+    p.q = q
+    p.collision = _cuda.COLLISION[name]
+    p.walled = int(force_vector is not None or any(s["kind"] == "halfway" for s in bc_specs))
+    if force_vector is not None:
+        p.has_force = 1
+        p.force[: vs.d] = _f32_list(force_vector)
+    if name == "TRT":
+        p.coll[0] = k["magic"]
+    elif name == "SmagorinskyLESBGK":
+        p.coll[0] = k["c36"]
+    elif name == "PowerLawBGK":
+        p.coll[0], p.coll[1], p.coll[2] = k["k3"], k["nm1"], k["eps"]
+        p.coll_iters = k["iterations"]
+    elif name == "MRT":
+        _, params = split_collision(collision)
+        from xlb_tpu_torch.ops.collision import mrt_projectors
+
+        P = mrt_projectors(vs)
+        groups = [g for g, rate in (("bulk", params["bulk_rate"]), ("ghost", params["ghost_rate"])) if rate is not None]
+        for (rate, mat), g in zip(k["fixed"], groups):
+            if not np.array_equal(mat, P[g]):
+                raise NotImplementedError("the MRT kernels hold the stencil's own bulk and ghost projectors")
+            i = ("bulk", "ghost").index(g)
+            p.mrt_on[i], p.mrt_rate[i] = 1, rate
     return p
 
 
@@ -92,17 +137,28 @@ class FusedKernel:
     Subclasses define ``launches`` and ``plain_calls`` (counts over all
     their instances), ``plain`` and ``_launch``, and ``dims`` when they run
     another dimension than 3; a kernel with another signature defines its
-    own ``__call__`` around ``_dispatch``."""
+    own ``__call__`` around ``_dispatch``. The kernels of the 3D collision
+    zoo (``zoo = True``: K0, K1, K2) take every collision, D3Q27, the body
+    force and halfway walls; the others BGK without force on D3Q19 or
+    D2Q9."""
 
     dims = 3
+    zoo = False
     bc_kinds = None  # the epilogue kinds the kernel takes (kernel_params' default when None)
+    kernel_kind = None  # the zoo kernels' code in csrc/collide_stream_3d.cuh (XLB_KERNEL_*)
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
-                 store_dtype=torch.float32, shifted=False, has_solids=True):
+                 store_dtype=torch.float32, shifted=False, has_solids=True, force_vector=None):
         if velocity_set.d != self.dims:
             raise NotImplementedError(f"{type(self).__name__} runs {self.dims}D scenes, got {velocity_set}")
-        if collision != "BGK":
-            raise NotImplementedError(f"only BGK is ported to the fused step, got {collision!r}")
+        name, _ = split_collision(collision)
+        if not self.zoo:
+            if name != "BGK":
+                raise NotImplementedError(f"only BGK is ported to {type(self).__name__}, got {name!r}")
+            if force_vector is not None:
+                raise NotImplementedError(f"{type(self).__name__} has no body force")
+            if velocity_set.q == 27:
+                raise NotImplementedError(f"{type(self).__name__} is not ported to D3Q27")
         if compute_dtype != torch.float32:
             raise NotImplementedError(f"the fused step computes in float32, got {compute_dtype}")
         if store_dtype not in _cuda.STORE_KIND:
@@ -112,10 +168,30 @@ class FusedKernel:
         if int(np.prod(self.shape)) >= 2**31:
             raise ValueError(f"domain {self.shape} exceeds the kernels' 32-bit voxel index")
         self.bc_specs = list(bc_specs)
+        self.collision = collision
+        self.force_vector = None if force_vector is None else np.asarray(force_vector, dtype=np.float64)
         self.store_dtype = store_dtype
         self.shifted = bool(shifted)
         self.has_solids = bool(has_solids)
-        self.params = kernel_params(velocity_set, self.bc_specs, has_solids, self.bc_kinds)
+        kinds = self.bc_kinds if self.bc_kinds is not None else (ZOO_KINDS_3D if self.zoo else None)
+        self.params = kernel_params(velocity_set, self.bc_specs, has_solids, kinds, collision, self.force_vector)
+
+    def _plain_step(self, f, mask_i32, omega):
+        """One plain step of this configuration, stored in the store dtype."""
+        return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted,
+                                         self.has_solids, self.collision, self.force_vector)
+
+    def _require_instantiation(self, lib):
+        """Raise, naming it, when the library holds no instantiation of this
+        zoo kernel's configuration (csrc/collide_stream_3d.cuh's table)."""
+        p = self.params
+        if not lib.xlb_has_instantiation(self.kernel_kind, p.q, p.collision, p.walled,
+                                         _cuda.STORE_KIND[self.store_dtype], int(self.shifted)):
+            name, _ = split_collision(self.collision)
+            raise NotImplementedError(
+                f"{type(self).__name__}: no CUDA instantiation for D3Q{p.q} {name}, "
+                f"{'walled (halfway / force)' if p.walled else 'unwalled'}, store {self.store_dtype}, "
+                f"shifted={self.shifted} (the table of csrc/collide_stream_3d.cuh)")
 
     def _check(self, f, mask_i32):
         """Raise on anything the kernels do not take."""
@@ -146,6 +222,8 @@ class FusedKernel:
         if f.device.type == "cpu":
             return plain()
         lib = _cuda.load_library()
+        if self.zoo:
+            self._require_instantiation(lib)
         with torch.cuda.device(f.device):
             result, err = launch(lib, torch.cuda.current_stream(f.device).cuda_stream)
         _cuda.check(lib, err, f"{type(self).__name__} launch")
@@ -167,10 +245,12 @@ class CollideStreamStep(FusedKernel):
 
     launches = 0
     plain_calls = 0
+    zoo = True
+    kernel_kind = 1  # XLB_KERNEL_STEP
 
     def plain(self, f, mask_i32, omega):
         CollideStreamStep.plain_calls += 1
-        return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted, self.has_solids)
+        return self._plain_step(f, mask_i32, omega)
 
     def _launch(self, lib, f, mask_i32, out, omega, stream):
         X, Y, Z = self.shape

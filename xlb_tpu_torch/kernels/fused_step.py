@@ -2,10 +2,14 @@
 
 Translates BC objects into static kernel epilogue specs, packs
 ``bc_mask`` / ``missing_mask`` into one int32 voxel field, and builds the
-CUDA-tier step and window, in 3D (D3Q19) and 2D (D2Q9). BCs supported in
-the fused step so far: EquilibriumBC and FullwayBounceBackBC, and in 2D
-HalfwayBounceBackBC (constant moving wall), ZouHeBC and RegularizedBC
-(constant prescriptions); any other kind raises.
+CUDA-tier step and window, in 3D (D3Q19, D3Q27) and 2D (D2Q9). BCs
+supported in the fused step so far: EquilibriumBC, FullwayBounceBackBC
+and HalfwayBounceBackBC (constant moving wall), and in 2D also ZouHeBC and
+RegularizedBC (constant prescriptions); any other kind raises. In 3D every
+collision of the TORCH tier and the exact-difference body force run in the
+kernels, through the single-step kernel (``kernel="dma"``, the default,
+with the k-step kernel in windows) or the block-tiled one
+(``kernel="blocked"``).
 
 None of the TPU machinery of ``xlb_tpu.kernels.fused_step`` is carried
 over: no z padding to lane multiples, no tile estimators for on-chip
@@ -20,7 +24,8 @@ from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC, HalfwayBo
 from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
 from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
 from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC
-from xlb_tpu_torch.kernels.collide_stream import bc_id_shift
+from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, kernel_collision_spec, packed_cell, split_collision
+from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
 from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
 from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
@@ -52,19 +57,30 @@ def bc_to_spec(bc, velocity_set):
 def ring_val(q):
     """Packed mask value of a multires ring or refined-region cell: cell
     type 254 with no missing directions (254 << 19 for q <= 19)."""
-    from xlb_tpu_torch.kernels.collide_stream import kernel_sfv_id
+    return packed_cell(254, q)
 
-    return kernel_sfv_id(q) << bc_id_shift(q)
+
+def stepper_force_vector(stepper):
+    """The constant body-force vector of a forced stepper (float64 NumPy),
+    or None."""
+    fv = getattr(getattr(stepper, "collision", None), "force_vector", None)
+    return None if fv is None else np.asarray(fv, dtype=np.float64)
 
 
 def pack_masks(bc_mask, missing_mask):
     """(bc_mask uint8 (1,*s), missing bool (q,*s)) -> one int32 (*s).
 
-    Bits 0..q-1 hold the missing-direction bitfield and bits 19..26 the raw
-    uint8 cell type (q <= 19), as in ``xlb_tpu.kernels.fused_step.pack_masks``.
+    Bits 0..q-1 hold the missing-direction bitfield; the id field follows
+    ``collide_stream.bc_id_shift``: the raw uint8 cell type in bits 19..26
+    for q <= 19, a 5-bit id in bits 27..31 for D3Q27 (254 -> 30, 255 -> 31,
+    the other ids below 30), bit for bit as
+    ``xlb_tpu.kernels.fused_step.pack_masks``.
     """
     q = missing_mask.shape[0]
-    packed = bc_mask[0].to(torch.int32) << bc_id_shift(q)
+    bc = bc_mask[0].to(torch.int32)
+    if q > 19:  # the BC ids themselves are checked against the id space in kernel_params
+        bc = torch.where(bc >= 254, bc - 224, bc)
+    packed = bc << bc_id_shift(q)
     for l in range(q):
         packed |= missing_mask[l].to(torch.int32) << l
     return packed
@@ -73,7 +89,7 @@ def pack_masks(bc_mask, missing_mask):
 def _stepper_config(stepper):
     pp = stepper.precision_policy
     return dict(
-        collision=stepper.collision_type,
+        collision=kernel_collision_spec(stepper),
         bc_specs=[bc_to_spec(bc, stepper.velocity_set) for bc in stepper.boundary_conditions],
         compute_dtype=pp.compute_dtype,
         store_dtype=pp.store_dtype,
@@ -88,10 +104,10 @@ def _host_float(omega):
 class _FusedFunction(torch.autograd.Function):
     """A fused step or window with its reverse sweep as its backward, in
     place of ``xlb_tpu``'s ``custom_vjp``s (``fused_step.py::
-    build_fused_step`` and ``build_fused_window``): the adjoint kernel in
-    3D, the TORCH tier's VJP for the 2D step. The gradient of ``f_0`` comes
-    back in ``f_0``'s dtype and that of a tensor omega in omega's; the
-    masks and BC prescriptions get none."""
+    build_fused_step`` and ``build_fused_window``): the adjoint kernel, or
+    the TORCH tier's VJP (the 2D step, and ``kernel="blocked"``). The
+    gradient of ``f_0`` comes back in ``f_0``'s dtype and that of a tensor
+    omega in omega's; the masks and BC prescriptions get none."""
 
     @staticmethod
     def forward(ctx, f_0, omega, mask_i32, omega_f, sweeps, masks):
@@ -114,31 +130,65 @@ class _FusedFunction(torch.autograd.Function):
 
 class _FusedSweeps:
     """The kernels of ``num_steps`` fused steps, and their forward and
-    reverse sweeps. Groups of k (``temporal_steps``) steps run through the
-    k-step kernel, the remainder through the single-step kernel; 3D takes
-    k <= num_steps and 2D the k it is given, as ``xlb_tpu``'s windows do."""
+    reverse sweeps.
 
-    def __init__(self, stepper, num_steps, shifted, temporal_steps=None):
+    ``kernel="dma"``: groups of k (``temporal_steps``) steps run through
+    the k-step kernel, the remainder through the single-step kernel; 3D
+    takes k <= num_steps and 2D the k it is given, as ``xlb_tpu``'s
+    windows do. ``kernel="blocked"`` (3D): one block-tiled step per step,
+    no temporal blocking, as ``xlb_tpu``'s blocked window.
+
+    The reverse sweep (``backward``): "adjoint" -- the adjoint kernel (3D
+    "dma", unforced D3Q19 BGK); "torch" -- the TORCH tier's VJP (the 2D
+    step, and every 3D "blocked" configuration, as ``xlb_tpu``
+    differentiates its blocked kernel through the jnp tier); None -- no
+    backward, and ``no_backward`` says why."""
+
+    def __init__(self, stepper, num_steps, shifted, temporal_steps=None, kernel="dma", tile=None):
         vs = stepper.velocity_set
         self.stepper = stepper
         self.pp = pp = stepper.precision_policy
         self.shifted = shifted
         self.num_steps = num_steps
+        if kernel not in ("dma", "blocked"):
+            raise ValueError(f"kernel must be 'dma' or 'blocked', got {kernel!r}")
+        if tile is not None and (kernel != "blocked" or vs.d != 3):
+            raise ValueError("tile sets the (TX, TY, TZ) box of the 3D kernel='blocked' step only")
         k = TEMPORAL_STEPS[vs.d] if temporal_steps is None else int(temporal_steps)
-        cfg = dict(_stepper_config(stepper), shifted=shifted, has_solids=getattr(stepper, "has_solids", True))
+        cfg = dict(_stepper_config(stepper), shifted=shifted, has_solids=getattr(stepper, "has_solids", True),
+                   force_vector=stepper_force_vector(stepper))
         shape = stepper.grid.shape
+        self.adjoint, self.no_backward = None, None
         if vs.d == 2:
+            if kernel != "dma":
+                raise NotImplementedError("kernel='blocked' is a 3D kernel; the 2D step has its own (K3, K4)")
             self.k = k
             self.single = CollideStream2DStep(vs, shape, **cfg)
             self.kstep = CollideStream2DKStep(vs, shape, steps=k, **cfg) if k >= 2 and num_steps >= 2 else None
             # xlb_tpu's 2D window has no backward and its step differentiates
             # through the jnp tier; there is no 2D adjoint kernel
-            self.adjoint = None
+            self.backward = "torch" if num_steps == 1 and not shifted else None
+            self.no_backward = ("the 2D fused window has no backward (as in xlb_tpu); differentiate 2D rollouts "
+                                "through ComputeBackend.TORCH, or the CUDA tier's single stepper(...)")
+        elif kernel == "blocked":
+            self.k = 1
+            self.single = CollideStreamBlocked(vs, shape, tile=tile, **cfg)
+            self.kstep = None
+            self.backward = "torch"
         else:
             self.k = k = min(k, num_steps)
             self.single = CollideStreamStep(vs, shape, **cfg)
             self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
-            self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+            name, _ = split_collision(cfg["collision"])
+            if name == "BGK" and vs.q == 19 and cfg["force_vector"] is None:
+                self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+                self.backward = "adjoint"
+            else:
+                self.backward = None
+                what = f"D3Q{vs.q} {name}" + (" with a body force" if cfg["force_vector"] is not None else "")
+                self.no_backward = (
+                    f"no fused adjoint kernel (K8) for {what}: K8 is ported for unforced D3Q19 BGK only; "
+                    "differentiate through kernel='blocked' (the TORCH tier's VJP) or ComputeBackend.TORCH")
         self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
@@ -159,14 +209,14 @@ class _FusedSweeps:
         return g
 
     def reverse(self, f_0, gbar, mask_i32, omega, masks):
-        """Replay the forward with the single-step kernel, keeping every
-        step's input (store dtype), then run the adjoint kernel backwards
-        from the cotangent ``gbar``. The shift at the window boundary is
-        the identity for gradients. Returns (df_0 in the compute dtype,
-        d omega as a 0-d float32 tensor). Without an adjoint kernel (2D),
-        the single step's backward is the TORCH tier's VJP, as ``xlb_tpu``
-        takes the jnp tier's (``fused_step.py:436-438``)."""
-        if self.adjoint is None:
+        """With the adjoint kernel: replay the forward with the single-step
+        kernel, keeping every step's input (store dtype), then run the
+        adjoint kernel backwards from the cotangent ``gbar``; the shift at
+        the window boundary is the identity for gradients. Otherwise the
+        TORCH tier's VJP of the ``num_steps`` steps, as ``xlb_tpu`` takes
+        the jnp tier's (``fused_step.py:436-438``). Returns (df_0,
+        d omega as a 0-d float32 tensor)."""
+        if self.backward == "torch":
             return self._reverse_torch_tier(f_0, gbar, omega, masks)
         states = [self._to_store_form(f_0)] if self.num_steps else []
         while len(states) < self.num_steps:
@@ -179,37 +229,52 @@ class _FusedSweeps:
         return ct, dom
 
     def _reverse_torch_tier(self, f_0, gbar, omega, masks):
-        if self.num_steps != 1 or self.shifted:
-            raise NotImplementedError("only the unshifted single fused step differentiates without an adjoint kernel")
         bc_mask, missing_mask = masks
         om = torch.tensor(omega, dtype=self.pp.compute_dtype, device=f_0.device)
 
-        def step(f, o):
-            return self.stepper._step_pull(f, f, bc_mask, missing_mask, o, 0)[1]
+        def steps(f, o):
+            for _ in range(self.num_steps):
+                f = self.stepper._step_pull(f, f, bc_mask, missing_mask, o, 0)[1]
+            return f
 
-        _, vjp = torch.func.vjp(step, f_0, om)
+        _, vjp = torch.func.vjp(steps, f_0, om)
         return vjp(gbar.to(self.pp.store_dtype))
 
+    def check_backward(self, f_0, omega):
+        """Raise ``NotImplementedError`` when autograd asks for a gradient
+        that this configuration has no backward for."""
+        wants_grad = f_0.requires_grad or (isinstance(omega, torch.Tensor) and omega.requires_grad)
+        if self.backward is None and wants_grad and torch.is_grad_enabled():
+            raise NotImplementedError(self.no_backward)
 
-def build_fused_step(stepper):
+
+def build_fused_step(stepper, kernel="dma", tile=None):
     """Build the CUDA-tier single step of an IncompressibleNavierStokesStepper:
     ``(f_0, f_1, bc_mask, missing_mask, omega, timestep) -> (f_0, f_1)``
     with ``f_1`` the new state, in plain (unshifted) storage.
 
+    ``kernel``: "dma" (the single-step kernel K1, the default) or
+    "blocked" (3D: the block-tiled kernel K0, whose (TX, TY, TZ) box
+    ``tile`` sets). Both compute the same function.
+
     The step is differentiable with respect to ``f_0`` and ``omega`` (a
     float or a 0-d tensor): its backward is the adjoint kernel
-    (``kernels/adjoint_step.py``) in 3D, and ``torch.func.vjp`` of the
-    TORCH-tier step in 2D, where the forward still runs the 2D kernel."""
-    sweeps = _FusedSweeps(stepper, 1, shifted=False)
+    (``kernels/adjoint_step.py``) for "dma" with unforced D3Q19 BGK, and
+    ``torch.func.vjp`` of the TORCH-tier step for "blocked" and in 2D,
+    where the forward still runs the kernel. Any other "dma" configuration
+    raises ``NotImplementedError`` under autograd, naming the missing
+    adjoint."""
+    sweeps = _FusedSweeps(stepper, 1, shifted=False, kernel=kernel, tile=tile)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
+        sweeps.check_backward(f_0, omega)
         mask_i32 = pack_masks(bc_mask, missing_mask)
         return f_0, _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
 
     return step
 
 
-def build_fused_window(stepper, num_steps, temporal_steps=None):
+def build_fused_window(stepper, num_steps, temporal_steps=None, kernel="dma", tile=None):
     """A ``num_steps``-window of the fused step.
 
     Under a 16-bit store dtype the populations live in device memory in
@@ -219,20 +284,26 @@ def build_fused_window(stepper, num_steps, temporal_steps=None):
     at every load and store -- the same pair of constants as ``xlb_tpu``,
     under which a 16-bit rest state maps to g = 0 exactly.
 
-    Groups of ``temporal_steps`` (k; by default ``TEMPORAL_STEPS``: 8 in
-    2D, 2 in 3D, as in ``xlb_tpu``; 2 <= k <= 8 in 2D, or 1 for single
-    steps only) steps run through the k-step kernel, the
-    ``num_steps % k`` remainder through the single-step kernel.
+    ``kernel="dma"`` (default): groups of ``temporal_steps`` (k; by
+    default ``TEMPORAL_STEPS``: 8 in 2D, 2 in 3D, as in ``xlb_tpu``;
+    2 <= k <= 8 in 2D, or 1 for single steps only) steps run through the
+    k-step kernel, the ``num_steps % k`` remainder through the single-step
+    kernel. ``kernel="blocked"`` (3D): one block-tiled step (K0) per step,
+    no temporal blocking, as ``xlb_tpu``'s blocked window; ``tile`` sets
+    its box.
 
     The window is differentiable with respect to ``f_0`` and ``omega`` (a
-    float or a 0-d tensor; ``float(omega)`` is read once per window). Its
-    backward saves only the window's input, replays the forward with the
-    single-step kernel while keeping all ``num_steps`` states in the store
-    dtype -- memory is ``num_steps`` x one field -- and runs the adjoint
-    kernel in reverse. Differentiate long rollouts by chaining moderate
-    windows under ``torch.utils.checkpoint``. The gradient of ``f_0``
-    comes back in ``f_0``'s dtype. The 2D window has no backward, as in
-    ``xlb_tpu``: under autograd it raises ``NotImplementedError``.
+    float or a 0-d tensor; ``float(omega)`` is read once per window). With
+    "dma" and unforced D3Q19 BGK, its backward saves only the window's
+    input, replays the forward with the single-step kernel while keeping
+    all ``num_steps`` states in the store dtype -- memory is ``num_steps``
+    x one field -- and runs the adjoint kernel in reverse. Differentiate
+    long rollouts by chaining moderate windows under
+    ``torch.utils.checkpoint``. With "blocked" the backward is the TORCH
+    tier's VJP over the window. The gradient of ``f_0`` comes back in
+    ``f_0``'s dtype. The 2D window has no backward, as in ``xlb_tpu``, nor
+    has "dma" with another collision, D3Q27 or a force: under autograd they
+    raise ``NotImplementedError``.
 
     Returns ``run(f_0, f_1, bc_mask, missing_mask, omega) -> (f, f)``: the
     new state twice, in the compute dtype when shifted (quantizing g + w
@@ -240,17 +311,12 @@ def build_fused_window(stepper, num_steps, temporal_steps=None):
     otherwise.
     """
     sweeps = _FusedSweeps(stepper, num_steps, shifted=stepper.precision_policy.store_dtype.itemsize < 4,
-                          temporal_steps=temporal_steps)
+                          temporal_steps=temporal_steps, kernel=kernel, tile=tile)
 
     def run(f_0, f_1, bc_mask, missing_mask, omega):
+        sweeps.check_backward(f_0, omega)
         mask_i32 = pack_masks(bc_mask, missing_mask)
-        if sweeps.adjoint is None:
-            wants_grad = f_0.requires_grad or (isinstance(omega, torch.Tensor) and omega.requires_grad)
-            if wants_grad and torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "the 2D fused window has no backward (as in xlb_tpu); differentiate 2D rollouts through "
-                    "ComputeBackend.TORCH, or the CUDA tier's single stepper(...)"
-                )
+        if sweeps.backward is None:
             f = sweeps.value(f_0.detach(), mask_i32, _host_float(omega))
         else:
             f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))

@@ -9,17 +9,20 @@ Two tiers:
 
 - TORCH (default): the plain torch pull step below, on any device.
 - CUDA: the fused collide-stream kernels (``xlb_tpu_torch.kernels``), 3D
-  (D3Q19) and 2D (D2Q9); one pass over device memory per step, or per k
-  steps in a window. The grid must live on a CUDA device.
+  (D3Q19 and D3Q27) and 2D (D2Q9); one pass over device memory per step,
+  or per k steps in a window. The grid must live on a CUDA device. In 3D
+  every collision of the TORCH tier runs in the kernels, with the
+  exact-difference body force and halfway walls; in 2D, BGK.
 
 Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
 and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
 per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
 ``build_multi_step`` is the fused adjoint kernel
-(``kernels/adjoint_step.py``) in 3D; in 2D, as in ``xlb_tpu``, the
-backward of ``stepper(...)`` is the TORCH tier's VJP and the window has
-none (it raises under autograd). The masks and BC prescriptions get no
-gradient.
+(``kernels/adjoint_step.py``) for unforced D3Q19 BGK; the other collisions,
+D3Q27 and the forced step have no adjoint kernel yet and raise under
+autograd. In 2D, as in ``xlb_tpu``, the backward of ``stepper(...)`` is
+the TORCH tier's VJP and the window has none (it raises under autograd).
+The masks and BC prescriptions get no gradient.
 """
 
 import torch
@@ -30,14 +33,15 @@ from xlb_tpu_torch.models.stepper import Stepper
 from xlb_tpu_torch.ops.stream import Stream
 from xlb_tpu_torch.ops.equilibrium import QuadraticEquilibrium
 from xlb_tpu_torch.ops.macroscopic import Macroscopic
-from xlb_tpu_torch.ops.collision import BGK
+from xlb_tpu_torch.ops.collision import BGK, KBC, MRT, TRT, ForcedCollision, PowerLawBGK, SmagorinskyLESBGK
 from xlb_tpu_torch.boundary.base import ImplementationStep
 from xlb_tpu_torch.boundary.maskers import IndicesBoundaryMasker
 from xlb_tpu_torch.helper.check_boundary_overlaps import check_bc_overlaps
 from xlb_tpu_torch.helper.nse_fields import create_nse_fields
 from xlb_tpu_torch.helper.initializers import initialize_eq
 
-_COLLISIONS = {"BGK": BGK}
+_COLLISIONS = {"BGK": BGK, "KBC": KBC, "SmagorinskyLESBGK": SmagorinskyLESBGK, "TRT": TRT, "MRT": MRT,
+               "PowerLawBGK": PowerLawBGK}
 
 
 class IncompressibleNavierStokesStepper(Stepper):
@@ -48,9 +52,17 @@ class IncompressibleNavierStokesStepper(Stepper):
     ----------
     grid : Grid
     boundary_conditions : list of BoundaryCondition
-    collision_type : {"BGK"}
-        The other collision models of ``xlb_tpu`` are not ported yet, nor
-        is its push streaming scheme: this stepper pulls.
+    collision_type : {"BGK", "KBC", "SmagorinskyLESBGK", "TRT", "MRT", "PowerLawBGK"}
+        ``xlb_tpu``'s push streaming scheme is not ported: this stepper
+        pulls.
+    collision_params : dict, optional
+        Constructor arguments of the collision operator (TRT ``magic``, MRT
+        ``bulk_rate`` / ``ghost_rate``, Smagorinsky ``smagorinsky_coef``,
+        PowerLawBGK ``consistency`` / ``power_index`` / ``iterations``).
+    forcing_scheme : str
+        Only "exact_difference" (used when ``force_vector`` is given).
+    force_vector : array-like, optional
+        A constant body force, one entry per spatial dimension.
     """
 
     def __init__(
@@ -58,17 +70,22 @@ class IncompressibleNavierStokesStepper(Stepper):
         grid,
         boundary_conditions=(),
         collision_type="BGK",
+        forcing_scheme="exact_difference",
+        force_vector=None,
         velocity_set=None,
         precision_policy=None,
         compute_backend=None,
+        collision_params=None,
     ):
         super().__init__(grid, boundary_conditions, velocity_set, precision_policy, compute_backend)
         if collision_type not in _COLLISIONS:
-            raise NotImplementedError(f"collision_type {collision_type!r} is not ported yet; choose from {sorted(_COLLISIONS)}")
+            raise ValueError(f"unknown collision_type {collision_type!r}; choose from {sorted(_COLLISIONS)}")
         self.collision_type = collision_type
 
         common = dict(velocity_set=self.velocity_set, precision_policy=self.precision_policy, compute_backend=self.compute_backend)
-        self.collision = _COLLISIONS[collision_type](**common)
+        self.collision = _COLLISIONS[collision_type](**common, **(collision_params or {}))
+        if force_vector is not None:
+            self.collision = ForcedCollision(self.collision, forcing_scheme=forcing_scheme, force_vector=force_vector)
         self.stream = Stream(**common)
         self.equilibrium = QuadraticEquilibrium(**common)
         self.macroscopic = Macroscopic(**common)

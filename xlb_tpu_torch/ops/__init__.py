@@ -1,8 +1,9 @@
 from xlb_tpu_torch.ops.stream import Stream
 from xlb_tpu_torch.ops.equilibrium import Equilibrium, QuadraticEquilibrium
 from xlb_tpu_torch.ops.macroscopic import Macroscopic, SecondMoment
-from xlb_tpu_torch.ops.collision import Collision, BGK
-from xlb_tpu_torch.ops.force import FetchPopulations, LBMOperationSequence, MomentumTransfer
+from xlb_tpu_torch.ops.collision import (BGK, KBC, MRT, TRT, Collision, ForcedCollision, PowerLawBGK,
+                                         SmagorinskyLESBGK)
+from xlb_tpu_torch.ops.force import ExactDifference, FetchPopulations, LBMOperationSequence, MomentumTransfer
 
 __all__ = [
     "Stream",
@@ -12,6 +13,13 @@ __all__ = [
     "SecondMoment",
     "Collision",
     "BGK",
+    "KBC",
+    "SmagorinskyLESBGK",
+    "PowerLawBGK",
+    "TRT",
+    "MRT",
+    "ForcedCollision",
+    "ExactDifference",
     "FetchPopulations",
     "LBMOperationSequence",
     "MomentumTransfer",

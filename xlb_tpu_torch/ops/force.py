@@ -1,13 +1,16 @@
-"""Boundary-force readout -- ``xlb_tpu.ops.force``'s ``FetchPopulations``
-and ``MomentumTransfer``: momentum-exchange drag and lift on a no-slip
-boundary, as a masked contraction and a global sum in plain torch (the
-reference computes them outside any kernel too)."""
+"""Body forcing and boundary-force readout -- ``xlb_tpu.ops.force``:
+``ExactDifference`` (Kupershtokh's exact-difference body force), and
+``FetchPopulations`` / ``MomentumTransfer``: momentum-exchange drag and
+lift on a no-slip boundary, as a masked contraction and a global sum in
+plain torch (the reference computes them outside any kernel too)."""
 
 from enum import Enum, auto
 
+import numpy as np
 import torch
 
 from xlb_tpu_torch.operator import Operator
+from xlb_tpu_torch.ops.equilibrium import quadratic_equilibrium
 from xlb_tpu_torch.ops.stencil_math import stencil_contract
 from xlb_tpu_torch.ops.stream import stream_pull
 
@@ -17,6 +20,23 @@ class LBMOperationSequence(Enum):
 
     STREAM_THEN_COLLIDE = auto()
     COLLIDE_THEN_STREAM = auto()
+
+
+class ExactDifference(Operator):
+    """Kupershtokh (2004) exact-difference forcing, applied after the
+    collision: f_out += feq(rho, u + F) - feq(rho, u)."""
+
+    def __init__(self, force_vector, velocity_set=None, precision_policy=None, compute_backend=None):
+        super().__init__(velocity_set, precision_policy, compute_backend)
+        self.force_vector = np.asarray(force_vector, dtype=np.float64)
+        if self.force_vector.shape != (self.velocity_set.d,):
+            raise ValueError("the force vector must have one entry per spatial dimension")
+
+    def __call__(self, f_postcollision, feq, rho, u):
+        vs = self.velocity_set
+        delta_u = torch.as_tensor(self.force_vector, device=u.device).to(u.dtype).reshape((-1,) + (1,) * (u.ndim - 1))
+        feq_force = quadratic_equilibrium(rho, u + delta_u, vs._c, vs._w, self.compute_dtype)
+        return f_postcollision + (feq_force - feq)
 
 
 class FetchPopulations(Operator):
