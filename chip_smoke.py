@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (xlb_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab LABEL [--quick]   # one tree's kernel times (ab_line)
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from xlb_tpu_torch/csrc with nvcc (sm_90a) and
@@ -10,7 +11,12 @@
    perturbed 64x48x40 lid-driven cavity (non-cubic: tile edges and
    periodic wrap are exercised), again with a solid block (cell type 255,
    has_solids) in it, then at 256^3, where it also times kernel and plain
-   version (CUDA events) beside the kernel's bound.
+   version (CUDA events) beside the kernel's bound. Then a 64x48x40 cavity
+   of 15 BCs (ten fullway wall pieces, three equilibrium lid pieces, two
+   halfway blocks; past the 8 prescriptions the kernels take by value,
+   the rest from the device table): K1, K2 and K0 against their plain
+   versions, K0 == K1 and K2 == two K1 launches; K8 on it and on its 13
+   BCs without the blocks.
 4. Main path through the public API: init(D3Q19, CUDA, policy) ->
    grid_factory((256,)*3, device="cuda") -> the lid-cavity BCs ->
    IncompressibleNavierStokesStepper -> prepare_fields() ->
@@ -38,8 +44,11 @@
    for bit: on a seeded, perturbed 200x136 cavity with halfway walls and
    on the 320x128 cylinder's BC set (Zou-He and regularized inlet and
    outlet, halfway cylinder with its solid interior), K4 at k = 2 and 8;
-   then on the 2048^2 lid cavity of the main path, K4 at k = 2, 4 and 8,
-   where it also times each kernel and its plain version beside the bound.
+   on a 200x136 scene of 13 BCs (four fullway, two halfway pieces, a
+   Zou-He velocity and a regularized pressure piece, three equilibrium lid
+   pieces, a halfway and a fullway block); then on the 2048^2 lid cavity
+   of the main path, K4 at k = 2, 4 and 8, where it also times each kernel
+   and its plain version beside the bound.
 8. The 2D main path through the public API (examples/performance/
    mlups_2d.py's scene and protocol): D2Q9, BGK, 2048^2, fullway walls,
    equilibrium lid u = (0.02, 0), omega 1.6, build_multi_step(500) (K4 at
@@ -93,10 +102,27 @@
    force, halfway walls in z) on the CUDA tier: run()'s defaults against
    the TORCH tier (the mean profile), then the validation shape 192x96x64
    at u_tau 0.009 for 2000 steps (MLUPS, finite, bulk velocity rising).
-16. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+   Then the adjoint kernel K8 on the zoo: against its plain version for
+   every pair on the 64x48x40 cavity with a solid block and on the
+   192x96x64 channel (body force, halfway walls), f32 and bf16-shifted,
+   timed there; and autograd through stepper(...) of the D3Q19 TRT cavity
+   and build_multi_step(4) of the forced D3Q27 KBC channel, forward
+   through K1 / K2, backward through K8 once per step, gradients against
+   float64 TORCH-tier autograd (within twice the float32 TORCH tier's own
+   error).
+16. The copy-bandwidth probes (K9-K12): each kernel and variant against its
+   plain version bit for bit on the (19, 256, 256, 256) field of the
+   scripts, a ragged (3, 17, 13, 11) field and a 420-byte (7, 5, 3) one,
+   the small ones also 4 bytes past a 16-byte boundary; then
+   examples/performance/memory_bandwidth.py and dma_experiments.py in their
+   torch form at their defaults (every line printed; launch counts reset
+   before and read after: every probe launched, no plain call), the plain
+   versions timed, and the best sustained copy rate as the card's measured
+   copy roofline.
+17. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
    training times and each kernel's per-dtype errors and times, then the
-   kernels' JSON line, then the result line {"ok": true, "device": {...}}
-   last.
+   kernels' JSON line (K0-K12), then the result line {"ok": true,
+   "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -292,6 +318,120 @@ def compare_kernels(shape, device, seed, time_them, solid=False):
     return results
 
 
+# the many-BC cavity: walls in ten fullway pieces, the lid in equilibrium pieces of these
+# velocities and (with ``halfway``) two halfway blocks at these corners
+MANY_BC_LID = ((0.03, 0.0, 0.0), (0.02, 0.01, 0.0), (0.01, 0.0, 0.0))
+MANY_BC_BLOCKS = ((3, 3, 3), (9, 9, 6))
+
+
+def many_bcs(grid, bnd, halfway=True):
+    """The BCs of the many-BC lid cavity on ``grid``, made from the BC
+    classes of ``bnd`` (a package's ``boundary`` module): 15, or 13 without
+    the halfway blocks -- past the 8 prescriptions the launch parameters
+    carry by value."""
+    box = grid.bounding_box_indices()
+    walls = np.unique(
+        np.concatenate([np.asarray(box[k]) for k in ("bottom", "left", "right", "front", "back")], axis=1), axis=1)
+    bcs = [bnd.FullwayBounceBackBC(indices=piece.tolist()) for piece in np.array_split(walls, 10, axis=1)]
+    lid = np.asarray(grid.bounding_box_indices(remove_edges=True)["top"])
+    bcs += [bnd.EquilibriumBC(rho=1.0, u=u, indices=piece.tolist())
+            for u, piece in zip(MANY_BC_LID, np.array_split(lid, len(MANY_BC_LID), axis=1))]
+    if halfway:
+        for origin in MANY_BC_BLOCKS:
+            block = np.indices((3, 2, 2)).reshape(3, -1) + np.array(origin).reshape(3, 1)
+            bcs.append(bnd.HalfwayBounceBackBC(indices=block.tolist()))
+    return bcs
+
+
+def many_bc_cavity(shape, device, halfway=True):
+    """(stepper, prepare_fields()) of the many-BC lid cavity on the TORCH
+    tier (D3Q19, BGK, FP32FP32)."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import boundary
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend.TORCH,
+             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+    grid = xlb.grid_factory(shape, device=device)
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=many_bcs(grid, boundary, halfway),
+                                                collision_type="BGK")
+    return stepper, stepper.prepare_fields()
+
+
+def compare_many_bcs_3d(shape, device, seed):
+    """[3], the BC table beyond 8 entries: K1, K2 and K0 on the 15-BC cavity
+    against their plain versions (``held``), K0 == K1 and K2 == two K1
+    launches bit for bit; K8 on it and on the 13-BC cavity without the
+    halfway blocks against its plain version; f32 and bf16-shifted.
+    Returns the largest tolerance share of each kernel (K8: of rtol 1e-4,
+    atol 1e-6 on df and 1e-7 on dom)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    shares = {"K1": 0.0, "K2": 0.0, "K0": 0.0, "K8": 0.0}
+    for halfway in (True, False):
+        stepper, (_, _, bc_mask, missing_mask) = many_bc_cavity(shape, device, halfway)
+        vs = stepper.velocity_set
+        specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+        mask = pack_masks(bc_mask, missing_mask)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+        noise = torch.randn((vs.q,) + tuple(shape), generator=gen, device=device)
+        for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+            f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).contiguous()
+            kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+            label = f"{len(specs)} BCs {'f32' if store == torch.float32 else 'bf16-shifted'}"
+            found = {}
+            if halfway:
+                one, two, blocked = (CollideStreamStep(vs, shape, **kw), CollideStreamKStep(vs, shape, steps=2, **kw),
+                                     CollideStreamBlocked(vs, shape, **kw))
+                k1, k2, k0 = one(f, mask, OMEGA), two(f, mask, OMEGA), blocked(f, mask, OMEGA)
+                k11 = one(k1, mask, OMEGA)
+                p1 = one.plain(f, mask, OMEGA)
+                p2 = one.plain(p1, mask, OMEGA)
+                torch.cuda.synchronize()
+                found = {"K1": held(k1, p1, store), "K2": held(k2, p2, store), "K0": held(k0, p1, store)}
+                same01, same2 = torch.equal(k0, k1), torch.equal(k2, k11)
+                print(f"  {shape} {label}: " + ", ".join(f"{n} {e:.2e} ({s:.3f} of tol)" for n, (e, s) in found.items())
+                      + f"; K0 == K1 {same01}, K2 == 2 K1 {same2}")
+                check(same01 and same2, f"{label}: K0 differs from K1, or K2 from two K1 launches")
+                del k1, k2, k0, k11, p1, p2
+            gen_g = torch.Generator(device=device).manual_seed(seed + 1)
+            g = (w * torch.randn(f.shape, generator=gen_g, device=device)).contiguous()
+            adj = CollideStreamAdjoint(vs, shape, **kw)
+            (df, dom), (pdf, pdom) = adj(f, g, mask, ADJ_OMEGA), adj.plain(f, g, mask, ADJ_OMEGA)
+            torch.cuda.synchronize()
+            e1, s1 = tolerance_share(df, pdf, rtol=1e-4, atol=1e-6)
+            e2, s2 = tolerance_share(dom, pdom, rtol=1e-4, atol=1e-7)
+            print(f"  {shape} {label}: K8 df max|err| {e1:.3e}, dom_field {e2:.3e} ({max(s1, s2):.3f} of tol)")
+            found["K8"] = (max(e1, e2), max(s1, s2))
+            del df, dom, pdf, pdom, g
+            for n, (_, share) in found.items():
+                check(share <= 1.0, f"{label}: {n} disagrees with its plain version")
+                shares[n] = max(shares[n], share)
+            del f
+        del stepper, bc_mask, missing_mask, mask, noise
+        torch.cuda.empty_cache()
+    return shares
+
+
+def tolerance_share(a, ref, rtol, atol):
+    """(max |a - ref|, the largest share of atol + rtol |ref| that an entry
+    of |a - ref| takes) in float32."""
+    a, ref = a.float(), ref.float()
+    err = (a - ref).abs()
+    return float(err.max()), float((err / (atol + rtol * ref.abs())).max())
+
+
 def physics_checks(stepper, f, bc_mask, label):
     import torch
 
@@ -318,6 +458,7 @@ def main_path(device):
     import torch
 
     import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.performance.mlups_2d import time_windows
     from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 
@@ -330,14 +471,7 @@ def main_path(device):
     for policy in (xlb.PrecisionPolicy.FP32BF16, xlb.PrecisionPolicy.FP32FP32):
         stepper, (f_0, f_1, bc_mask, missing_mask) = cavity(shape, policy, xlb.ComputeBackend.CUDA, device)
         run = stepper.build_multi_step(WINDOW)
-        f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA)  # warm-up window
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA)
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
+        best, (f_0, f_1) = time_windows(run, (f_0, f_1, bc_mask, missing_mask), OMEGA, 1, REPS)
         mlups = N_MAIN**3 * WINDOW / best / 1e6
         perf[policy.name] = (mlups, best / WINDOW * 1e3)
         print(f"  {policy.name}: {mlups:.1f} MLUPS, {best / WINDOW * 1e3:.4f} ms/step (best of {REPS} windows of {WINDOW})")
@@ -505,8 +639,12 @@ def training_path(device):
 def scene_2d(kind, shape, policy, backend, device, inout="regularized"):
     """A 2D scene through the port's public API: "cavity" (mlups_2d.py:
     fullway walls, equilibrium lid), "halfway_cavity" (lid_driven_cavity_2d.py's
-    walls, same lid) or "cylinder" (flow_past_cylinder_2d.py at ``shape``,
-    Zou-He or regularized ``inout``, started from the uniform inflow).
+    walls, same lid), "many_bcs" (13 BCs: the bottom in four fullway
+    pieces, the left side in two halfway pieces, the right in a Zou-He
+    velocity and a regularized pressure piece, the lid in three
+    equilibrium pieces, a halfway and a fullway block) or "cylinder"
+    (flow_past_cylinder_2d.py at ``shape``, Zou-He or regularized
+    ``inout``, started from the uniform inflow).
     Returns (stepper, (f_0, f_1, bc_mask, missing_mask), extras)."""
     import xlb_tpu_torch as xlb
     from xlb_tpu_torch.boundary import (EquilibriumBC, FullwayBounceBackBC, HalfwayBounceBackBC, RegularizedBC,
@@ -530,6 +668,19 @@ def scene_2d(kind, shape, policy, backend, device, inout="regularized"):
         stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type="BGK")
         return stepper, stepper.prepare_fields(), {}
     nx, ny = shape
+    if kind == "many_bcs":
+        bcs = [FullwayBounceBackBC(indices=p.tolist()) for p in np.array_split(np.asarray(box["bottom"]), 4, axis=1)]
+        bcs += [HalfwayBounceBackBC(indices=p.tolist()) for p in np.array_split(np.asarray(box_ne["left"]), 2, axis=1)]
+        right = np.array_split(np.asarray(box_ne["right"]), 2, axis=1)
+        bcs += [ZouHeBC("velocity", prescribed_value=(0.0, 0.0), indices=right[0].tolist()),
+                RegularizedBC("pressure", prescribed_value=1.0, indices=right[1].tolist())]
+        bcs += [EquilibriumBC(rho=1.0, u=(u, 0.0), indices=p.tolist())
+                for u, p in zip((0.03, 0.02, 0.01), np.array_split(np.asarray(box_ne["top"]), 3, axis=1))]
+        for origin, bc_cls in (((3, 3), HalfwayBounceBackBC), ((9, 9), FullwayBounceBackBC)):
+            block = np.indices((3, 3)).reshape(2, -1) + np.array(origin).reshape(2, 1) + nx // 4
+            bcs.append(bc_cls(indices=block.tolist()))
+        stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type="BGK")
+        return stepper, stepper.prepare_fields(), {}
     d = ny // 4
     cx, cy = nx // 4, ny // 2 + 1
     X, Y = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
@@ -688,6 +839,7 @@ def main_path_2d(device):
     import torch
 
     import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.performance.mlups_2d import time_windows
     from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
 
     shape = (N_2D, N_2D)
@@ -699,15 +851,7 @@ def main_path_2d(device):
         run = stepper.build_multi_step(WINDOW_2D)
         for k in kernels:
             k.launches = k.plain_calls = 0
-        for _ in range(WARMUP_2D):
-            f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA_2D)
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(REPS_2D):
-            t0 = time.perf_counter()
-            f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, OMEGA_2D)
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
+        best, (f_0, f_1) = time_windows(run, (f_0, f_1, bc_mask, missing_mask), OMEGA_2D, WARMUP_2D, REPS_2D)
         counts = {k.__name__: (counts[k.__name__][0] + k.launches, counts[k.__name__][1] + k.plain_calls)
                   for k in kernels}
         mlups = N_2D**2 * WINDOW_2D / best / 1e6
@@ -770,17 +914,11 @@ MRES_STEPS, MRES_REPS, MRES_OMEGA = 20, 3, 1.6
 
 
 def mres_grid(box_frac, levels, device):
-    """mlups_3d_multires.py's grid: nested boxes of ``box_frac`` of their
-    parent (8-cell multiples), centred."""
-    from xlb_tpu_torch.grid.multires import MultiresGrid
+    """mlups_3d_multires.py's grid at MRES_EDGE: nested boxes of
+    ``box_frac`` of their parent (8-cell multiples), centred."""
+    from xlb_tpu_torch.examples.performance.mlups_3d_multires import build_grid
 
-    shape = (MRES_EDGE,) * 3
-    boxes, parent = [], shape
-    for _ in range(levels - 1):
-        extent = tuple(min(p, max(8, int(p * box_frac) // 8 * 8)) for p in parent)
-        boxes.append((tuple((s - e) // 2 for s, e in zip(parent, extent)), extent))
-        parent = tuple(2 * e for e in extent)
-    return MultiresGrid(shape, boxes=boxes, device=device)
+    return build_grid(MRES_EDGE, box_frac, levels, device)
 
 
 def mres_init(policy):
@@ -1353,6 +1491,7 @@ def zoo_main_path(device):
     import torch
 
     import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.performance.mlups_2d import time_windows
     from xlb_tpu_torch.kernels.fused_step import build_fused_window
 
     shape = (N_MAIN,) * 3
@@ -1371,17 +1510,9 @@ def zoo_main_path(device):
             start = (f_0, f_1)
             for route, cls, run, per_window in routes:
                 # each route starts from prepare_fields()'s rest state, as a run of mlups_3d.py does
-                f_0, f_1 = start[0].clone(), start[1].clone()
                 zoo_counts(reset=True)
-                for _ in range(ZOO_WARMUP):
-                    f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega)
-                torch.cuda.synchronize()
-                best = float("inf")
-                for _ in range(ZOO_REPS):
-                    t0 = time.perf_counter()
-                    f_0, f_1 = run(f_0, f_1, bc_mask, missing_mask, omega)
-                    torch.cuda.synchronize()
-                    best = min(best, time.perf_counter() - t0)
+                best, (f_0, f_1) = time_windows(run, (start[0].clone(), start[1].clone(), bc_mask, missing_mask), omega,
+                                                ZOO_WARMUP, ZOO_REPS)
                 counts = zoo_counts()
                 launches = counts[cls][0]
                 check(launches == (ZOO_WARMUP + ZOO_REPS) * per_window, f"{pair} {route}: {launches} launches of {cls}")
@@ -1460,6 +1591,251 @@ def channel_path(device):
             "validation_bulk_u": bulk}, counts
 
 
+# kernel="dma" autograd of the zoo through K8: (kind, velocity set, collision, shape, API)
+DMA_GRAD_CASES = (("cavity", "D3Q19", "TRT", (48, 40, 32), "stepper"),
+                  ("channel", "D3Q27", "KBC", CHAN_RUN["shape"], "build_multi_step"))
+DMA_GRAD_STEPS = 4
+ZOO_ADJ_SOLID = (slice(20, 28), slice(16, 24), slice(12, 20))  # of the small cavity, a solid block
+
+
+def compare_zoo_adjoint(device):
+    """[15]: K8 against its plain version (torch.func.vjp of the plain step)
+    for every pair of ZOO on the SMALL cavity with a solid block and on the
+    validation channel (body force, halfway walls), f32 and bf16-shifted,
+    seeded primal and cotangent; rtol 1e-4, atol 1e-6 (df) and 1e-7 (dom),
+    as [5]. On the channel, f32, also times kernel and plain version
+    (CUDA events) beside the bytes the kernel moves. Returns {pair: {label:
+    record}}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec, packed_cell
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks, stepper_force_vector
+
+    results = {}
+    scenes = (("cavity", SMALL, {}), ("channel", CHAN_VAL["shape"],
+                                      {"re_tau": CHAN_VAL["re_tau"], "u_tau": CHAN_VAL["u_tau"]}))
+    for vs_name, collision in ZOO:
+        pair = f"{vs_name} {collision}"
+        results[pair] = {}
+        for kind, shape, extra in scenes:
+            stepper, (_, _, bc_mask, missing_mask), omega = zoo_scene(
+                kind, vs_name, collision, shape, xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.TORCH, device, **extra)
+            vs = stepper.velocity_set
+            mask = pack_masks(bc_mask, missing_mask)
+            if kind == "cavity":
+                mask[ZOO_ADJ_SOLID] = packed_cell(255, vs.q)
+            gen = torch.Generator(device=device).manual_seed(15)
+            noise = torch.randn((vs.q,) + shape, generator=gen, device=device)
+            w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+            g = (w * torch.randn((vs.q,) + shape, generator=gen, device=device)).contiguous()
+            for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+                f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).contiguous()
+                adj = CollideStreamAdjoint(vs, shape, collision=kernel_collision_spec(stepper), store_dtype=store,
+                                           bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions],
+                                           shifted=shifted, has_solids=True, force_vector=stepper_force_vector(stepper))
+                (df, dom), (pdf, pdom) = adj(f, g, mask, omega), adj.plain(f, g, mask, omega)
+                torch.cuda.synchronize()
+                label = f"{kind} {'x'.join(map(str, shape))} {'f32' if store == torch.float32 else 'bf16-shifted'}"
+                check(bool(torch.isfinite(df).all() and torch.isfinite(dom).all()), f"{pair} {label}: non-finite K8")
+                e1, s1 = tolerance_share(df, pdf, rtol=1e-4, atol=1e-6)
+                e2, s2 = tolerance_share(dom, pdom, rtol=1e-4, atol=1e-7)
+                rec = {"max_abs_err": max(e1, e2), "tolerance_share": max(s1, s2)}
+                del df, dom, pdf, pdom
+                if kind == "channel" and store == torch.float32:
+                    rec["ms"] = cuda_ms(lambda: adj(f, g, mask, omega), 5)
+                    rec["plain_ms"] = cuda_ms(lambda: adj.plain(f, g, mask, omega), 1)
+                    # reads f, g and the mask, writes df and dom
+                    rec["bytes_ms"] = (f.numel() * f.element_size() + 2 * g.numel() * 4 + 2 * mask.numel() * 4
+                                       ) / HBM_BYTES_PER_S * 1e3
+                print(f"  {pair} {label}: K8 df max|err| {e1:.2e}, dom_field {e2:.2e} ({rec['tolerance_share']:.3f} "
+                      "of tol)" + (f"; {rec['ms']:.3f} ms (plain {rec['plain_ms']:.2f} ms, bytes alone "
+                                   f"{rec['bytes_ms']:.4f} ms)" if "ms" in rec else ""))
+                check(rec["tolerance_share"] <= 1.0, f"{pair} {label}: K8 disagrees with its plain version")
+                results[pair][label] = rec
+                del f
+                torch.cuda.empty_cache()
+            del stepper, bc_mask, missing_mask, mask, noise, g
+            torch.cuda.empty_cache()
+    return results
+
+
+def zoo_gradients(device):
+    """[15], the default step's autograd on the zoo: a kernel="dma"
+    stepper(...) of the D3Q19 TRT cavity and a build_multi_step(4) window
+    of the forced D3Q27 KBC channel differentiate on the card, forward
+    through K1 / K2 and backward through K8 (once per step), from a seeded
+    5% perturbation of the initial state (as gradient_parity). The
+    gradients of f_0 and omega are held against TORCH-tier autograd in
+    float64 (FP64FP64): no farther from it than twice the float32 TORCH
+    tier's own error, plus 1e-6 (f_0) and 2e-3 relative (omega) -- KBC's
+    entropic stabilizer makes its float32 derivative ill-conditioned (both
+    float32 tiers are ~4e-5 from float64 on the test's channel), so the
+    float32 TORCH tier is no sharper a reference than the kernel. Returns
+    {case: (d f_0 max |err|, d omega rel err) against float64}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+
+    P = xlb.PrecisionPolicy
+    out = {}
+    for kind, vs_name, collision, shape, api in DMA_GRAD_CASES:
+        extra = {"re_tau": CHAN_RUN["re_tau"], "u_tau": CHAN_RUN["u_tau"]} if kind == "channel" else {}
+        grads, counts = {}, {}
+        for tier, backend, policy in (("cuda", xlb.ComputeBackend.CUDA, P.FP32FP32),
+                                      ("torch f32", xlb.ComputeBackend.TORCH, P.FP32FP32),
+                                      ("torch f64", xlb.ComputeBackend.TORCH, P.FP64FP64)):
+            stepper, (f_0, f_1, bc_mask, missing_mask), omega = zoo_scene(
+                kind, vs_name, collision, shape, policy, backend, device, **extra)
+            zoo_counts(reset=True)
+            CollideStreamAdjoint.launches = CollideStreamAdjoint.plain_calls = 0
+            gen = torch.Generator(device=device).manual_seed(15)
+            noise = torch.randn(f_0.shape, generator=gen, device=device, dtype=torch.float32).to(f_0.dtype)
+            f = (f_0 * (1.0 + 0.05 * noise)).requires_grad_(True)
+            om = torch.tensor(omega, device=device, dtype=f_0.dtype, requires_grad=True)
+            if api == "stepper":
+                res = stepper(f, f_1, bc_mask, missing_mask, om)[1]
+            else:
+                res = stepper.build_multi_step(DMA_GRAD_STEPS)(f, f_1, bc_mask, missing_mask, om)[0]
+            (res ** 2).sum().backward()
+            grads[tier] = (f.grad.double(), float(om.grad))
+            if tier == "cuda":
+                counts = zoo_counts()
+                counts["CollideStreamAdjoint"] = (CollideStreamAdjoint.launches, CollideStreamAdjoint.plain_calls)
+            del stepper, f_0, f_1, bc_mask, missing_mask, f, om, res, noise
+        ref, w_ref = grads["torch f64"]
+        err = {t: (float((g - ref).abs().max()), abs(w - w_ref)) for t, (g, w) in grads.items() if t != "torch f64"}
+        (e_c, ew_c), (e_t, ew_t) = err["cuda"], err["torch f32"]
+        ok1 = e_c <= 2 * e_t + 1e-6
+        ok2 = ew_c <= 2 * ew_t + 2e-3 * abs(w_ref)
+        label = f"{vs_name} {collision} {kind} {'x'.join(map(str, shape))} {api}"
+        print(f"  {label}: against float64 TORCH-tier autograd: d f_0 max|err| CUDA {e_c:.3e}, TORCH f32 {e_t:.3e} "
+              f"ok={ok1}; d omega {grads['cuda'][1]:.6e} / {grads['torch f32'][1]:.6e} vs {w_ref:.6e} ok={ok2}; "
+              f"CUDA vs TORCH f32 d f_0 {float((grads['cuda'][0] - grads['torch f32'][0]).abs().max()):.3e}; "
+              f"launches {counts}")
+        check(ok1 and ok2, f"{label}: CUDA-tier gradients less accurate than the TORCH tier's")
+        steps = 1 if api == "stepper" else DMA_GRAD_STEPS
+        check(counts["CollideStreamAdjoint"] == (steps, 0), f"{label}: K8 did not run once per step, alone")
+        check(sum(n for n, _ in counts.values()) > steps and all(p == 0 for _, p in counts.values()),
+              f"{label}: the forward did not run through K1 / K2 alone")
+        out[label] = (e_c, ew_c / abs(w_ref))
+        torch.cuda.empty_cache()
+    return out
+
+
+# the copy-bandwidth probes (K9-K12): the scripts' field, a ragged one and one of 420 bytes
+PROBE_FIELDS = ((19, 256, 256, 256), (3, 17, 13, 11), (7, 5, 3))
+PROBE_SEED = 16
+
+
+def probe_kernels(q):
+    """(kernel, variant label, wrapper, plain version) of every probe: K9
+    under memory_bandwidth.py's launch shapes, K10, K11 over q channels,
+    K12 under dma_experiments.py's five variants."""
+    from xlb_tpu_torch.examples.performance.dma_experiments import MANUAL_NAMES
+    from xlb_tpu_torch.examples.performance.memory_bandwidth import LAUNCH_SHAPES
+    from xlb_tpu_torch.kernels.copy_bandwidth import (MANUAL_VARIANTS, BulkCopy, ManualScaleCopy, PipelinedCopy,
+                                                      SplitBulkCopy, copy_plain, scale_copy_plain)
+
+    out = [("K9", PipelinedCopy(t, v).label, PipelinedCopy(t, v), copy_plain) for t, v in LAUNCH_SHAPES]
+    out += [("K10", "1 range", BulkCopy(), copy_plain), ("K11", f"{q} ranges", SplitBulkCopy(q), copy_plain)]
+    out += [("K12", name, ManualScaleCopy(*v), scale_copy_plain) for name, v in zip(MANUAL_NAMES, MANUAL_VARIANTS)]
+    return out
+
+
+def compare_probes(device):
+    """[16]: every probe kernel and variant against its plain version, bit
+    for bit (torch.equal), on each PROBE_FIELDS field (seeded normal
+    values), the small ones also at an address 4 bytes past a 16-byte
+    boundary (a scalar head before the bulk copies). Returns (the number of
+    comparisons, {kernel: max |kernel - plain|})."""
+    import torch
+
+    n_cmp, errs = 0, {}
+    for shape in PROBE_FIELDS:
+        numel = int(np.prod(shape))
+        gen = torch.Generator(device=device).manual_seed(PROBE_SEED)
+        base = torch.randn(numel + 1, generator=gen, device=device)
+        views = [("aligned", base[:numel].view(shape))]
+        if numel < 2**20:
+            views.append(("offset 4 B", base[1:].view(shape)))
+        for where, x in views:
+            same = []
+            for kernel, label, wrapper, plain in probe_kernels(shape[0]):
+                out, ref = wrapper(x), plain(x)
+                torch.cuda.synchronize()
+                ok = torch.equal(out, ref)
+                errs[kernel] = max(errs.get(kernel, 0.0), float((out - ref).abs().max()))
+                same.append(f"{kernel} {label} {ok}")
+                check(ok, f"{kernel} {label} differs from its plain version on {shape} ({where})")
+                n_cmp += 1
+                del out, ref
+            print(f"  {shape} {where} ({numel * 4} B): bit-equal to the plain version: " + "; ".join(same))
+        del base, views
+        torch.cuda.empty_cache()
+    return n_cmp, errs
+
+
+def probe_path(device):
+    """[16]: memory_bandwidth.run() and dma_experiments.run() at their
+    defaults, the probes' launch counts reset just before and read just
+    after; the plain versions timed at the scripts' field. Returns (the two
+    runs' results, counts, plain ms by kernel, the measured copy roofline)."""
+    import torch
+
+    from xlb_tpu_torch.examples.performance import dma_experiments, memory_bandwidth
+    from xlb_tpu_torch.examples.performance.common import field
+    from xlb_tpu_torch.kernels import copy_bandwidth
+
+    copy_bandwidth.counts(reset=True)
+    runs = {"memory_bandwidth": memory_bandwidth.run(device), "dma_experiments": dma_experiments.run(device)}
+    counts = copy_bandwidth.counts()
+    print(f"  launch counts (launches, plain calls): {counts}")
+    for name, (launches, plain_calls) in counts.items():
+        check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, in the probe runs")
+    x = field(256, 19, device)
+    plain_ms = {"copy": cuda_ms(lambda: copy_bandwidth.copy_plain(x), 10),
+                "scale": cuda_ms(lambda: copy_bandwidth.scale_copy_plain(x), 10)}
+    del x
+    torch.cuda.empty_cache()
+    best = max(((rec["GBps"], f"{script}: {name}") for script, r in runs.items() for name, rec in r["lines"].items()))
+    print(f"  plain versions at (19, 256, 256, 256): clone {plain_ms['copy']:.4f} ms, scale {plain_ms['scale']:.4f} ms; "
+          f"measured copy roofline {best[0]:.1f} GB/s ({best[1]}) = {best[0] * 1e9 / HBM_BYTES_PER_S:.3f} of the "
+          f"data sheet's {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return runs, counts, plain_ms, {"GBps": best[0], "line": best[1]}
+
+
+def probe_records(runs, counts, plain_ms, n_cmp, errs):
+    """The kernels-line entries of K9-K12: each kernel's best variant of the
+    [16] runs beside the plain version, the bound (the array read and
+    written at the data-sheet rate) and the library call (copy_ for K9-K11,
+    torch.mul(..., out=) for K12)."""
+    mb, dma = runs["memory_bandwidth"]["lines"], runs["dma_experiments"]["lines"]
+    bound_ms = 2 * runs["dma_experiments"]["bytes"] / HBM_BYTES_PER_S * 1e3
+    table = (
+        ("pipelined_copy", "PipelinedCopy", "examples/performance/memory_bandwidth.py:55",
+         {k: v for k, v in mb.items() if k.startswith("K9")}, mb["library copy (Tensor.copy_)"], "copy"),
+        ("bulk_copy", "BulkCopy", "examples/performance/dma_experiments.py:62",
+         {k: v for k, v in dma.items() if "(K10)" in k}, dma["A0 library copy_"], "copy"),
+        ("split_bulk_copy", "SplitBulkCopy", "examples/performance/dma_experiments.py:83",
+         {k: v for k, v in dma.items() if "(K11)" in k}, dma["A0 library copy_"], "copy"),
+        ("manual_scale_copy", "ManualScaleCopy", "examples/performance/dma_experiments.py:161",
+         {k: v for k, v in dma.items() if "(K12)" in k}, dma["E library scale-copy"], "scale"),
+    )
+    out = []
+    for (name, cls, rep, lines, library, plain), kernel in zip(table, ("K9", "K10", "K11", "K12")):
+        variant, rec = min(lines.items(), key=lambda kv: kv[1]["ms"])
+        out.append({
+            "name": name, "route": "cuda", "source": "xlb_tpu_torch/csrc/copy_bandwidth.cu", "replaces": rep,
+            "launches": counts[cls][0], "max_abs_err": errs[kernel], "ms": rec["ms"], "plain_ms": plain_ms[plain],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library["ms"], "variant": variant,
+            "bit_equal_comparisons": n_cmp,
+        })
+    return out
+
+
 def ptxas_summary(report):
     """One line per kernel family and (stencil, collision) of ptxas's
     report: the register range over the store forms and variants, the
@@ -1484,6 +1860,30 @@ def ptxas_summary(report):
     return lines
 
 
+def ab_line(device, label, quick):
+    """``--ab LABEL [--quick]``: one tree's kernel times for comparing two
+    trees on one card, as one line ``AB {json}``: at the main paths'
+    shapes, K1 and K2 (256^3 lid cavity), K8 (its adjoint), K3 and K4
+    (k = 8, the 2048^2 2D cavity), f32 and bf16 deviation form, in ms per
+    call (``cuda_ms``), and [4]'s MLUPS under both policies. ``--quick``
+    leaves out K8 and the MLUPS. Run it from the root of each tree in
+    turns (parent, change, change, parent) within one call."""
+    out = {"tree": label}
+    big = compare_kernels((N_MAIN,) * 3, device, seed=1, time_them=True)
+    out["K1"] = {k: v["ms"] for k, v in big["collide_stream_step"].items()}
+    out["K2"] = {k: v["ms"] for k, v in big["collide_stream_kstep"].items()}
+    if not quick:
+        adj = compare_adjoint((N_MAIN,) * 3, device, seed=6, time_them=True, solid=False)
+        out["K8"] = {k: v["ms"] for k, v in adj.items()}
+    two_d = compare_kernels_2d("cavity", (N_2D, N_2D), device, seed=9, steps=(8,), time_them=True)
+    out["K3"] = {k: v["ms"] for k, v in two_d["collide_stream_2d_step"].items()}
+    out["K4"] = {k: v["ms"] for k, v in two_d["collide_stream_2d_kstep"].items()}
+    if not quick:
+        perf, _ = main_path(device)
+        out["main_mlups"] = {k: v[0] for k, v in perf.items()}
+    print("AB " + json.dumps(out))
+
+
 def main():
     import torch
 
@@ -1493,6 +1893,10 @@ def main():
     from xlb_tpu_torch.kernels import _cuda
 
     device = torch.device("cuda", 0)
+    if "--ab" in sys.argv:
+        _cuda.load_library()
+        ab_line(device, sys.argv[sys.argv.index("--ab") + 1], "--quick" in sys.argv)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -1513,6 +1917,7 @@ def main():
     compare_kernels(SMALL, device, seed=0, time_them=False)
     compare_kernels(SMALL, device, seed=2, time_them=False, solid=True)
     big = compare_kernels((N_MAIN,) * 3, device, seed=1, time_them=True)
+    many_bcs = {"3d": compare_many_bcs_3d(SMALL, device, seed=7)}
 
     print(f"[4] main path at {N_MAIN}^3, {smi}")
     perf, counts = main_path(device)
@@ -1539,6 +1944,7 @@ def main():
     big_2d = compare_kernels_2d("halfway_cavity", SMALL_2D, device, seed=11)
     for more in (compare_kernels_2d("cylinder", CYL_SHAPE, device, seed=12, inout="zouhe"),
                  compare_kernels_2d("cylinder", CYL_SHAPE, device, seed=12, inout="regularized"),
+                 compare_kernels_2d("many_bcs", SMALL_2D, device, seed=14),
                  compare_kernels_2d("cavity", (N_2D, N_2D), device, seed=9, steps=K_SWEEP_2D, time_them=True)):
         for name, recs in more.items():
             big_2d[name].update(recs)
@@ -1584,6 +1990,12 @@ def main():
     print(f"[15] the turbulent channel (turbulent_channel_3d.py), {smi}")
     channel, counts_chan = channel_path(device)
     print(f"  launch counts of the run() window (launches, plain calls): {counts_chan}")
+    zoo_adjoint = compare_zoo_adjoint(device)
+    zoo_grads = zoo_gradients(device)
+
+    print(f"[16] the copy-bandwidth probes (K9-K12: memory_bandwidth.py, dma_experiments.py), {smi}")
+    n_cmp, probe_errs = compare_probes(device)
+    probes, probe_counts, probe_plain_ms, roofline = probe_path(device)
 
     kernels = []
     for name, cls, source, rep, launches in (
@@ -1591,7 +2003,7 @@ def main():
          "xlb_tpu/kernels/collide_stream_dma.py:237", counts),
         ("collide_stream_kstep", "CollideStreamKStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
          "xlb_tpu/kernels/collide_stream_2step.py:309", counts),
-        ("collide_stream_adjoint", "CollideStreamAdjoint", "xlb_tpu_torch/csrc/adjoint_step.cu",
+        ("collide_stream_adjoint", "CollideStreamAdjoint", "xlb_tpu_torch/csrc/adjoint_step.cuh",
          "xlb_tpu/kernels/adjoint_step.py:366", train_counts),
     ):
         rec = big[name]
@@ -1638,6 +2050,14 @@ def main():
         "ms": k0["ms"], "plain_ms": k0["plain_ms"], "bound_ms": k0["bound_ms"], "bound_by": k0["bound_by"],
         "library_ms": None,  # no single PyTorch call computes an LBM step
     })
+    kernels += probe_records(probes, probe_counts, probe_plain_ms, n_cmp, probe_errs)
+    check(len(kernels) == 13, f"the kernels line lists {len(kernels)} kernels, not K0-K12")
+    for rec in kernels:  # the byte bound at the measured copy roofline, and the kernel's share of it
+        if rec["bound_by"] == "bytes":
+            rec["roofline_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9)
+            rec["roofline_share"] = rec["roofline_ms"] / rec["ms"]
+    print("  kernel time against the measured copy roofline (" + f"{roofline['GBps']:.1f} GB/s): "
+          + "; ".join(f"{r['name']} {r['ms']:.4f} ms, {r['roofline_share']:.3f}" for r in kernels if "roofline_share" in r))
     print(json.dumps({"card": smi, "mlups": {k: v[0] for k, v in perf.items()},
                       "ms_per_step": {k: v[1] for k, v in perf.items()}, "training": training,
                       "kernel_variants": big, "mlups_2d": {k: v[0] for k, v in perf_2d.items()},
@@ -1645,8 +2065,10 @@ def main():
                       "cylinder": cylinder, "multires": perf_mres, "multires_tiers": tiers_mres,
                       "multires_tier_err": parity_mres, "kernel_variants_mres": big_mres, "walled_multires": walled,
                       "kernel_variants_zoo": big_zoo, "mlups_zoo": perf_zoo, "zoo_tier_err": parity_zoo,
-                      "channel": channel}))
-    print(f"[16] all phases in {time.perf_counter() - t_start:.1f} s")
+                      "channel": channel, "many_bcs": many_bcs, "zoo_adjoint": zoo_adjoint, "zoo_gradients": zoo_grads,
+                      "probes": probes,
+                      "copy_roofline": roofline}))
+    print(f"[17] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -3,13 +3,15 @@ paths against xlb_tpu.
 
 - The adjoint's plain version against xlb_tpu's fused adjoint kernel, run
   in Pallas interpret mode (as xlb_tpu's own kernel tests run it), on a
-  cavity with a solid block; f32 and bf16-shifted primal.
+  cavity with a solid block, f32 and bf16-shifted primal; and beyond BGK,
+  on the TRT cavity and the forced Smagorinsky channel with halfway walls.
 - A torch transcription of the hand-derived Jacobian-transpose of the
-  CUDA adjoint kernel (``csrc/adjoint_step.cu``), term by term, against
+  CUDA adjoint kernel (``csrc/adjoint_step.cuh::bgk_vjp``), term by term, against
   the plain version -- the derivation is checked before the card sees it.
 - ``torch.autograd`` through the port's fused step and window (their
-  wrappers run the plain versions on CPU tensors) and through the TORCH
-  tier, against ``jax.grad`` through xlb_tpu.
+  wrappers run the plain versions on CPU tensors; the collision zoo, the
+  force and halfway walls included) and through the TORCH tier, against
+  ``jax.grad`` through xlb_tpu.
 
 All inputs are made from a seed with NumPy. (torch is imported inside the
 tests; test_torch_setup.py says why.)
@@ -109,9 +111,46 @@ def test_adjoint_plain_matches_xlb_tpu_adjoint_kernel(store):
     np.testing.assert_allclose(dom, np.asarray(dom_ref), **DOM_TOL)
 
 
+@pytest.mark.parametrize("collision,q,kind", [("TRT", 19, "cavity"), ("SmagorinskyLESBGK", 19, "channel")])
+def test_zoo_adjoint_plain_matches_xlb_tpu_adjoint_kernel(collision, q, kind):
+    """K8's plain version against xlb_tpu's interpret-mode K8 beyond BGK:
+    the TRT cavity (equilibrium, fullway) and the forced Smagorinsky
+    channel (halfway walls, the body force), seeded perturbed primal and
+    cotangent, f32. df as the BGK test; dom_field's per-voxel sums of
+    cancelling O(0.1) terms within one float32 ulp of them (atol 1e-7,
+    as test_adjoint_dom_field_matches_torch_tier_per_voxel_omega)."""
+    import torch
+
+    from tests.test_torch_collisions import build_scene
+    from xlb_tpu.kernels.collide_stream import kernel_collision_spec as jax_collision_spec
+    from xlb_tpu.kernels.fused_step import stepper_force_vector as jax_force_vector
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks, stepper_force_vector
+
+    sj, (f0j, _, bmj, mmj) = build_scene("xlb_tpu", kind, SHAPE, collision, q)
+    st, (_, _, bmt, mmt) = build_scene("xlb_tpu_torch", kind, SHAPE, collision, q)
+    f = _perturbed(f0j, seed=9)
+    g = (sj.velocity_set._w.reshape(-1, 1, 1, 1) * np.random.default_rng(10).standard_normal(f.shape)).astype(np.float32)
+    jvs = sj.velocity_set
+    bwd = jax_adjoint(jvs, SHAPE, collision=jax_collision_spec(sj), bc_specs=[jax_bc_to_spec(b, jvs) for b in
+                                                                              sj.boundary_conditions],
+                      tile=(8, 8), interpret=True, has_solids=sj.has_solids, force_vector=jax_force_vector(sj))
+    df_ref, dom_ref = bwd(jnp.asarray(f), jnp.asarray(g), jax_pack_masks(bmj, mmj), OMEGA)
+
+    vs = st.velocity_set
+    adjoint = CollideStreamAdjoint(vs, SHAPE, collision=kernel_collision_spec(st), has_solids=st.has_solids,
+                                   bc_specs=[bc_to_spec(b, vs) for b in st.boundary_conditions],
+                                   force_vector=stepper_force_vector(st))
+    df, dom = adjoint(torch.from_numpy(f), torch.from_numpy(g), pack_masks(bmt, mmt), OMEGA)
+    np.testing.assert_allclose(df.numpy(), np.asarray(df_ref), **DF_TOL)
+    np.testing.assert_allclose(dom.numpy(), np.asarray(dom_ref), rtol=1e-4, atol=1e-7)
+
+
 def hand_adjoint(vs, bc_specs, f_primal, g, mask_i32, omega, shifted, has_solids):
-    """Torch transcription of csrc/adjoint_step.cu, term by term: the
-    hand-derived per-voxel Jacobian-transpose of the BGK step and its
+    """Torch transcription of csrc/adjoint_step.cuh's bgk_vjp and
+    adjoint_kernel, term by term: the hand-derived per-voxel
+    Jacobian-transpose of the BGK step and its
     epilogues, then the push df_m[y - c_m] = h_m(y) plus the solid term."""
     import torch
 
@@ -317,3 +356,30 @@ def test_adjoint_dom_field_matches_torch_tier_per_voxel_omega():
     df, dom = collide_stream_adjoint_plain(st.velocity_set, specs, f, g, pack_masks(bm, mm), OMEGA, has_solids=False)
     torch.testing.assert_close(df, df_ref, **DF_TOL)
     torch.testing.assert_close(dom, dom_ref, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("collision,q,kind", [("TRT", 19, "cavity"), ("MRT", 19, "cavity"),
+                                              ("SmagorinskyLESBGK", 19, "channel"), ("BGK", 19, "channel"),
+                                              ("KBC", 27, "channel")])
+def test_zoo_step_autograd_matches_jnp_tier(collision, q, kind):
+    """grad of sum(out**2) through the port's kernel="dma" step of the
+    collision zoo (forward K1, backward K8; plain versions here) against
+    jax.grad through xlb_tpu's jnp-tier stepper(...) on the same seeded
+    scene: the TRT and MRT cavities, and the forced channels with halfway
+    walls (Smagorinsky and BGK on D3Q19, KBC on D3Q27). Tolerances as the
+    BGK window's (rtol 2e-4, atol 1e-6; omega rtol 2e-3)."""
+    from tests.test_torch_collisions import build_scene
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.fused_step import build_fused_step
+
+    shape = (10, 8, 6)
+    sj, (f0j, _, bmj, mmj) = build_scene("xlb_tpu", kind, shape, collision, q)
+    st, (_, _, bmt, mmt) = build_scene("xlb_tpu_torch", kind, shape, collision, q)
+    f = jnp.asarray(_perturbed(f0j, seed=8))
+    gf_j, go_j = _grads_jax(lambda f, om: jnp.sum(sj(f, f, bmj, mmj, om, 0)[1] ** 2), f, OMEGA)
+    step = build_fused_step(st)
+    calls = CollideStreamAdjoint.plain_calls
+    gf_t, go_t = _grads_torch(lambda f, om: _sum_sq(step(f, f, bmt, mmt, om, 0)[1]), f, OMEGA)
+    assert CollideStreamAdjoint.plain_calls == calls + 1
+    np.testing.assert_allclose(gf_t, gf_j, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(go_t, go_j, rtol=2e-3)

@@ -25,13 +25,17 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(autouse=True)
-def _reset_port():
+def _reset_port_state():
     from xlb_tpu_torch import DefaultConfig
     from xlb_tpu_torch.boundary.registry import boundary_condition_registry
 
     DefaultConfig.reset()
     boundary_condition_registry.reset()
+
+
+@pytest.fixture(autouse=True)
+def _reset_port():
+    _reset_port_state()
     yield
 
 
@@ -478,3 +482,146 @@ def test_zoo_cuda_tier_matches_torch_tier(cuda_device, collision, q):
         a0, a1 = cuda(a0, a1, bc_mask, missing_mask, 1.7, t)
         a0, a1 = a1, a0
     torch.testing.assert_close(a0, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["cavity", "channel"])
+@pytest.mark.parametrize("collision,q", ZOO)
+def test_zoo_adjoint_kernel_matches_plain_version(cuda_device, collision, q, kind, store):
+    """K8 against its plain version (torch.func.vjp of the plain step) for
+    every pair of the zoo, with a solid block, on a seeded perturbed primal
+    and cotangent: the cavity (equilibrium, fullway) and the forced
+    channel (halfway walls); rtol 1e-4, atol 1e-6 (df) and 1e-7 (dom), as
+    the adjoint's own tests."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec, packed_cell
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks, stepper_force_vector
+
+    store = getattr(torch, store)
+    stepper, (_, _, bc_mask, missing_mask) = _zoo_scene(kind, collision, q, cuda_device)
+    vs = stepper.velocity_set
+    mask = pack_masks(bc_mask, missing_mask)
+    mask[6:12, 5:10, 10:20] = packed_cell(255, q)
+    shifted = store == torch.bfloat16
+    w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1, 1)
+    rng = np.random.default_rng(q + 1)
+    noise = torch.from_numpy(rng.standard_normal((vs.q,) + ZOO_SHAPE).astype(np.float32))
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+    g = (w * torch.from_numpy(rng.standard_normal((vs.q,) + ZOO_SHAPE).astype(np.float32))).to(cuda_device)
+    adj = CollideStreamAdjoint(vs, ZOO_SHAPE, collision=kernel_collision_spec(stepper), store_dtype=store,
+                               bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions], shifted=shifted,
+                               has_solids=True, force_vector=stepper_force_vector(stepper))
+    launches = CollideStreamAdjoint.launches
+    (df, dom), (pdf, pdom) = adj(f, g, mask, 1.7), adj.plain(f, g, mask, 1.7)
+    assert CollideStreamAdjoint.launches == launches + 1
+    torch.testing.assert_close(df, pdf, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dom, pdom, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_many_bc_kernels_match_plain_versions(cuda_device, store):
+    """K1, K2, K0 and K8 on the 15-BC cavity, K8 also on the 13 BCs without
+    the halfway blocks, against their plain versions (f32: rtol 1e-5,
+    atol 1e-6; bf16: the 8-ulp bound; the adjoint: rtol 1e-4, atol 1e-6 as
+    its own test), K0 == K1 and K2 == two K1 launches bit for bit."""
+    import torch
+
+    from chip_smoke import many_bc_cavity
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
+
+    store = getattr(torch, store)
+    shifted = store == torch.bfloat16
+    eps = torch.finfo(store).eps
+    tol = dict(rtol=1e-5, atol=1e-6) if store == torch.float32 else dict(rtol=8 * eps, atol=8 * eps * 0.05)
+    for halfway in (True, False):
+        stepper, (_, _, bc_mask, missing_mask) = many_bc_cavity(SHAPE, cuda_device, halfway)
+        vs = stepper.velocity_set
+        specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+        assert len(specs) == (15 if halfway else 13)
+        mask = pack_masks(bc_mask, missing_mask)
+        w = torch.as_tensor(vs._w, dtype=torch.float32).reshape(-1, 1, 1, 1)
+        noise = torch.from_numpy(np.random.default_rng(3).standard_normal((vs.q,) + SHAPE).astype(np.float32))
+        f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).to(cuda_device)
+        kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+        if halfway:
+            one, blocked = CollideStreamStep(vs, SHAPE, **kw), CollideStreamBlocked(vs, SHAPE, **kw)
+            two = CollideStreamKStep(vs, SHAPE, steps=2, **kw)
+            k1, k0, k2 = one(f, mask, OMEGA), blocked(f, mask, OMEGA), two(f, mask, OMEGA)
+            p1 = one.plain(f, mask, OMEGA)
+            torch.testing.assert_close(k1.float(), p1.float(), **tol)
+            torch.testing.assert_close(k2.float(), one.plain(p1, mask, OMEGA).float(), **tol)
+            assert torch.equal(k0, k1) and torch.equal(k2, one(k1, mask, OMEGA))
+        g = (w * torch.from_numpy(np.random.default_rng(4).standard_normal(f.shape).astype(np.float32))).to(cuda_device)
+        adj = CollideStreamAdjoint(vs, SHAPE, **kw)
+        for got, ref in zip(adj(f, g, mask, 1.5), adj.plain(f, g, mask, 1.5)):
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision,q,kind", [("TRT", 19, "cavity"), ("KBC", 27, "channel")])
+def test_zoo_dma_step_differentiates_through_adjoint_kernel(cuda_device, collision, q, kind):
+    """stepper(...) of the D3Q19 TRT cavity and of the forced D3Q27 KBC
+    channel on the CUDA tier: the forward launches K1, the backward K8.
+    Its gradients of f_0 and omega, and those of float32 TORCH-tier
+    autograd, against float64 (FP64FP64) TORCH-tier autograd: the CUDA
+    tier's error at most twice the float32 TORCH tier's plus 1e-6 (f_0)
+    and 2e-3 relative (omega). KBC's float32 derivative is ill-conditioned
+    on this state: both float32 tiers are ~4e-5 from float64, so the
+    float32 TORCH tier is not a sharper reference than the kernel."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+
+    grads = {}
+    for backend, policy in (("CUDA", "FP32FP32"), ("TORCH", "FP32FP32"), ("TORCH", "FP64FP64")):
+        _reset_port_state()
+        stepper, (f_0, f_1, bc_mask, missing_mask) = _zoo_scene(kind, collision, q, cuda_device, backend, policy)
+        noise = torch.from_numpy(np.random.default_rng(5).standard_normal(tuple(f_0.shape)).astype(np.float32))
+        f = (f_0 * (1.0 + 0.02 * noise.to(cuda_device, f_0.dtype))).requires_grad_(True)
+        omega = torch.tensor(1.5, device=cuda_device, dtype=f_0.dtype, requires_grad=True)
+        launches = (CollideStreamStep.launches, CollideStreamAdjoint.launches)
+        out = stepper(f, f_1, bc_mask, missing_mask, omega)[1]
+        out.square().sum().backward()
+        if backend == "CUDA":
+            assert (CollideStreamStep.launches, CollideStreamAdjoint.launches) == (launches[0] + 1, launches[1] + 1)
+        grads[backend, policy] = (f.grad.double(), float(omega.grad))
+    ref, w_ref = grads["TORCH", "FP64FP64"]
+    (df_c, dw_c), (df_t, dw_t) = grads["CUDA", "FP32FP32"], grads["TORCH", "FP32FP32"]
+    assert float((df_c - ref).abs().max()) <= 2 * float((df_t - ref).abs().max()) + 1e-6
+    assert abs(dw_c - w_ref) <= 2 * abs(dw_t - w_ref) + 2e-3 * abs(w_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["aligned", "offset"])
+@pytest.mark.parametrize("shape", [(3, 17, 13, 11), (7, 5, 3), (19, 24, 20, 36)])
+def test_copy_probes_match_plain_versions(cuda_device, shape, where):
+    """K9 under its three launch shapes, K10, K11 over the leading channels
+    and K12's five variants against their plain versions, bit for bit, on
+    ragged fields (420 bytes: not a multiple of 16), aligned and 4 bytes
+    past a 16-byte boundary."""
+    import torch
+
+    from xlb_tpu_torch.examples.performance.memory_bandwidth import LAUNCH_SHAPES
+    from xlb_tpu_torch.kernels import copy_bandwidth as cb
+
+    n = int(np.prod(shape))
+    base = torch.from_numpy(np.random.default_rng(16).standard_normal(n + 1).astype(np.float32)).to(cuda_device)
+    x = (base[:n] if where == "aligned" else base[1:]).view(shape)
+    kernels = [(cb.PipelinedCopy(t, v), cb.copy_plain) for t, v in LAUNCH_SHAPES]
+    kernels += [(cb.BulkCopy(), cb.copy_plain), (cb.SplitBulkCopy(shape[0]), cb.copy_plain)]
+    kernels += [(cb.ManualScaleCopy(*v), cb.scale_copy_plain) for v in cb.MANUAL_VARIANTS]
+    for kernel, plain in kernels:
+        launches = type(kernel).launches
+        out = kernel(x)
+        assert type(kernel).launches == launches + 1
+        assert out.data_ptr() % 16 == x.data_ptr() % 16
+        assert torch.equal(out, plain(x)), type(kernel).__name__

@@ -83,12 +83,13 @@ def test_unported_pieces_raise():
         IncompressibleNavierStokesStepper(st.grid, collision_type="KBC")
     with pytest.raises(NotImplementedError):
         CollideStreamStep(st.velocity_set, SHAPE, store_dtype=torch.float16)
-    # D3Q27 runs in the single step now; its adjoint and 3D Zou-He do not
-    with pytest.raises(NotImplementedError):
-        CollideStreamAdjoint(D3Q27(), SHAPE)
+    # D3Q27 runs in the single step and its adjoint now; 3D Zou-He in neither
+    assert CollideStreamAdjoint(D3Q27(), SHAPE).params.q == 27
     zouhe = {"kind": "zouhe", "id": 1, "step": "streaming", "bc_type": "pressure", "value": 1.0}
     with pytest.raises(NotImplementedError):
         CollideStreamStep(D3Q27(), SHAPE, bc_specs=[zouhe])
+    with pytest.raises(NotImplementedError):
+        CollideStreamAdjoint(D3Q27(), SHAPE, bc_specs=[zouhe])
     with pytest.raises(ValueError):
         CollideStreamKStep(st.velocity_set, SHAPE, steps=1)
 
@@ -208,10 +209,22 @@ def test_kernel_params_layout():
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 
     vs, specs, _, _ = _wrapper_inputs()
+    import ctypes
+
+    from xlb_tpu_torch.kernels import _cuda
+
+    # the C layout: the scalars first, then the kinds, ids and prescriptions
+    # (a flag and a q-vector each) of the whole id space, by value, with a
+    # kernel's other arguments under the 32,764-byte parameter limit
+    P = _cuda.XlbStepParams
+    assert P.q.offset == 2 * 4 * _cuda.MAX_Q + 8 and P.bc_kind.offset == P.mrt_rate.offset + 8
+    assert P.bc.offset == P.bc_kind.offset + 2 * 4 * _cuda.MAX_BC
+    assert ctypes.sizeof(_cuda.XlbBc) == 4 + 4 * _cuda.MAX_Q
+    assert ctypes.sizeof(P) == P.bc.offset + _cuda.MAX_BC * ctypes.sizeof(_cuda.XlbBc) and ctypes.sizeof(P) + 256 <= 32764
     p = CollideStreamStep(vs, SHAPE, bc_specs=specs).params
     assert p.n_bc == 2 and list(p.bc_kind[:2]) == [1, 0] and list(p.bc_id[:2]) == [1, 2]
     np.testing.assert_array_equal(np.array(p.w[: vs.q]), vs._w.astype(np.float32))
-    np.testing.assert_array_equal(np.array(p.bc_feq[1][: vs.q]), specs[1]["feq"])
+    np.testing.assert_array_equal(np.array(p.bc[1].vec[: vs.q]), specs[1]["feq"])
 
 
 def test_no_jax_guard_covers_the_2d_modules():
@@ -296,14 +309,16 @@ def test_2d_kernel_params_layout():
     st, _, _ = build_scene_2d("xlb_tpu_torch", "halfway_cavity", (16, 12), u_wall=(0.01, 0.0))
     vs = st.velocity_set
     p = kernel_params(vs, [bc_to_spec(b, vs) for b in st.boundary_conditions], has_solids=True)
-    assert p.n_bc == 2 and p.bc_kind[0] == _cuda.BC_KIND["halfway"] and p.bc_flag[0] == 1
-    np.testing.assert_array_equal(np.array(p.bc_mw[0][:9]), (6.0 * vs._w * (vs._c.T @ [0.01, 0.0])).astype(np.float32))
+    table = p.bc
+    assert p.n_bc == 2 and p.bc_kind[0] == _cuda.BC_KIND["halfway"] and table[0].flag == 1
+    np.testing.assert_array_equal(np.array(table[0].vec[:9]), (6.0 * vs._w * (vs._c.T @ [0.01, 0.0])).astype(np.float32))
     np.testing.assert_array_equal(np.array(p.w[:9]), vs._w.astype(np.float32))
     np.testing.assert_array_equal(np.array(p.w45[:9]), (4.5 * vs._w).astype(np.float32))
     vs, specs, _, _ = _wrapper_inputs_2d("cylinder-zouhe")
     p = kernel_params(vs, specs, has_solids=True)
-    assert list(p.bc_kind[:4]) == [1, 3, 3, 2] and list(p.bc_flag[:4]) == [0, 0, 1, 0]
-    assert list(p.bc_value[1][:2]) == [np.float32(0.04), 0.0] and p.bc_value[2][0] == 1.0
+    table = p.bc
+    assert list(p.bc_kind[:4]) == [1, 3, 3, 2] and [b.flag for b in table[:4]] == [0, 0, 1, 0]
+    assert list(table[1].vec[:2]) == [np.float32(0.04), 0.0] and table[2].vec[0] == 1.0
 
 
 def test_spatial_prescriptions_raise():
@@ -362,14 +377,18 @@ def test_multires_routes_notify_and_refuse_as_the_reference():
 
 def test_zoo_refuses_what_it_lacks_and_never_falls_back():
     """KBC on D3Q19 raises on both tiers, as in xlb_tpu. Under autograd a
-    kernel="dma" step with another collision than BGK, or with a force,
-    raises NotImplementedError naming the missing adjoint kernel, while
-    kernel="blocked" differentiates through the TORCH tier's VJP. A
+    kernel="dma" step of the TRT cavity and of the forced D3Q27 KBC channel
+    differentiates through the adjoint kernel's wrapper (its plain version
+    on CPU tensors), with no notice of another route; its gradients match
+    TORCH-tier autograd, as kernel="blocked"'s (the TORCH tier's VJP) do. A
     configuration outside the CUDA instantiation table raises, naming it,
     before any launch and without running the plain version."""
+    import warnings
+
     import torch
 
     from tests.test_torch_collisions import build_scene
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
     from xlb_tpu_torch.kernels.fused_step import build_fused_step
     from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
@@ -381,18 +400,35 @@ def test_zoo_refuses_what_it_lacks_and_never_falls_back():
     with pytest.raises(NotImplementedError, match="KBC"):
         CollideStreamStep(D3Q19(), SHAPE, collision="KBC")
 
-    f = f_0.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K8.*D3Q19 TRT"):
-        build_fused_step(st)(f, f_1, bc_mask, missing_mask, 1.5)
-    _, out = build_fused_step(st, kernel="blocked")(f, f_1, bc_mask, missing_mask, 1.5)
-    out.square().sum().backward()
     f_ref = f_0.clone().requires_grad_(True)
     st(f_ref, f_1, bc_mask, missing_mask, 1.5)[1].square().sum().backward()
+    f = f_0.clone().requires_grad_(True)
+    calls = CollideStreamAdjoint.plain_calls
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, out = build_fused_step(st)(f, f_1, bc_mask, missing_mask, 1.5)
+        out.square().sum().backward()
+    assert CollideStreamAdjoint.plain_calls == calls + 1
+    assert not [w for w in caught if issubclass(w.category, RuntimeWarning)]
+    torch.testing.assert_close(f.grad, f_ref.grad)
+    f = f_0.clone().requires_grad_(True)
+    _, out = build_fused_step(st, kernel="blocked")(f, f_1, bc_mask, missing_mask, 1.5)
+    out.square().sum().backward()
     torch.testing.assert_close(f.grad, f_ref.grad)
 
-    forced, (g_0, g_1, bm, mm) = build_scene("xlb_tpu_torch", "channel", SHAPE)
-    with pytest.raises(NotImplementedError, match="K8.*body force"):
-        build_fused_step(forced)(g_0.clone().requires_grad_(True), g_1, bm, mm, 1.5)
+    forced, (g_0, g_1, bm, mm) = build_scene("xlb_tpu_torch", "channel", SHAPE, "KBC", q=27)
+    grads = []
+    for step in (build_fused_step(forced), forced):
+        g = g_0.clone().requires_grad_(True)
+        omega = torch.tensor(1.5, requires_grad=True)
+        calls = CollideStreamAdjoint.plain_calls
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(g, g_1, bm, mm, omega)[1].square().sum().backward()
+        assert CollideStreamAdjoint.plain_calls == calls + (step is not forced)
+        assert not [w for w in caught if issubclass(w.category, RuntimeWarning)]
+        grads.append((g.grad, omega.grad))
+    torch.testing.assert_close(grads[0], grads[1])
 
     class NoInstantiations:
         @staticmethod

@@ -1,6 +1,7 @@
 // The C launchers of the fused 3D collide-stream kernels (K1 step_kernel,
-// K2 kstep_kernel, K0 blocked_kernel of collide_stream_3d.cuh and
-// collide_stream_blocked.cuh), bound to Python through ctypes
+// K2 kstep_kernel, K0 blocked_kernel and the adjoint K8 adjoint_kernel of
+// collide_stream_3d.cuh, collide_stream_blocked.cuh and adjoint_step.cuh),
+// bound to Python through ctypes
 // (xlb_tpu_torch/kernels/_cuda.py), and the D3Q19 BGK instantiations.
 //
 // Each launcher packs its arguments into an XlbLaunch and dispatches on the
@@ -88,8 +89,19 @@ int xlb_collide_stream_blocked(int store_kind, int shifted, const void* f, const
   return xlb::dispatch(a);
 }
 
+// The adjoint of one step: store_kind and shifted describe the primal f;
+// the cotangent g and the outputs df (q, X, Y, Z) and dom (X, Y, Z) are
+// float32.
+int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const void* g, const void* mask, void* df,
+                               void* dom, int X, int Y, int Z, float omega, const XlbStepParams* params,
+                               void* stream) {
+  const xlb::XlbLaunch a{xlb::XLB_KERNEL_ADJOINT, store_kind, shifted, f, mask, df, X, Y, Z, 0, 0, 0, 0, omega,
+                         params, static_cast<cudaStream_t>(stream), g, dom};
+  return xlb::dispatch(a);
+}
+
 // 1 when the library holds the kernel of this configuration (kernel:
-// 1 = step, 2 = k-step, 3 = blocked).
+// 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint).
 int xlb_has_instantiation(int kernel, int q, int collision, int walled, int store_kind, int shifted) {
   return xlb::has_pair(q, collision) && xlb::has_form(kernel, walled, store_kind, shifted);
 }
@@ -97,5 +109,7 @@ int xlb_has_instantiation(int kernel, int q, int collision, int walled, int stor
 const char* xlb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 int xlb_params_size(void) { return int(sizeof(XlbStepParams)); }
+
+int xlb_bc_size(void) { return int(sizeof(XlbBc)); }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Per-voxel body shared by the fused collide-stream kernels: the 3D
 // kernels of collide_stream_3d.cuh and collide_stream_blocked.cuh, the D2Q9
 // kernels of collide_stream_2d.cu and, through its pieces
-// (streamed_populations, moments_equilibrium, is_fullway, is_solid), the
-// adjoint kernel of adjoint_step.cu and the multires kernels.
+// (streamed_populations, moments_equilibrium, collide_physics,
+// has_bc_kind, is_solid), the adjoint kernel of adjoint_step.cuh and the
+// multires kernels.
 //
 // It is the CUDA counterpart of the slice of
 // xlb_tpu/kernels/collide_stream.py::_build_kernel_body that scenes with
@@ -39,10 +40,10 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "dual.cuh"
 #include "mrt_projectors.cuh"
 
 #define XLB_MAX_Q 27
-#define XLB_MAX_BC 8
 #define XLB_SOLID_ID 255  // packed solid id of D3Q19 and D2Q9 (cell type 255); D3Q27's is D3Q27::solid_id
 
 enum : int {
@@ -62,20 +63,30 @@ enum : int {
   XLB_COLL_POWERLAW = 5,
 };
 
-// Launch parameters: the f32 weights, the BC table and the solid flag.
-// Plain int/float members only, so the ctypes mirror in
-// xlb_tpu_torch/kernels/_cuda.py has the same layout.
+// The packed id field's reach: a scene's BCs have distinct ids, at most
+// 253 of the uint8 cell types (D3Q19, D2Q9) and 29 of D3Q27's 5-bit field.
+#define XLB_MAX_BC 256
+
+// The constant prescription of one BC. The kernels read it only at voxels
+// of the BC.
+struct XlbBc {
+  int flag;               // halfway: 1 = moving wall; zouhe / regularized: 1 = pressure
+  float vec[XLB_MAX_Q];   // equilibrium: the prescribed feq; halfway: 6 w_l (c_l . u_wall);
+                          // zouhe / regularized: the velocity, or the density in [0]
+};
+
+// Launch parameters: the f32 weights, the BCs' kinds, ids and
+// prescriptions, the solid flag and the collision's constants, all by
+// value in the kernel's constant bank. Plain int/float members only, so the
+// ctypes mirror in xlb_tpu_torch/kernels/_cuda.py has the same layout. A
+// scene takes as many BCs as the stencil's packed id field carries, as
+// xlb_tpu's kernel body does: 31 KB, under the 32,764-byte parameter limit
+// of CUDA 12.1 and later on sm_70 and later.
 struct XlbStepParams {
   float w[XLB_MAX_Q];
   float w45[XLB_MAX_Q];  // 4.5 w_l rounded once to f32 (regularized)
   int has_solids;
   int n_bc;
-  int bc_kind[XLB_MAX_BC];
-  int bc_id[XLB_MAX_BC];
-  int bc_flag[XLB_MAX_BC];                // halfway: 1 = moving wall; zouhe / regularized: 1 = pressure
-  float bc_feq[XLB_MAX_BC][XLB_MAX_Q];    // equilibrium: the prescribed feq
-  float bc_mw[XLB_MAX_BC][XLB_MAX_Q];     // halfway: 6 w_l (c_l . u_wall)
-  float bc_value[XLB_MAX_BC][3];          // zouhe / regularized: the velocity, or the density in [0]
   // read by the kernels of the 3D collision zoo (collide_stream_3d.cuh)
   int q;            // the stencil of the launch: 9, 19 or 27
   int collision;    // XLB_COLL_*
@@ -87,7 +98,13 @@ struct XlbStepParams {
   int coll_iters;   // PowerLaw: the fixed-point iterations
   int mrt_on[2];    // MRT: the bulk / ghost group relaxes at its own rate
   float mrt_rate[2];
+  // last: the fields above are read at every voxel, and placed behind the
+  // 28 KB of prescriptions they cost K2 2-3% (PERF.md)
+  int bc_kind[XLB_MAX_BC];  // XLB_BC_*
+  int bc_id[XLB_MAX_BC];    // the packed id (cell_type) the BC claims
+  XlbBc bc[XLB_MAX_BC];     // read only at the voxels of each BC
 };
+static_assert(sizeof(XlbStepParams) + 256 <= 32764, "XlbStepParams and a kernel's other arguments exceed 32,764 B");
 
 namespace xlb {
 
@@ -110,7 +127,8 @@ struct D3Q19 {
     return kOpp[l];
   }
   // MRT: out += coef P_g fneq for the bulk (g = 0) or ghost (g = 1) group
-  __device__ __forceinline__ static void mrt_rows(int g, const float* fneq, float coef, float* out) {
+  template <typename F>
+  __device__ __forceinline__ static void mrt_rows(int g, const F* fneq, F coef, F* out) {
     if (g == 0) mrt_d3q19_bulk(fneq, coef, out);
     else mrt_d3q19_ghost(fneq, coef, out);
   }
@@ -149,7 +167,8 @@ struct D3Q27 {
   __host__ __device__ static constexpr int opp(int l) {
     return 9 * ((3 - digit(0, l)) % 3) + 3 * ((3 - digit(1, l)) % 3) + (3 - digit(2, l)) % 3;
   }
-  __device__ __forceinline__ static void mrt_rows(int g, const float* fneq, float coef, float* out) {
+  template <typename F>
+  __device__ __forceinline__ static void mrt_rows(int g, const F* fneq, F coef, F* out) {
     if (g == 0) mrt_d3q27_bulk(fneq, coef, out);
     else mrt_d3q27_ghost(fneq, coef, out);
   }
@@ -221,34 +240,33 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { retu
 
 // The pair-shared quadratic equilibrium of (rho, u): feq_{l,o} = rho w
 // (t +- cu3) with the shared even part t = (1 - 1.5 u^2) + cu3^2 / 2.
-template <class S>
-__device__ __forceinline__ void equilibrium(float rho, const float u[S::d], const XlbStepParams& p,
-                                            float feq[S::q]) {
-  float usqr = u[0] * u[0];
+template <class S, typename F>
+__device__ __forceinline__ void equilibrium(F rho, const F u[S::d], const XlbStepParams& p, F feq[S::q]) {
+  F usqr = u[0] * u[0];
 #pragma unroll
   for (int a = 1; a < S::d; ++a) usqr = usqr + u[a] * u[a];
-  const float base = 1.0f - 1.5f * usqr;
+  const F base = 1.0f - 1.5f * usqr;
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     const int o = S::opp(l);
     if (o < l) continue;  // pair handled at its lower index
-    const float rw = rho * p.w[l];
+    const F rw = rho * p.w[l];
     if (o == l) {
       feq[l] = rw * base;
       continue;
     }
-    float cu = 0.0f;
+    F cu = 0.0f;
     bool have = false;
 #pragma unroll
     for (int a = 0; a < S::d; ++a) {
       const int ca = S::c(a, l);
       if (ca == 0) continue;
-      const float t = ca == 1 ? u[a] : -u[a];
+      const F t = ca == 1 ? u[a] : -u[a];
       cu = have ? cu + t : t;
       have = true;
     }
-    const float cu3 = 3.0f * cu;
-    const float even = base + 0.5f * (cu3 * cu3);
+    const F cu3 = 3.0f * cu;
+    const F even = base + 0.5f * (cu3 * cu3);
     feq[l] = rw * (even + cu3);
     feq[o] = rw * (even - cu3);
   }
@@ -259,59 +277,58 @@ __device__ __forceinline__ void equilibrium(float rho, const float u[S::d], cons
 // feq(rho, u + F), from it: their difference is the force term, and where
 // nvcc contracts (and shares terms between the two) would otherwise depend
 // on the kernel around the inlined body.
-template <class S>
-__device__ __forceinline__ void equilibrium_rn(float rho, const float u[S::d], const XlbStepParams& p,
-                                               float feq[S::q]) {
-  float usqr = __fmul_rn(u[0], u[0]);
+template <class S, typename F>
+__device__ __forceinline__ void equilibrium_rn(F rho, const F u[S::d], const XlbStepParams& p, F feq[S::q]) {
+  F usqr = mul_rn(u[0], u[0]);
 #pragma unroll
-  for (int a = 1; a < S::d; ++a) usqr = __fadd_rn(usqr, __fmul_rn(u[a], u[a]));
-  const float base = __fsub_rn(1.0f, __fmul_rn(1.5f, usqr));
+  for (int a = 1; a < S::d; ++a) usqr = add_rn(usqr, mul_rn(u[a], u[a]));
+  const F base = sub_rn(1.0f, mul_rn(1.5f, usqr));
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     const int o = S::opp(l);
     if (o < l) continue;  // pair handled at its lower index
-    const float rw = __fmul_rn(rho, p.w[l]);
+    const F rw = mul_rn(rho, p.w[l]);
     if (o == l) {
-      feq[l] = __fmul_rn(rw, base);
+      feq[l] = mul_rn(rw, base);
       continue;
     }
-    float cu = 0.0f;
+    F cu = 0.0f;
     bool have = false;
 #pragma unroll
     for (int a = 0; a < S::d; ++a) {
       const int ca = S::c(a, l);
       if (ca == 0) continue;
-      const float t = ca == 1 ? u[a] : -u[a];
-      cu = have ? __fadd_rn(cu, t) : t;
+      const F t = ca == 1 ? u[a] : -u[a];
+      cu = have ? add_rn(cu, t) : t;
       have = true;
     }
-    const float cu3 = __fmul_rn(3.0f, cu);
-    const float even = __fadd_rn(base, __fmul_rn(0.5f, __fmul_rn(cu3, cu3)));
-    feq[l] = __fmul_rn(rw, __fadd_rn(even, cu3));
-    feq[o] = __fmul_rn(rw, __fsub_rn(even, cu3));
+    const F cu3 = mul_rn(3.0f, cu);
+    const F even = add_rn(base, mul_rn(0.5f, mul_rn(cu3, cu3)));
+    feq[l] = mul_rn(rw, add_rn(even, cu3));
+    feq[o] = mul_rn(rw, sub_rn(even, cu3));
   }
 }
 
 // Moments and the pair-shared quadratic equilibrium of one voxel's
 // post-streaming populations fs. Shared by the forward (collide_voxel) and
-// the adjoint kernel (adjoint_step.cu), so the adjoint linearises the very
+// the adjoint kernel (adjoint_step.cuh), so the adjoint linearises the very
 // arithmetic the forward ran. RN: the equilibrium through equilibrium_rn.
-template <class S, bool RN = false>
-__device__ __forceinline__ void moments_equilibrium(const float fs[S::q], const XlbStepParams& p, float& rho,
-                                                    float& inv_rho, float u[S::d], float feq[S::q]) {
+template <class S, bool RN = false, typename F>
+__device__ __forceinline__ void moments_equilibrium(const F fs[S::q], const XlbStepParams& p, F& rho, F& inv_rho,
+                                                    F u[S::d], F feq[S::q]) {
   rho = fs[0];
 #pragma unroll
   for (int l = 1; l < S::q; ++l) rho = rho + fs[l];
   inv_rho = 1.0f / rho;
 #pragma unroll
   for (int a = 0; a < S::d; ++a) {
-    float acc = 0.0f;
+    F acc = 0.0f;
     bool have = false;
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       const int ca = S::c(a, l);
       if (ca == 0) continue;
-      const float t = ca == 1 ? fs[l] : -fs[l];
+      const F t = ca == 1 ? fs[l] : -fs[l];
       acc = have ? acc + t : t;
       have = true;
     }
@@ -334,7 +351,7 @@ __device__ __forceinline__ void halfway_epilogue(const Center& center, int packe
     const int o = S::opp(l);
     float refl = center(o);
     if constexpr (SHIFTED) refl += p.w[o];
-    if (p.bc_flag[b]) refl = refl + p.bc_mw[b][l];
+    if (p.bc[b].flag) refl = refl + p.bc[b].vec[l];
     fs[l] = refl;
   }
 }
@@ -377,12 +394,12 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   }
 
   float rho, u[d];
-  if (p.bc_flag[b] == 0) {  // velocity
+  if (p.bc[b].flag == 0) {  // velocity
     float unormal = 0.0f;
     bool have = false;
 #pragma unroll
     for (int a = 0; a < d; ++a) {
-      const float v = p.bc_value[b][a];
+      const float v = p.bc[b].vec[a];
       u[a] = v;
       if (v == 0.0f) continue;
       const float t = normal[a] * v;
@@ -391,7 +408,7 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
     }
     rho = fsum / (1.0f + unormal);
   } else {  // pressure
-    rho = p.bc_value[b][0];
+    rho = p.bc[b].vec[0];
     const float unormal = -1.0f + fsum / rho;
 #pragma unroll
     for (int a = 0; a < d; ++a) u[a] = unormal * normal[a];
@@ -461,7 +478,7 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
   for (int b = 0; b < p.n_bc; ++b) {
     if (p.bc_kind[b] == XLB_BC_EQUILIBRIUM && bc == p.bc_id[b]) {
 #pragma unroll
-      for (int l = 0; l < S::q; ++l) fs[l] = p.bc_feq[b][l];
+      for (int l = 0; l < S::q; ++l) fs[l] = p.bc[b].vec[l];
       fixed = true;
     }
     if constexpr (EXT != kExtNone) {
@@ -482,26 +499,29 @@ __device__ __forceinline__ bool is_solid(int bc, const XlbStepParams& p) {
   return p.has_solids && bc == S::solid_id;
 }
 
-// Whether a collision-step "fullway" BC claims cell type bc.
-__device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) {
+// Whether a BC of kind `kind` (XLB_BC_*) claims cell type bc.
+__device__ __forceinline__ bool has_bc_kind(int bc, const XlbStepParams& p, int kind) {
   bool on = false;
-  for (int b = 0; b < p.n_bc; ++b) on = on || (p.bc_kind[b] == XLB_BC_FULLWAY && bc == p.bc_id[b]);
+  for (int b = 0; b < p.n_bc; ++b) on = on || (p.bc_kind[b] == kind && bc == p.bc_id[b]);
   return on;
 }
 
+// Whether a collision-step "fullway" BC claims cell type bc.
+__device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) { return has_bc_kind(bc, p, XLB_BC_FULLWAY); }
+
 // Packed upper-triangular second moment Pi_t = sum_l cc_l,t fneq_l, the
 // +-1 coefficients as adds in direction order (xlb_tpu's second_moment).
-template <class S>
-__device__ __forceinline__ void second_moment(const float fneq[S::q], float pi[n_moments<S>()]) {
+template <class S, typename F>
+__device__ __forceinline__ void second_moment(const F fneq[S::q], F pi[n_moments<S>()]) {
 #pragma unroll
   for (int t = 0; t < n_moments<S>(); ++t) {
-    float acc = 0.0f;
+    F acc = 0.0f;
     bool have = false;
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       const int k = cc<S>(l, t);
       if (k == 0) continue;
-      const float term = k == 1 ? fneq[l] : -fneq[l];
+      const F term = k == 1 ? fneq[l] : -fneq[l];
       acc = have ? acc + term : term;
       have = true;
     }
@@ -511,35 +531,35 @@ __device__ __forceinline__ void second_moment(const float fneq[S::q], float pi[n
 
 // Pi : Pi with the off-diagonal entries counted twice:
 // (sum of the diagonal squares) + 2 (sum of the off-diagonal squares).
-template <class S>
-__device__ __forceinline__ float strain_squared(const float pi[n_moments<S>()]) {
-  float diag = 0.0f, offd = 0.0f;
+template <class S, typename F>
+__device__ __forceinline__ F strain_squared(const F pi[n_moments<S>()]) {
+  F diag = 0.0f, offd = 0.0f;
   bool have_d = false, have_o = false;
 #pragma unroll
   for (int t = 0; t < n_moments<S>(); ++t) {
-    const float sq = __fmul_rn(pi[t], pi[t]);
+    const F sq = mul_rn(pi[t], pi[t]);
     if (is_diagonal<S>(t)) {
-      diag = have_d ? __fadd_rn(diag, sq) : sq;
+      diag = have_d ? add_rn(diag, sq) : sq;
       have_d = true;
     } else {
-      offd = have_o ? __fadd_rn(offd, sq) : sq;
+      offd = have_o ? add_rn(offd, sq) : sq;
       have_o = true;
     }
   }
-  return __fadd_rn(diag, __fmul_rn(2.0f, offd));
+  return add_rn(diag, mul_rn(2.0f, offd));
 }
 
 // The collisions: out = C::collide(fs, feq, rho, omega). fs are the
-// post-streaming populations, feq their equilibrium, rho their density.
-// Beyond BGK and KBC they spell their products and sums with __fmul_rn /
-// __fadd_rn / __fsub_rn, which nvcc never contracts into FMAs: where it
-// contracts depends on the kernel around the inlined body, and K0, K1 and
-// the sweeps of K2 must compute the same bits.
+// post-streaming populations, feq their equilibrium, rho their density; F
+// is float, or Dual in the adjoint. Beyond BGK and KBC they spell their
+// products and sums with mul_rn / add_rn / sub_rn, which nvcc never
+// contracts into FMAs: where it contracts depends on the kernel around the
+// inlined body, and K0, K1 and the sweeps of K2 must compute the same bits.
 struct CollBGK {
   static constexpr int id = XLB_COLL_BGK;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
-                                                 const XlbStepParams&, float out[S::q]) {
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F, F omega,
+                                                 const XlbStepParams&, F out[S::q]) {
 #pragma unroll
     for (int l = 0; l < S::q; ++l) out[l] = fs[l] - omega * (fs[l] - feq[l]);
   }
@@ -549,25 +569,23 @@ struct CollBGK {
 // and at omega_minus = 1 / (Lambda / (1 / omega - 1/2) + 1/2), per pair.
 struct CollTRT {
   static constexpr int id = XLB_COLL_TRT;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
-                                                 const XlbStepParams& p, float out[S::q]) {
-    const float tau_p_half = __fsub_rn(1.0f / omega, 0.5f);
-    const float om_m = 1.0f / __fadd_rn(p.coll[0] / tau_p_half, 0.5f);
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F, F omega,
+                                                 const XlbStepParams& p, F out[S::q]) {
+    const F tau_p_half = sub_rn(1.0f / omega, 0.5f);
+    const F om_m = 1.0f / add_rn(p.coll[0] / tau_p_half, 0.5f);
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       const int o = S::opp(l);
       if (o < l) continue;  // pair handled at its lower index
       if (o == l) {
-        out[l] = __fsub_rn(fs[l], __fmul_rn(omega, __fsub_rn(fs[l], feq[l])));
+        out[l] = sub_rn(fs[l], mul_rn(omega, sub_rn(fs[l], feq[l])));
         continue;
       }
-      const float h_even = __fmul_rn(omega, __fsub_rn(__fmul_rn(0.5f, __fadd_rn(fs[l], fs[o])),
-                                                      __fmul_rn(0.5f, __fadd_rn(feq[l], feq[o]))));
-      const float h_odd = __fmul_rn(om_m, __fsub_rn(__fmul_rn(0.5f, __fsub_rn(fs[l], fs[o])),
-                                                    __fmul_rn(0.5f, __fsub_rn(feq[l], feq[o]))));
-      out[l] = __fsub_rn(__fsub_rn(fs[l], h_even), h_odd);
-      out[o] = __fadd_rn(__fsub_rn(fs[o], h_even), h_odd);
+      const F h_even = mul_rn(omega, sub_rn(mul_rn(0.5f, add_rn(fs[l], fs[o])), mul_rn(0.5f, add_rn(feq[l], feq[o]))));
+      const F h_odd = mul_rn(om_m, sub_rn(mul_rn(0.5f, sub_rn(fs[l], fs[o])), mul_rn(0.5f, sub_rn(feq[l], feq[o]))));
+      out[l] = sub_rn(sub_rn(fs[l], h_even), h_odd);
+      out[o] = add_rn(sub_rn(fs[o], h_even), h_odd);
     }
   }
 };
@@ -577,36 +595,36 @@ struct CollTRT {
 // out row by row in mrt_projectors.cuh, without the zero entries.
 struct CollMRT {
   static constexpr int id = XLB_COLL_MRT;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
-                                                 const XlbStepParams& p, float out[S::q]) {
-    float fneq[S::q];
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F, F omega,
+                                                 const XlbStepParams& p, F out[S::q]) {
+    F fneq[S::q];
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       fneq[l] = fs[l] - feq[l];
-      out[l] = __fsub_rn(fs[l], __fmul_rn(omega, fneq[l]));
+      out[l] = sub_rn(fs[l], mul_rn(omega, fneq[l]));
     }
 #pragma unroll
     for (int g = 0; g < 2; ++g)
-      if (p.mrt_on[g]) S::mrt_rows(g, fneq, __fsub_rn(omega, p.mrt_rate[g]), out);
+      if (p.mrt_on[g]) S::mrt_rows(g, fneq, sub_rn(omega, F(p.mrt_rate[g])), out);
   }
 };
 
 // Smagorinsky LES: tau = (tau0 + sqrt(tau0^2 + 36 Cs^2 sqrt(Pi:Pi))) / 2.
 struct CollSmagorinsky {
   static constexpr int id = XLB_COLL_SMAGORINSKY;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
-                                                 const XlbStepParams& p, float out[S::q]) {
-    float fneq[S::q], pi[n_moments<S>()];
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F, F omega,
+                                                 const XlbStepParams& p, F out[S::q]) {
+    F fneq[S::q], pi[n_moments<S>()];
 #pragma unroll
     for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
     second_moment<S>(fneq, pi);
-    const float tau0 = 1.0f / omega;
-    const float root = sqrtf(__fadd_rn(__fmul_rn(tau0, tau0), __fmul_rn(p.coll[0], sqrtf(strain_squared<S>(pi)))));
-    const float om = 1.0f / __fmul_rn(0.5f, __fadd_rn(tau0, root));
+    const F tau0 = 1.0f / omega;
+    const F root = sqrt_of(add_rn(mul_rn(tau0, tau0), mul_rn(F(p.coll[0]), sqrt_of(strain_squared<S>(pi)))));
+    const F om = 1.0f / mul_rn(0.5f, add_rn(tau0, root));
 #pragma unroll
-    for (int l = 0; l < S::q; ++l) out[l] = __fsub_rn(fs[l], __fmul_rn(om, fneq[l]));
+    for (int l = 0; l < S::q; ++l) out[l] = sub_rn(fs[l], mul_rn(om, fneq[l]));
   }
 };
 
@@ -615,20 +633,20 @@ struct CollSmagorinsky {
 // 1 / tau clipped to [0.05, 1.99].
 struct CollPowerLaw {
   static constexpr int id = XLB_COLL_POWERLAW;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float rho,
-                                                 float omega, const XlbStepParams& p, float out[S::q]) {
-    float fneq[S::q], pi[n_moments<S>()];
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F rho, F omega,
+                                                 const XlbStepParams& p, F out[S::q]) {
+    F fneq[S::q], pi[n_moments<S>()];
 #pragma unroll
     for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
     second_moment<S>(fneq, pi);
-    const float a = __fmul_rn(1.5f, sqrtf(__fmul_rn(2.0f, strain_squared<S>(pi)))) / rho;
-    float tau = 1.0f / omega;
+    const F a = mul_rn(1.5f, sqrt_of(mul_rn(2.0f, strain_squared<S>(pi)))) / rho;
+    F tau = 1.0f / omega;
     for (int it = 0; it < p.coll_iters; ++it)
-      tau = __fadd_rn(__fmul_rn(p.coll[0], powf(__fadd_rn(a / tau, p.coll[2]), p.coll[1])), 0.5f);
-    const float om = fminf(fmaxf(1.0f / tau, 0.05f), 1.99f);
+      tau = add_rn(mul_rn(F(p.coll[0]), pow_of(add_rn(a / tau, F(p.coll[2])), p.coll[1])), 0.5f);
+    const F om = clamp_of(1.0f / tau, 0.05f, 1.99f);
 #pragma unroll
-    for (int l = 0; l < S::q; ++l) out[l] = __fsub_rn(fs[l], __fmul_rn(om, fneq[l]));
+    for (int l = 0; l < S::q; ++l) out[l] = sub_rn(fs[l], mul_rn(om, fneq[l]));
   }
 };
 
@@ -639,7 +657,8 @@ __device__ __forceinline__ bool kbc_has_shear_d3q27(int l) {
   return n == 1 || n == 2;
 }
 
-__device__ __forceinline__ float kbc_shear_d3q27(int l, float nxz, float nyz, const float pi[6]) {
+template <typename F>
+__device__ __forceinline__ F kbc_shear_d3q27(int l, F nxz, F nyz, const F pi[6]) {
   switch (l) {
     case 9: case 18: return (2.0f * nxz - nyz) / 6.0f;
     case 3: case 6: return (-nxz + 2.0f * nyz) / 6.0f;
@@ -650,7 +669,7 @@ __device__ __forceinline__ float kbc_shear_d3q27(int l, float nxz, float nyz, co
     case 19: case 11: return -pi[2] / 4.0f;
     case 8: case 4: return pi[4] / 4.0f;
     case 7: case 5: return -pi[4] / 4.0f;
-    default: return 0.0f;
+    default: return F(0.0f);
   }
 }
 
@@ -659,37 +678,37 @@ __device__ __forceinline__ float kbc_shear_d3q27(int l, float nxz, float nyz, co
 // weighted by 1 / feq, one IEEE reciprocal per opposite pair (ds is even).
 struct CollKBC {
   static constexpr int id = XLB_COLL_KBC;
-  template <class S>
-  __device__ __forceinline__ static void collide(const float fs[S::q], const float feq[S::q], float, float omega,
-                                                 const XlbStepParams&, float out[S::q]) {
+  template <class S, typename F>
+  __device__ __forceinline__ static void collide(const F fs[S::q], const F feq[S::q], F, F omega,
+                                                 const XlbStepParams&, F out[S::q]) {
     static_assert(S::q == 27, "the 3D kernels run KBC on D3Q27");
-    float fneq[S::q], pi[6], ds[S::q], dh[S::q];
+    F fneq[S::q], pi[6], ds[S::q], dh[S::q];
 #pragma unroll
     for (int l = 0; l < S::q; ++l) fneq[l] = fs[l] - feq[l];
     second_moment<S>(fneq, pi);
-    const float nxz = pi[0] - pi[5], nyz = pi[3] - pi[5];
+    const F nxz = pi[0] - pi[5], nyz = pi[3] - pi[5];
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       ds[l] = kbc_shear_d3q27(l, nxz, nyz, pi);
       dh[l] = kbc_has_shear_d3q27(l) ? fneq[l] - ds[l] : fneq[l];
     }
-    const float beta = 0.5f * omega;
-    const float inv_beta = 1.0f / beta;
-    float sp1 = 0.0f, sp2 = 0.0f;
+    const F beta = 0.5f * omega;
+    const F inv_beta = 1.0f / beta;
+    F sp1 = 0.0f, sp2 = 0.0f;
     bool have1 = false, have2 = false;
 #pragma unroll
     for (int l = 0; l < S::q; ++l) {
       const int o = S::opp(l);
       if (o < l) continue;  // pair handled at its lower index
-      float t1 = 0.0f, t2;
+      F t1 = 0.0f, t2;
       if (o == l) {
-        const float tmp = dh[l] * (1.0f / feq[l]);
+        const F tmp = dh[l] * (1.0f / feq[l]);
         if (kbc_has_shear_d3q27(l)) t1 = tmp * ds[l];
         t2 = tmp * dh[l];
       } else {
-        const float inv = 1.0f / (feq[l] * feq[o]);
-        const float a = dh[l] * feq[o];
-        const float b = dh[o] * feq[l];
+        const F inv = 1.0f / (feq[l] * feq[o]);
+        const F a = dh[l] * feq[o];
+        const F b = dh[o] * feq[l];
         if (kbc_has_shear_d3q27(l)) t1 = ds[l] * ((a + b) * inv);
         t2 = (dh[l] * a + dh[o] * b) * inv;
       }
@@ -700,12 +719,36 @@ struct CollKBC {
       sp2 = have2 ? sp2 + t2 : t2;
       have2 = true;
     }
-    const float gamma = inv_beta - (2.0f - inv_beta) * sp1 * (1.0f / (1e-32f + sp2));
+    const F gamma = inv_beta - (2.0f - inv_beta) * sp1 * (1.0f / (1e-32f + sp2));
 #pragma unroll
     for (int l = 0; l < S::q; ++l)
       out[l] = kbc_has_shear_d3q27(l) ? fs[l] - beta * (2.0f * ds[l] + gamma * dh[l]) : fs[l] - beta * (gamma * dh[l]);
   }
 };
+
+// The physics of one voxel between the streaming-step and the
+// collision-step epilogues: moments, the pair-shared equilibrium, the
+// collision C and, with FORCE (applied when p.has_force), the
+// exact-difference body force f += feq(rho, u + F) - feq(rho, u) with the
+// pre-collision rho and u. F is float in the forward, Dual in the adjoint.
+template <class S, class C, bool FORCE, typename F>
+__device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const XlbStepParams& p, F out[S::q]) {
+  F rho, inv_rho, u[S::d], feq[S::q];
+  moments_equilibrium<S, FORCE>(fs, p, rho, inv_rho, u, feq);
+
+  C::template collide<S>(fs, feq, rho, omega, p, out);
+
+  if constexpr (FORCE) {
+    if (p.has_force) {
+      F uf[S::d], feqf[S::q];
+#pragma unroll
+      for (int a = 0; a < S::d; ++a) uf[a] = u[a] + p.force[a];
+      equilibrium_rn<S>(rho, uf, p, feqf);
+#pragma unroll
+      for (int l = 0; l < S::q; ++l) out[l] = out[l] + (feqf[l] - feq[l]);
+    }
+  }
+}
 
 // One voxel of one step. pull(l) returns the raw (store-form, as f32)
 // population l pulled from x - c_l; center(l) the raw population l at x.
@@ -720,21 +763,7 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
   float fs[S::q];
   streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
 
-  float rho, inv_rho, u[S::d], feq[S::q];
-  moments_equilibrium<S, FORCE>(fs, p, rho, inv_rho, u, feq);
-
-  C::template collide<S>(fs, feq, rho, omega, p, out);
-
-  if constexpr (FORCE) {
-    if (p.has_force) {
-      float uf[S::d], feqf[S::q];
-#pragma unroll
-      for (int a = 0; a < S::d; ++a) uf[a] = u[a] + p.force[a];
-      equilibrium_rn<S>(rho, uf, p, feqf);
-#pragma unroll
-      for (int l = 0; l < S::q; ++l) out[l] = out[l] + (feqf[l] - feq[l]);
-    }
-  }
+  collide_physics<S, C, FORCE>(fs, omega, p, out);
 
   // collision-step epilogues
   if (is_fullway(bc, p)) {

@@ -40,7 +40,7 @@
 // fit on an SM (D3Q19 bf16 4x8x32 at k=2: 78 KB; f32 4x4x32: 93 KB).
 //
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
-// the family.
+// the family, adjoint_kernel (K8, adjoint_step.cuh) the fourth.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,7 +55,7 @@ constexpr int kStepThreads = 256;
 constexpr int kKstepThreads = 256;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in limit per block on sm_90
 
-enum : int { XLB_KERNEL_STEP = 1, XLB_KERNEL_KSTEP = 2, XLB_KERNEL_BLOCKED = 3 };
+enum : int { XLB_KERNEL_STEP = 1, XLB_KERNEL_KSTEP = 2, XLB_KERNEL_BLOCKED = 3, XLB_KERNEL_ADJOINT = 4 };
 
 __host__ __device__ inline size_t halo_volume(int h, int tx, int ty, int tz) {
   return size_t(tx + 2 * h) * size_t(ty + 2 * h) * size_t(tz + 2 * h);
@@ -170,21 +170,24 @@ struct XlbLaunch {
   float omega;
   const XlbStepParams* p;
   cudaStream_t stream;
+  const void* g;  // adjoint: the cotangent (f32, like f); out is df
+  void* dom;      // adjoint: the per-voxel omega cotangent
 };
 
 }  // namespace xlb
 
+#include "adjoint_step.cuh"
 #include "collide_stream_blocked.cuh"
 
 namespace xlb {
 
 // The instantiation table: which (kernel, walled, store, shifted) every
 // (stencil, collision) pair is built for: f32 plain storage and bf16
-// deviation form (the windows) for all three kernels, bf16 plain storage
-// for the single steps (stepper(...) under FP32BF16), each unwalled and
-// walled (halfway epilogue and body force).
+// deviation form (the windows) for all four kernels, bf16 plain storage
+// for the single steps and the adjoint (stepper(...) under FP32BF16), each
+// unwalled and walled (halfway epilogue and body force).
 constexpr bool has_form(int kernel, int walled, int store_kind, int shifted) {
-  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_BLOCKED || walled < 0 || walled > 1) return false;
+  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 1) return false;
   if (store_kind == 0) return !shifted;
   if (store_kind == 1) return shifted || kernel != XLB_KERNEL_KSTEP;
   return false;
@@ -226,6 +229,26 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
       const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.TX - 1) / a.TX);
       blocked_kernel<S, C, T, SHIFTED, EXT, FORCE>
           <<<grid, threads, 0, a.stream>>>(f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.omega, p);
+      return cudaGetLastError();
+    }
+  } else if (a.kernel == XLB_KERNEL_ADJOINT) {
+    if constexpr (has_form(XLB_KERNEL_ADJOINT, FORCE, store, SHIFTED)) {
+      const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
+      const unsigned blocks = (n + kAdjointThreads - 1) / kAdjointThreads;
+      const float* g = static_cast<const float*>(a.g);
+      float* df = static_cast<float*>(a.out);
+      adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
+          f, g, mask, df, static_cast<float*>(a.dom), a.X, a.Y, a.Z, a.omega, p);
+      if constexpr (EXT != kExtNone) {
+        bool halfway = false;
+        for (int b = 0; b < p.n_bc; ++b) halfway = halfway || p.bc_kind[b] == XLB_BC_HALFWAY;
+        if (halfway) {
+          const cudaError_t e = cudaGetLastError();
+          if (e != cudaSuccess) return e;
+          adjoint_halfway_kernel<S, C, T, SHIFTED, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
+              f, g, mask, df, a.X, a.Y, a.Z, a.omega, p);
+        }
+      }
       return cudaGetLastError();
     }
   }

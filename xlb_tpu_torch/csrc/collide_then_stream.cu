@@ -89,10 +89,10 @@ __device__ __forceinline__ int slot_owner(int packed, int l, bool frozen, const 
 // The f32 value a slot's owner writes (before the shifted store).
 __device__ __forceinline__ float owner_value(int kind, int b, int l, const float fp[S::q], const float pc[S::q],
                                              const XlbStepParams& p) {
-  if (kind == kEquilibrium) return p.bc_feq[b][l];
+  if (kind == kEquilibrium) return p.bc[b].vec[l];
   if (kind == kHalfway) {
     const float refl = pc[S::opp(l)];
-    return p.bc_flag[b] ? refl + p.bc_mw[b][l] : refl;
+    return p.bc[b].flag ? refl + p.bc[b].vec[l] : refl;
   }
   return fp[l];  // kReemit
 }

@@ -25,28 +25,36 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_Q = 27
-MAX_BC = 8
+MAX_BC = 256  # the packed id field's reach (XLB_MAX_BC)
 STORE_KIND = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' store_kind codes
-# the launchers' bc_kind codes (enum in csrc/collide_stream.cuh)
+# the XlbStepParams::bc_kind codes (enum in csrc/collide_stream.cuh)
 BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4}
 # the collision codes of XlbStepParams::collision (enum in csrc/collide_stream.cuh)
 COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "PowerLawBGK": 5}
 
 
+class XlbBc(ctypes.Structure):
+    """Mirror of ``struct XlbBc`` in ``csrc/collide_stream.cuh``: the
+    constant prescription of one BC (``vec``: the equilibrium's feq, the
+    halfway moving-wall term, or the Zou-He / regularized velocity or
+    density)."""
+
+    _fields_ = [
+        ("flag", ctypes.c_int),
+        ("vec", ctypes.c_float * MAX_Q),
+    ]
+
+
 class XlbStepParams(ctypes.Structure):
-    """Mirror of ``struct XlbStepParams`` in ``csrc/collide_stream.cuh``."""
+    """Mirror of ``struct XlbStepParams`` in ``csrc/collide_stream.cuh``:
+    every field travels by value, the prescriptions of all ``MAX_BC`` BCs
+    included."""
 
     _fields_ = [
         ("w", ctypes.c_float * MAX_Q),
         ("w45", ctypes.c_float * MAX_Q),
         ("has_solids", ctypes.c_int),
         ("n_bc", ctypes.c_int),
-        ("bc_kind", ctypes.c_int * MAX_BC),
-        ("bc_id", ctypes.c_int * MAX_BC),
-        ("bc_flag", ctypes.c_int * MAX_BC),
-        ("bc_feq", (ctypes.c_float * MAX_Q) * MAX_BC),
-        ("bc_mw", (ctypes.c_float * MAX_Q) * MAX_BC),
-        ("bc_value", (ctypes.c_float * 3) * MAX_BC),
         ("q", ctypes.c_int),
         ("collision", ctypes.c_int),
         ("walled", ctypes.c_int),
@@ -56,6 +64,9 @@ class XlbStepParams(ctypes.Structure):
         ("coll_iters", ctypes.c_int),
         ("mrt_on", ctypes.c_int * 2),
         ("mrt_rate", ctypes.c_float * 2),
+        ("bc_kind", ctypes.c_int * MAX_BC),
+        ("bc_id", ctypes.c_int * MAX_BC),
+        ("bc", XlbBc * MAX_BC),
     ]
 
 
@@ -68,7 +79,8 @@ def mrt_table_header():
     P_ij fneq_j written out row by row (``ops.collision.mrt_projectors``
     rounded to float32; entries below 1e-14 in magnitude skipped and +-1
     as adds, in column order, as ``xlb_tpu``'s kernel body unrolls it),
-    with the intrinsics that nvcc never contracts into FMAs. A CPU test
+    templated on the scalar (float, or the adjoint's Dual), with the
+    arithmetic that nvcc never contracts into FMAs. A CPU test
     holds the committed file to this function."""
     import numpy as np
 
@@ -80,10 +92,13 @@ def mrt_table_header():
         "// and ghost (g = 1) groups, out[i] += coef * sum_j P_ij fneq[j], row by row,",
         "// with P rounded to float32, entries below 1e-14 in magnitude skipped and",
         "// +-1 as adds, in column order, in products and sums that nvcc never contracts",
-        "// into FMAs (the same bits in every kernel). Written by",
+        "// into FMAs (the same bits in every kernel); F is float, or the adjoint's Dual",
+        "// (mul_rn / add_rn / sub_rn of collide_stream.cuh). Written by",
         "// xlb_tpu_torch.kernels._cuda.mrt_table_header() from",
         "// xlb_tpu_torch.ops.collision.mrt_projectors; a CPU test holds this file to it.",
         "#pragma once",
+        "",
+        '#include "dual.cuh"',
         "",
         "namespace xlb {",
     ]
@@ -92,21 +107,22 @@ def mrt_table_header():
         q = vs.q
         for g in ("bulk", "ghost"):
             out.append("")
-            out.append(f"__device__ __forceinline__ void mrt_d3q{q}_{g}(const float* f, float coef, float* out) {{")
+            out.append("template <typename F>")
+            out.append(f"__device__ __forceinline__ void mrt_d3q{q}_{g}(const F* f, F coef, F* out) {{")
             for i, row in enumerate(P[g]):
                 body = []
                 for j, v in enumerate(row):
                     if abs(v) < 1e-14:
                         continue
                     if v in (1.0, -1.0):
-                        op, term = ("__fadd_rn" if v > 0 else "__fsub_rn"), f"f[{j}]"
+                        op, term = ("add_rn" if v > 0 else "sub_rn"), f"f[{j}]"
                         first = f"f[{j}]" if v > 0 else f"-f[{j}]"
                     else:
-                        op, term = "__fadd_rn", f"__fmul_rn(f[{j}], {float(np.float32(v))!r}f)"
+                        op, term = "add_rn", f"mul_rn(f[{j}], {float(np.float32(v))!r}f)"
                         first = term
-                    body.append(f"    a = {op}(a, {term});" if body else f"    float a = {first};")
+                    body.append(f"    a = {op}(a, {term});" if body else f"    F a = {first};")
                 if body:
-                    out += ["  {", *body, f"    out[{i}] = __fadd_rn(out[{i}], __fmul_rn(coef, a));", "  }"]
+                    out += ["  {", *body, f"    out[{i}] = add_rn(out[{i}], mul_rn(coef, a));", "  }"]
             out.append("}")
     out.append("")
     out.append("}  // namespace xlb")
@@ -191,12 +207,23 @@ def load_library():
     lib.xlb_collide_then_stream.argtypes = [i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                                             i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_then_stream.restype = i32
+    i64 = ctypes.c_longlong
+    lib.xlb_copy_vector.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.xlb_copy_vector.restype = i32
+    lib.xlb_copy_bulk.argtypes = [ptr, ptr, i64, i32, ptr]
+    lib.xlb_copy_bulk.restype = i32
+    lib.xlb_copy_manual_scale.argtypes = [ptr, ptr, i64, i32, i32, i32, ptr]
+    lib.xlb_copy_manual_scale.restype = i32
+    lib.xlb_copy_has_variant.argtypes = [i32, i32, i32, i32]
+    lib.xlb_copy_has_variant.restype = i32
     lib.xlb_error_string.argtypes = [i32]
     lib.xlb_error_string.restype = ctypes.c_char_p
     lib.xlb_params_size.argtypes = []
     lib.xlb_params_size.restype = i32
-    if lib.xlb_params_size() != ctypes.sizeof(XlbStepParams):
-        raise RuntimeError("XlbStepParams layout differs between csrc/collide_stream.cuh and _cuda.py")
+    lib.xlb_bc_size.argtypes = []
+    lib.xlb_bc_size.restype = i32
+    if lib.xlb_params_size() != ctypes.sizeof(XlbStepParams) or lib.xlb_bc_size() != ctypes.sizeof(XlbBc):
+        raise RuntimeError("XlbStepParams / XlbBc layout differs between csrc/collide_stream.cuh and _cuda.py")
     return lib
 
 

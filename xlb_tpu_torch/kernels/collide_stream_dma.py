@@ -72,14 +72,16 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     if ref is None or vs.d != ref().d or not np.array_equal(vs._c, ref()._c):
         raise NotImplementedError(
             f"the CUDA kernels are built for xlb_tpu's D3Q19, D3Q27 and D2Q9 direction orders, got {vs}")
-    if len(bc_specs) > _cuda.MAX_BC:
-        raise NotImplementedError(f"the CUDA kernels take at most {_cuda.MAX_BC} BCs, got {len(bc_specs)}")
     q = vs.q
     p = _cuda.XlbStepParams()
     p.w[:q] = f32_weights(vs)
     p.w45[:q] = _f32_list(4.5 * vs._w)
     p.has_solids = int(bool(has_solids))
     p.n_bc = len(bc_specs)
+    # as many BCs as the packed id field carries (kernel_bc_id checks each
+    # id; distinct ids, so at most MAX_BC), as in xlb_tpu
+    if len(bc_specs) > _cuda.MAX_BC:
+        raise ValueError(f"{len(bc_specs)} BCs exceed the packed id field's {_cuda.MAX_BC} ids")
     allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else set(_cuda.BC_KIND))
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
@@ -87,15 +89,16 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
         p.bc_kind[b] = _cuda.BC_KIND[kind]
         p.bc_id[b] = kernel_bc_id(int(spec["id"]), q)
+        bc = p.bc[b]
         if kind == "equilibrium":
-            p.bc_feq[b][:q] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
+            bc.vec[:q] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
         elif kind == "halfway" and spec["mw"] is not None:
-            p.bc_flag[b] = 1
-            p.bc_mw[b][:q] = _f32_list(spec["mw"])
+            bc.flag = 1
+            bc.vec[:q] = _f32_list(spec["mw"])
         elif kind in ("zouhe", "regularized"):
             value = _f32_list(spec["value"])
-            p.bc_flag[b] = int(spec["bc_type"] == "pressure")
-            p.bc_value[b][: len(value)] = value
+            bc.flag = int(spec["bc_type"] == "pressure")
+            bc.vec[: len(value)] = value
 
     name, _ = split_collision(collision)
     if name not in _cuda.COLLISION:

@@ -24,7 +24,7 @@ from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC, HalfwayBo
 from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
 from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
 from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC
-from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, kernel_collision_spec, packed_cell, split_collision
+from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, kernel_collision_spec, packed_cell
 from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
 from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
@@ -138,11 +138,12 @@ class _FusedSweeps:
     windows do. ``kernel="blocked"`` (3D): one block-tiled step per step,
     no temporal blocking, as ``xlb_tpu``'s blocked window.
 
-    The reverse sweep (``backward``): "adjoint" -- the adjoint kernel (3D
-    "dma", unforced D3Q19 BGK); "torch" -- the TORCH tier's VJP (the 2D
-    step, and every 3D "blocked" configuration, as ``xlb_tpu``
-    differentiates its blocked kernel through the jnp tier); None -- no
-    backward, and ``no_backward`` says why."""
+    The reverse sweep (``backward``): "adjoint" -- the adjoint kernel
+    (every 3D "dma" configuration, as ``xlb_tpu``'s fused adjoint);
+    "torch" -- the TORCH tier's VJP (the 2D step, and every 3D "blocked"
+    configuration, as ``xlb_tpu`` differentiates its blocked kernel
+    through the jnp tier); None -- no backward (the 2D window, as in
+    ``xlb_tpu``), and ``no_backward`` says why."""
 
     def __init__(self, stepper, num_steps, shifted, temporal_steps=None, kernel="dma", tile=None):
         vs = stepper.velocity_set
@@ -179,16 +180,8 @@ class _FusedSweeps:
             self.k = k = min(k, num_steps)
             self.single = CollideStreamStep(vs, shape, **cfg)
             self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
-            name, _ = split_collision(cfg["collision"])
-            if name == "BGK" and vs.q == 19 and cfg["force_vector"] is None:
-                self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
-                self.backward = "adjoint"
-            else:
-                self.backward = None
-                what = f"D3Q{vs.q} {name}" + (" with a body force" if cfg["force_vector"] is not None else "")
-                self.no_backward = (
-                    f"no fused adjoint kernel (K8) for {what}: K8 is ported for unforced D3Q19 BGK only; "
-                    "differentiate through kernel='blocked' (the TORCH tier's VJP) or ComputeBackend.TORCH")
+            self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+            self.backward = "adjoint"
         self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
@@ -259,11 +252,9 @@ def build_fused_step(stepper, kernel="dma", tile=None):
 
     The step is differentiable with respect to ``f_0`` and ``omega`` (a
     float or a 0-d tensor): its backward is the adjoint kernel
-    (``kernels/adjoint_step.py``) for "dma" with unforced D3Q19 BGK, and
-    ``torch.func.vjp`` of the TORCH-tier step for "blocked" and in 2D,
-    where the forward still runs the kernel. Any other "dma" configuration
-    raises ``NotImplementedError`` under autograd, naming the missing
-    adjoint."""
+    (``kernels/adjoint_step.py``) for "dma", and ``torch.func.vjp`` of the
+    TORCH-tier step for "blocked" and in 2D, where the forward still runs
+    the kernel."""
     sweeps = _FusedSweeps(stepper, 1, shifted=False, kernel=kernel, tile=tile)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
@@ -294,16 +285,15 @@ def build_fused_window(stepper, num_steps, temporal_steps=None, kernel="dma", ti
 
     The window is differentiable with respect to ``f_0`` and ``omega`` (a
     float or a 0-d tensor; ``float(omega)`` is read once per window). With
-    "dma" and unforced D3Q19 BGK, its backward saves only the window's
-    input, replays the forward with the single-step kernel while keeping
-    all ``num_steps`` states in the store dtype -- memory is ``num_steps``
-    x one field -- and runs the adjoint kernel in reverse. Differentiate
+    "dma", its backward saves only the window's input, replays the
+    forward with the single-step kernel while keeping all ``num_steps``
+    states in the store dtype -- memory is ``num_steps`` x one field --
+    and runs the adjoint kernel in reverse. Differentiate
     long rollouts by chaining moderate windows under
     ``torch.utils.checkpoint``. With "blocked" the backward is the TORCH
     tier's VJP over the window. The gradient of ``f_0`` comes back in
-    ``f_0``'s dtype. The 2D window has no backward, as in ``xlb_tpu``, nor
-    has "dma" with another collision, D3Q27 or a force: under autograd they
-    raise ``NotImplementedError``.
+    ``f_0``'s dtype. The 2D window has no backward, as in ``xlb_tpu``:
+    under autograd it raises ``NotImplementedError``.
 
     Returns ``run(f_0, f_1, bc_mask, missing_mask, omega) -> (f, f)``: the
     new state twice, in the compute dtype when shifted (quantizing g + w
