@@ -13,10 +13,10 @@
    has_solids) in it, then at 256^3, where it also times kernel and plain
    version (CUDA events) beside the kernel's bound. Then a 64x48x40 cavity
    of 15 BCs (ten fullway wall pieces, three equilibrium lid pieces, two
-   halfway blocks; past the 8 prescriptions the kernels take by value,
-   the rest from the device table): K1, K2 and K0 against their plain
-   versions, K0 == K1 and K2 == two K1 launches; K8 on it and on its 13
-   BCs without the blocks.
+   halfway blocks; the kernels take every BC's prescription by value in
+   their launch parameters): K1, K2 and K0 against their plain versions,
+   K0 == K1 and K2 == two K1 launches; K8 on it and on its 13 BCs without
+   the blocks.
 4. Main path through the public API: init(D3Q19, CUDA, policy) ->
    grid_factory((256,)*3, device="cuda") -> the lid-cavity BCs ->
    IncompressibleNavierStokesStepper -> prepare_fields() ->
@@ -119,10 +119,34 @@
    before and read after: every probe launched, no plain call), the plain
    versions timed, and the best sustained copy rate as the card's measured
    copy roofline.
-17. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+17. The open-boundary path (3D flows past a sphere; K1, K2 and K0 with the
+   kExtOpen epilogues: outflow and its staging, 3D Zou-He / regularized,
+   free-slip, do-nothing, the aux field of per-voxel prescriptions). K1,
+   K2 (k = 2) and K0 against their plain versions at a ragged 100x52x44,
+   f32 and bf16-shifted, on three BC sets of open_bcs: flow_past_sphere_3d.py's
+   (parabolic regularized inlet through aux, outflow, halfway walls,
+   halfway mesh sphere; D3Q19 BGK), rotating_sphere_3d.py's (equilibrium
+   inlet, outflow, fullway walls, halfway sphere with a spatial wall
+   velocity through aux; D3Q27 KBC) and a D3Q19 scene of Zou-He velocity
+   and spatial pressure faces, free-slip walls and a do-nothing piece;
+   K0 == K1 and K2 == two K1 launches bit for bit. Then the torch forms of
+   flow_past_sphere_3d.py (both inlets), windtunnel_3d.py and
+   rotating_sphere_3d.py at their defaults on the CUDA tier against the
+   TORCH tier on the card (velocity field rtol 1e-4; the Cd history 1e-3
+   relative; the Magnus asymmetry's sign and the velocity field), 10 steps
+   of stepper(...) (K1) against the TORCH tier, launch counts reset before
+   and read after each CUDA run. Then the flow past a sphere at
+   512x256x256 under FP32FP32 and FP32BF16: build_multi_step(200), one
+   warm-up window, best of 3 (MLUPS), launch counts, physics checks, and
+   K1, K2, K0 on its final state against the plain version and timed
+   beside the bound (aux bytes of the inlet included) and its share of
+   [16]'s measured copy roofline; [4]'s cavity MLUPS beside those PERF.md
+   records for the cavity's kernels before the open-boundary forms.
+18. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
    training times and each kernel's per-dtype errors and times, then the
-   kernels' JSON line (K0-K12), then the result line {"ok": true,
-   "device": {...}} last.
+   kernels' JSON line (K0-K12; K0, K1 and K2 with an "open" entry for the
+   open-boundary path), then the result line {"ok": true, "device":
+   {...}} last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -363,7 +387,8 @@ def many_bc_cavity(shape, device, halfway=True):
 
 
 def compare_many_bcs_3d(shape, device, seed):
-    """[3], the BC table beyond 8 entries: K1, K2 and K0 on the 15-BC cavity
+    """[3], more BCs than the 8 prescriptions an early layout held: K1, K2
+    and K0 on the 15-BC cavity
     against their plain versions (``held``), K0 == K1 and K2 == two K1
     launches bit for bit; K8 on it and on the 13-BC cavity without the
     halfway blocks against its plain version; f32 and bf16-shifted.
@@ -1836,6 +1861,361 @@ def probe_records(runs, counts, plain_ms, n_cmp, errs):
     return out
 
 
+# [17]: the open-boundary scenes -- (velocity set, collision) of each BC set of open_bcs
+OPEN_SCENES = {"sphere": ("D3Q19", "BGK"), "rotating": ("D3Q27", "KBC"), "zouhe": ("D3Q19", "BGK")}
+OPEN_U = 0.04
+
+
+def open_bcs(kind, grid, bnd, geo):
+    """The BCs of an open-boundary scene on ``grid``, from the BC classes
+    and geometry of a package (its ``boundary`` and ``geometry`` modules),
+    for the pair OPEN_SCENES[kind]:
+    - "sphere": flow_past_sphere_3d.py's set -- the parabolic regularized
+      inlet (a per-voxel velocity), the extrapolation outflow, halfway
+      walls, a halfway mesh-voxelized sphere;
+    - "rotating": rotating_sphere_3d.py's -- an equilibrium inlet, the
+      outflow, fullway walls, a halfway sphere turning about z (a per-voxel
+      wall velocity, profile(coords));
+    - "zouhe": a Zou-He velocity inlet and a Zou-He pressure outlet whose
+      density varies over the face (per voxel), free-slip walls on four
+      sides, half of the top a do-nothing piece."""
+    nx, ny, nz = grid.shape
+    box, box_ne = grid.bounding_box_indices(), grid.bounding_box_indices(remove_edges=True)
+    center, radius = np.array([nx / 4, ny / 2, nz / 2]), ny / 8
+
+    def faces(*names):
+        return np.unique(np.concatenate([np.asarray(box[k]) for k in names], axis=1), axis=1).tolist()
+
+    if kind == "sphere":
+        yz = (np.arange(ny) + 0.5) / ny - 0.5
+        ry, rz = np.meshgrid(2.0 * yz, 2.0 * (np.arange(nz) + 0.5) / nz - 1.0, indexing="ij")
+        inlet = np.zeros((3, 1, ny, nz))
+        inlet[0, 0] = OPEN_U * np.maximum(0.0, 1.0 - ry**2 - rz**2)
+        return [bnd.HalfwayBounceBackBC(indices=faces("bottom", "top", "front", "back")),
+                bnd.RegularizedBC("velocity", profile=lambda: inlet, indices=box_ne["left"]),
+                bnd.ExtrapolationOutflowBC(indices=box_ne["right"]),
+                bnd.HalfwayBounceBackBC(mesh_vertices=geo.sphere_triangles(center=center, radius=radius,
+                                                                           subdivisions=3))]
+    if kind == "rotating":
+        sphere = geo.solid_voxel_indices(geo.voxelize(geo.sphere_triangles(center=center, radius=radius,
+                                                                           subdivisions=3), grid.shape))
+
+        def spin(coords):  # u_wall = Omega x (x - c), Omega = 0.005 e_z
+            return np.cross(np.array([0.0, 0.0, 0.005])[None, :], (coords - center[:, None]).T).T
+
+        return [bnd.FullwayBounceBackBC(indices=faces("bottom", "top", "front", "back")),
+                bnd.EquilibriumBC(rho=1.0, u=(0.03, 0.0, 0.0), indices=box_ne["left"]),
+                bnd.ExtrapolationOutflowBC(indices=box_ne["right"]),
+                bnd.HalfwayBounceBackBC(indices=sphere.tolist(), profile=spin)]
+    ys, zs = np.meshgrid(np.arange(ny), np.arange(nz), indexing="ij")
+    rho_out = (1.0 + 0.002 * (ys / ny - 0.5) * (zs / nz))[None, None]  # (1, 1, ny, nz)
+    xs, ys_in = np.meshgrid(np.arange(nx), np.arange(1, ny - 1), indexing="ij")
+    bottom = np.stack([xs.ravel(), ys_in.ravel(), np.zeros(xs.size, int)])
+    top = np.stack([xs.ravel(), ys_in.ravel(), np.full(xs.size, nz - 1)])
+    lid = top[0] >= nx // 2
+    return [bnd.FreeSlipBC(indices=np.asarray(box["front"]).tolist(), normal=(0, -1, 0)),
+            bnd.FreeSlipBC(indices=np.asarray(box["back"]).tolist(), normal=(0, 1, 0)),
+            bnd.FreeSlipBC(indices=bottom.tolist(), normal=(0, 0, -1)),
+            bnd.FreeSlipBC(indices=top[:, ~lid].tolist(), normal=(0, 0, 1)),
+            bnd.DoNothingBC(indices=top[:, lid].tolist()),
+            bnd.ZouHeBC("velocity", prescribed_value=(OPEN_U, 0.0, 0.0), indices=box_ne["left"]),
+            bnd.ZouHeBC("pressure", profile=lambda: rho_out, indices=box_ne["right"])]
+
+
+OPEN_RAGGED = (100, 52, 44)
+OPEN_OMEGA = 1.6
+OPEN_BIG = (512, 256, 256)  # the flow past a sphere at 33.5 M voxels
+OPEN_WINDOW, OPEN_REPS = 200, 3
+OPEN_PARITY_STEPS = 10
+# [4]'s cavity MLUPS as PERF.md records them before the open-boundary kernels (NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's to show that the cavity's path did not move
+CAVITY_RECORDED_MLUPS = {"FP32BF16": 18573.4, "FP32FP32": 15813.9}
+
+
+def open_scene(kind, shape, policy, backend, device):
+    """(stepper, prepare_fields()) of an open-boundary scene of open_bcs
+    through the port's public API."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import boundary, geometry
+    from xlb_tpu_torch import velocity_set as vsets
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    vs_name, collision = OPEN_SCENES[kind]
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=getattr(vsets, vs_name)(), default_backend=backend, default_precision_policy=policy)
+    grid = xlb.grid_factory(shape, device=device)
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=open_bcs(kind, grid, boundary, geometry),
+                                                collision_type=collision)
+    return stepper, stepper.prepare_fields()
+
+
+def open_kernels(stepper, store, shifted):
+    """K1, K2 (k = 2) and K0 of an open-boundary scene, the aux field
+    (a tuple: empty when no BC reads one) and the aux bytes the kernels
+    read per step (the channels of each BC that reads them, at its voxels)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field
+
+    vs, shape = stepper.velocity_set, stepper.grid.shape
+    specs = [bc_to_spec(b, vs) for b in stepper.boundary_conditions]
+    kw = dict(collision=kernel_collision_spec(stepper), bc_specs=specs, store_dtype=store, shifted=shifted,
+              has_solids=stepper.has_solids)
+    aux = build_aux_field(stepper)
+    aux = () if aux is None else (torch.as_tensor(aux, device=stepper.grid.device),)
+    return ((CollideStreamStep(vs, shape, **kw), CollideStreamKStep(vs, shape, steps=2, **kw),
+             CollideStreamBlocked(vs, shape, **kw)), aux, specs)
+
+
+def open_aux_bytes(specs, bc_mask, d):
+    """Bytes of the aux field the kernels read in one step: at each voxel of
+    a BC with a per-voxel prescription, its channels (d velocities, or the
+    density)."""
+    from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
+
+    return sum(int((bc_mask == s["id"]).sum()) * (1 if s.get("value") == "aux_rho" else d) * 4
+               for s in specs if spec_uses_aux(s))
+
+
+def open_bound(vs, collision, f, mask, aux_bytes, shifted, steps=1):
+    """(least ms, "bytes" or "operations") of ``steps`` open-scene steps:
+    f and the mask read once, f written once, the aux bytes of the BCs that
+    read it; the operations of the collision's body (zoo_flops; the
+    epilogues at the BC voxels not counted)."""
+    t_bytes = (2 * f.numel() * f.element_size() + mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * zoo_flops(vs, collision, shifted, False) * mask.numel() / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_open(device):
+    """[17]: K1, K2 (k = 2) and K0 against their plain versions on each
+    open-boundary scene of OPEN_SCENES at the ragged OPEN_RAGGED (tile edges,
+    and the periodic wrap at the open faces), f32 and bf16-shifted, from a
+    seeded perturbed state (the scene's aux field passed to every call); K0
+    == K1 and K2 == two K1 launches bit for bit. Returns {kernel: largest
+    max |err|} and {kernel: largest tolerance share}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    errs, shares = {"K1": 0.0, "K2": 0.0, "K0": 0.0}, {"K1": 0.0, "K2": 0.0, "K0": 0.0}
+    for kind in OPEN_SCENES:
+        stepper, (_, _, bc_mask, missing_mask) = open_scene(kind, OPEN_RAGGED, xlb.PrecisionPolicy.FP32FP32,
+                                                            xlb.ComputeBackend.TORCH, device)
+        vs = stepper.velocity_set
+        mask = pack_masks(bc_mask, missing_mask)
+        gen = torch.Generator(device=device).manual_seed(17)
+        noise = torch.randn((vs.q,) + OPEN_RAGGED, generator=gen, device=device)
+        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+        for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+            f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).contiguous()
+            (one, two, blocked), aux, _ = open_kernels(stepper, store, shifted)
+            k1, k2, k0 = one(f, mask, OPEN_OMEGA, *aux), two(f, mask, OPEN_OMEGA, *aux), blocked(f, mask, OPEN_OMEGA, *aux)
+            k11 = one(k1, mask, OPEN_OMEGA, *aux)
+            p1 = one.plain(f, mask, OPEN_OMEGA, *aux)
+            p2 = one.plain(p1, mask, OPEN_OMEGA, *aux)
+            torch.cuda.synchronize()
+            label = f"{kind} {'x'.join(map(str, OPEN_RAGGED))} {'f32' if store == torch.float32 else 'bf16-shifted'}"
+            for t, what in ((k1, "K1"), (k2, "K2"), (k0, "K0")):
+                check(bool(torch.isfinite(t.float()).all()), f"{label}: non-finite {what} output")
+            found = {"K1": held(k1, p1, store), "K2": held(k2, p2, store), "K0": held(k0, p1, store)}
+            same01, same2 = torch.equal(k0, k1), torch.equal(k2, k11)
+            print(f"  {label}: " + ", ".join(f"{n} {e:.2e} ({sh:.3f} of tol)" for n, (e, sh) in found.items())
+                  + f"; K0 == K1 {same01}, K2 == 2 K1 {same2}")
+            check(max(sh for _, sh in found.values()) <= 1.0, f"{label}: a kernel disagrees with its plain version")
+            check(same01 and same2, f"{label}: K0 differs from K1, or K2 from two K1 launches")
+            for n, (e, sh) in found.items():
+                errs[n], shares[n] = max(errs[n], e), max(shares[n], sh)
+            del k1, k2, k0, k11, p1, p2, f
+        del stepper, bc_mask, missing_mask, mask, noise
+        torch.cuda.empty_cache()
+    return errs, shares
+
+
+def open_tier_parity(stepper, fields, omega, label):
+    """OPEN_PARITY_STEPS steps of stepper(...) (K1) against the TORCH tier
+    on the card from the same state (rtol 1e-4). Returns max |err|."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    f_0, f_1, bc_mask, missing_mask = fields
+    plain = IncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=stepper.boundary_conditions,
+                                              collision_type=stepper.collision_type,
+                                              compute_backend=xlb.ComputeBackend.TORCH)
+    a0, a1 = f_0.contiguous(), f_1.clone()
+    b0, b1 = f_0.clone(), f_1.clone()
+    for i in range(OPEN_PARITY_STEPS):
+        a0, a1 = stepper(a0, a1, bc_mask, missing_mask, omega, i)
+        a0, a1 = a1, a0
+        b0, b1 = plain(b0, b1, bc_mask, missing_mask, omega, i)
+        b0, b1 = b1, b0
+    err, ok = within(a0, b0, rtol=1e-4, atol=1e-6)
+    print(f"  {label}: {OPEN_PARITY_STEPS} steps of stepper(...), CUDA tier vs TORCH tier: max|err| {err:.3e} ok={ok}")
+    check(ok, f"{label}: CUDA tier disagrees with the TORCH tier")
+    return err
+
+
+def open_scripts(device):
+    """[17]: the torch forms of flow_past_sphere_3d.py (both inlets),
+    windtunnel_3d.py and rotating_sphere_3d.py at their defaults, on the
+    CUDA tier (build_multi_step windows: K2; stepper(...): K1) against the
+    TORCH tier on the card: the velocity field (rtol 1e-4, atol 1e-6), the
+    drag history (1e-3 relative), the Magnus asymmetry (the same sign) and
+    the velocity field. Each CUDA run's launch counts are reset just before
+    it and read just after. Returns (record, total launches)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.cfd import flow_past_sphere_3d, rotating_sphere_3d, windtunnel_3d
+
+    totals = {name: 0 for name in zoo_counts(reset=True)}
+    rec = {}
+
+    def cuda_run(fn):
+        zoo_counts(reset=True)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = zoo_counts()
+        check(all(p == 0 for _, p in counts.values()), "a plain version ran on a script's CUDA-tier run")
+        for k in totals:
+            totals[k] += counts[k][0]
+        return out, counts
+
+    for inlet in ("parabolic", "uniform"):
+        (u_c, counts) = cuda_run(lambda: flow_past_sphere_3d.run(inlet=inlet, backend="cuda", device=device))
+        u_t = flow_past_sphere_3d.run(inlet=inlet, backend="torch", device=device)
+        err, ok = within(torch.from_numpy(u_c), torch.from_numpy(u_t), rtol=1e-4, atol=1e-6)
+        nx, nyz = u_c.shape[1], u_c.shape[2]
+        rec[f"flow_past_sphere {inlet}"] = {"max_u": float(np.abs(u_c).max()),
+                                            "wake_ux": float(u_c[0, nx // 2, nyz // 2, nyz // 2]),
+                                            "tier_err": err, "launches": counts}
+        print(f"  flow_past_sphere_3d {inlet}: max|u| {np.abs(u_c).max():.5f}, wake u_x "
+              f"{u_c[0, nx // 2, nyz // 2, nyz // 2]:.5f}; CUDA vs TORCH tier velocity max|err| {err:.3e} ok={ok}; "
+              f"launches {counts}")
+        check(bool(np.isfinite(u_c).all()) and ok, f"flow_past_sphere_3d {inlet}: non-finite, or the tiers disagree")
+    # stepper(...) through K1 on the script's scene
+    stepper, fields, omega = flow_past_sphere_3d.build(backend="cuda", device=device)
+    (_, counts) = cuda_run(lambda: open_tier_parity(stepper, fields, omega, "flow_past_sphere_3d parabolic"))
+    check(counts["CollideStreamStep"][0] == OPEN_PARITY_STEPS, "stepper(...) did not launch K1 once per step")
+    del stepper, fields
+
+    (cd_c, counts) = cuda_run(lambda: windtunnel_3d.run(backend="cuda", device=device))
+    cd_t = windtunnel_3d.run(backend="torch", device=device)
+    rel = float(np.max(np.abs(np.subtract(cd_c, cd_t)) / np.abs(cd_t)))
+    rec["windtunnel"] = {"cd": cd_c, "cd_torch": cd_t, "cd_rel_err": rel, "launches": counts}
+    print(f"  windtunnel_3d: Cd history {[round(c, 4) for c in cd_c]}, TORCH tier {[round(c, 4) for c in cd_t]}, "
+          f"largest relative difference {rel:.3e}; launches {counts}")
+    check(bool(np.all(np.isfinite(cd_c))) and rel <= 1e-3, "windtunnel_3d: the Cd histories of the tiers differ")
+
+    ((asym_c, u_c), counts) = cuda_run(lambda: rotating_sphere_3d.run(backend="cuda", device=device,
+                                                                       return_velocity=True))
+    asym_t, u_t = rotating_sphere_3d.run(backend="torch", device=device, return_velocity=True)
+    fluid = np.isfinite(u_t).all(axis=0) & np.isfinite(u_c).all(axis=0)
+    err, ok = within(torch.from_numpy(u_c[:, fluid]), torch.from_numpy(u_t[:, fluid]), rtol=1e-4, atol=1e-6)
+    rec["rotating_sphere"] = {"asymmetry": asym_c, "asymmetry_torch": asym_t, "tier_err": err, "launches": counts}
+    print(f"  rotating_sphere_3d: Magnus asymmetry {asym_c:+.6f} (TORCH tier {asym_t:+.6f}); fluid velocity max|err| "
+          f"{err:.3e} ok={ok}; launches {counts}")
+    check(np.sign(asym_c) == np.sign(asym_t) and asym_c != 0.0 and ok, "rotating_sphere_3d: the tiers disagree")
+    torch.cuda.empty_cache()
+    for name in ("CollideStreamStep", "CollideStreamKStep"):
+        check(totals[name] > 0, f"{name} was not launched on the open-boundary scripts")
+    return rec, totals
+
+
+def open_big(device):
+    """[17]: the flow past a sphere at OPEN_BIG through the public API
+    (flow_past_sphere_3d.build), FP32FP32 and FP32BF16: build_multi_step(
+    OPEN_WINDOW), one warm-up window, best of OPEN_REPS (MLUPS), launch
+    counts around the windows (no plain call); physics checks (finite, the
+    inflow u_x at the inlet centre equals the profile, mean rho ~ 1); then
+    K1, K2 and K0 on the final state in the window's store form against
+    the plain version and timed (CUDA events) beside the bound (the aux
+    bytes of the inlet voxels included). Returns {policy: record}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.cfd.flow_past_sphere_3d import build, inlet_profile, velocity
+    from xlb_tpu_torch.examples.performance.mlups_2d import time_windows
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    nx, nyz, _ = OPEN_BIG
+    out = {}
+    for policy in (xlb.PrecisionPolicy.FP32FP32, xlb.PrecisionPolicy.FP32BF16):
+        t0 = time.perf_counter()
+        stepper, fields, omega = build(nx=nx, nyz=nyz, backend="cuda", precision=policy.name, device=device)
+        setup_s = time.perf_counter() - t0
+        run = stepper.build_multi_step(OPEN_WINDOW)
+        zoo_counts(reset=True)
+        best, (f_0, f_1) = time_windows(run, fields, omega, 1, OPEN_REPS)
+        counts = zoo_counts()
+        check(counts["CollideStreamKStep"][0] == (1 + OPEN_REPS) * OPEN_WINDOW // 2,
+              f"{policy.name}: {counts['CollideStreamKStep'][0]} K2 launches")
+        check(all(p == 0 for _, p in counts.values()), f"{policy.name}: a plain version ran in the windows")
+        mlups = float(np.prod(OPEN_BIG)) * OPEN_WINDOW / best / 1e6
+        bc_mask, missing_mask = fields[2], fields[3]
+        u = velocity(f_0)
+        rho = f_0.float().sum(dim=0)
+        fluid = bc_mask[0] == 0
+        mean_rho = float(rho[fluid].mean())
+        c = nyz // 2
+        u_in, u_prof = float(u[0, 0, c, c]), float(inlet_profile(nyz, 0.04)[0, 0, c, c])
+        print(f"  {'x'.join(map(str, OPEN_BIG))} {policy.name}: {mlups:.1f} MLUPS ({best / OPEN_WINDOW * 1e3:.4f} ms/step, "
+              f"best of {OPEN_REPS} windows of {OPEN_WINDOW}; setup {setup_s:.1f} s); launches {counts}; inflow u_x at "
+              f"the inlet centre {u_in:.6f} (profile {u_prof:.6f}), fluid mean rho {mean_rho:.6f}, max|u| "
+              f"{np.abs(u).max():.5f}")
+        check(bool(np.isfinite(u).all()), f"{policy.name}: non-finite velocity")
+        check(abs(u_in - u_prof) <= 0.02 * u_prof, f"{policy.name}: the inflow at the inlet centre is off the profile")
+        # the inlet adds mass until the flow reaches the outlet (u_in A t / V: 2.5% in the 800 steps at
+        # 512x256x256): a bound on the start-up, not on steady state
+        check(abs(mean_rho - 1.0) < 5e-2, f"{policy.name}: |mean rho - 1| >= 5e-2")
+        del u, rho, f_1, fields, run
+        torch.cuda.empty_cache()
+
+        # the kernels at this shape, on the final state in the window's store form
+        shifted = policy == xlb.PrecisionPolicy.FP32BF16
+        store = torch.bfloat16 if shifted else torch.float32
+        vs = stepper.velocity_set
+        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+        f = ((f_0.float() - w) if shifted else f_0.float()).to(store).contiguous()
+        del f_0
+        mask = pack_masks(bc_mask, missing_mask)
+        (one, two, blocked), aux, specs = open_kernels(stepper, store, shifted)
+        aux_bytes = open_aux_bytes(specs, bc_mask, vs.d)
+        rec = {"mlups": mlups, "ms_per_step": best / OPEN_WINDOW * 1e3, "launches": counts, "mean_rho": mean_rho,
+               "inflow_ux": u_in, "aux_bytes": aux_bytes}
+        with torch.no_grad():
+            p1 = one.plain(f, mask, omega, *aux)
+            k1 = one(f, mask, omega, *aux)
+            e1, s1 = held(k1, p1, store)
+            e0, s0 = held(blocked(f, mask, omega, *aux), p1, store)
+            del k1
+            p2 = one.plain(p1, mask, omega, *aux)
+            del p1
+            e2, s2 = held(two(f, mask, omega, *aux), p2, store)
+            del p2
+            torch.cuda.empty_cache()
+            check(max(s1, s2, s0) <= 1.0, f"{policy.name}: a kernel disagrees with its plain version at {OPEN_BIG}")
+            for name, kern, steps, e in (("K1", one, 1, e1), ("K2", two, 2, e2), ("K0", blocked, 1, e0)):
+                r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, *aux), 20),
+                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1)}
+                r["bound_ms"], r["bound_by"] = open_bound(vs, "BGK", f, mask, steps * aux_bytes, shifted, steps)
+                rec[name] = r
+                torch.cuda.empty_cache()
+        print("    " + "; ".join(f"{n} {rec[n]['ms']:.4f} ms (plain {rec[n]['plain_ms']:.2f}, bound {rec[n]['bound_ms']:.4f} "
+                                  f"by {rec[n]['bound_by']}, max|err| {rec[n]['max_abs_err']:.2e})" for n in ("K1", "K2", "K0")))
+        out[policy.name] = rec
+        del stepper, f, mask, aux, bc_mask, missing_mask, one, two, blocked
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_summary(report):
     """One line per kernel family and (stencil, collision) of ptxas's
     report: the register range over the store forms and variants, the
@@ -1997,6 +2377,22 @@ def main():
     n_cmp, probe_errs = compare_probes(device)
     probes, probe_counts, probe_plain_ms, roofline = probe_path(device)
 
+    print(f"[17] the open-boundary path (flows past a sphere: K1, K2, K0 with kExtOpen), {smi}")
+    t_open = time.perf_counter()
+    open_errs, open_shares = compare_open(device)
+    open_rec, open_counts = open_scripts(device)
+    open_perf = open_big(device)
+    print(f"  launches over the scripts' CUDA-tier runs: {open_counts}")
+    for rec in open_perf.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
+        for name in ("K1", "K2", "K0"):
+            rec[name]["roofline_share"] = rec[name]["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9) / rec[name]["ms"]
+    print(f"  the open kernels at {'x'.join(map(str, OPEN_BIG))} against the measured copy roofline "
+          f"({roofline['GBps']:.1f} GB/s): " + "; ".join(f"{pol} {n} {rec[n]['roofline_share']:.3f}"
+                                                     for pol, rec in open_perf.items() for n in ("K1", "K2", "K0")))
+    print("  [4]'s cavity MLUPS, this run / recorded in PERF.md: "
+          + ", ".join(f"{k} {perf[k][0]:.1f} / {v} ({perf[k][0] / v - 1:+.2%})" for k, v in CAVITY_RECORDED_MLUPS.items()))
+    print(f"  [17] in {time.perf_counter() - t_open:.1f} s")
+
     kernels = []
     for name, cls, source, rep, launches in (
         ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
@@ -2052,6 +2448,18 @@ def main():
     })
     kernels += probe_records(probes, probe_counts, probe_plain_ms, n_cmp, probe_errs)
     check(len(kernels) == 13, f"the kernels line lists {len(kernels)} kernels, not K0-K12")
+    for rec in kernels:  # the open-boundary path's K1, K2, K0: 512^2 x 256 flow past a sphere, FP32FP32's f32 form
+        short = {"collide_stream_step": "K1", "collide_stream_kstep": "K2", "collide_stream_blocked": "K0"}.get(rec["name"])
+        if short:
+            big_open = open_perf["FP32FP32"][short]
+            rec["open"] = {"launches": open_counts[{"K1": "CollideStreamStep", "K2": "CollideStreamKStep",
+                                                    "K0": "CollideStreamBlocked"}[short]],
+                           "max_abs_err": max(open_errs[short], big_open["max_abs_err"],
+                                              open_perf["FP32BF16"][short]["max_abs_err"]),
+                           "tolerance_share": open_shares[short],
+                           **{k: big_open[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")},
+                           "ms_bf16": open_perf["FP32BF16"][short]["ms"],
+                           "bound_ms_bf16": open_perf["FP32BF16"][short]["bound_ms"]}
     for rec in kernels:  # the byte bound at the measured copy roofline, and the kernel's share of it
         if rec["bound_by"] == "bytes":
             rec["roofline_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9)
@@ -2067,8 +2475,8 @@ def main():
                       "kernel_variants_zoo": big_zoo, "mlups_zoo": perf_zoo, "zoo_tier_err": parity_zoo,
                       "channel": channel, "many_bcs": many_bcs, "zoo_adjoint": zoo_adjoint, "zoo_gradients": zoo_grads,
                       "probes": probes,
-                      "copy_roofline": roofline}))
-    print(f"[17] all phases in {time.perf_counter() - t_start:.1f} s")
+                      "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf}))
+    print(f"[18] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

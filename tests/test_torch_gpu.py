@@ -625,3 +625,34 @@ def test_copy_probes_match_plain_versions(cuda_device, shape, where):
         assert type(kernel).launches == launches + 1
         assert out.data_ptr() % 16 == x.data_ptr() % 16
         assert torch.equal(out, plain(x)), type(kernel).__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sphere", "rotating", "zouhe"])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_open_kernels_match_plain_versions_on_the_card(cuda_device, kind, store):
+    """K1, K2 (k = 2) and K0 against their plain versions at 40x20x24
+    (f32: rtol 1e-5, atol 1e-6; bf16-shifted: 8 bf16 ulps, as chip_smoke's
+    ``held``), K0 == K1 and K2 == two K1 launches bit for bit."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from chip_smoke import OPEN_OMEGA, held, open_kernels
+    from chip_smoke import open_scene as port_scene
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    shape = (40, 20, 24)
+    stepper, (_, _, bc_mask, missing_mask) = port_scene(kind, shape, xlb.PrecisionPolicy.FP32FP32,
+                                                        xlb.ComputeBackend.TORCH, cuda_device)
+    dtype, shifted = getattr(torch, store), store == "bfloat16"
+    w = torch.as_tensor(stepper.velocity_set._w, dtype=torch.float32, device=cuda_device).reshape(-1, 1, 1, 1)
+    noise = torch.randn((stepper.velocity_set.q,) + shape, generator=torch.Generator(cuda_device).manual_seed(3),
+                        device=cuda_device)
+    f = ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(dtype).contiguous()
+    mask = pack_masks(bc_mask, missing_mask)
+    (one, two, blocked), aux, _ = open_kernels(stepper, dtype, shifted)
+    k1, k2, k0 = one(f, mask, OPEN_OMEGA, *aux), two(f, mask, OPEN_OMEGA, *aux), blocked(f, mask, OPEN_OMEGA, *aux)
+    p1 = one.plain(f, mask, OPEN_OMEGA, *aux)
+    for out, ref in ((k1, p1), (k0, p1), (k2, one.plain(p1, mask, OPEN_OMEGA, *aux))):
+        assert held(out, ref, dtype)[1] <= 1.0
+    assert torch.equal(k0, k1) and torch.equal(k2, one(k1, mask, OPEN_OMEGA, *aux))

@@ -7,8 +7,11 @@ non-equilibrium bounce-back:
 
     f_missing = f[opp] + feq - feq[opp]
 
-Only constant prescriptions are ported: a prescription that varies in
-space needs the fused kernels' per-voxel aux channels, which are not.
+The prescription is a constant (a d-vector velocity or a density), or
+an array from a zero-argument ``profile()`` that varies in space:
+(k, *slab) values broadcast over the domain (``_broadcast_prescribed``),
+e.g. the parabolic inlet (3, 1, ny, nz) of ``flow_past_sphere_3d.py``.
+The fused kernels read a spatial prescription from the aux field.
 """
 
 import numpy as np
@@ -19,24 +22,34 @@ from xlb_tpu_torch.boundary.bc_bounce_back import takes_coordinates
 from xlb_tpu_torch.ops.equilibrium import quadratic_equilibrium
 from xlb_tpu_torch.ops.stencil_math import stencil_contract
 
-SPATIAL = (
-    "a prescription that varies in space needs the per-voxel aux channels, which are not ported yet "
-    "(the aux-channel slice); give a constant prescribed_value"
-)
+
+def _broadcast_prescribed(values, target_shape):
+    """Broadcast (k,) / (k, 1) / (k, *spatial-slab) prescribed values
+    toward ``target_shape`` by inserting singleton dims after the leading
+    axis (the port's copy of ``xlb_tpu.boundary.bc_zouhe``'s helper)."""
+    values = np.asarray(values)
+    if values.ndim == 0:
+        values = values.reshape((1,) * len(target_shape))
+    elif values.ndim < len(target_shape):
+        missing = len(target_shape) - values.ndim
+        values = values.reshape((values.shape[0],) + (1,) * missing + values.shape[1:])
+    return values
 
 
 class ZouHeBC(BoundaryCondition):
     def __init__(self, bc_type, profile=None, prescribed_value=None, velocity_set=None, precision_policy=None,
-                 compute_backend=None, indices=None):
+                 compute_backend=None, indices=None, mesh_vertices=None, voxelization_method=None):
         if bc_type not in ("velocity", "pressure"):
             raise ValueError(f"bc_type must be 'velocity' or 'pressure', got {bc_type!r}")
         self.bc_type = bc_type
-        super().__init__(ImplementationStep.STREAMING, velocity_set, precision_policy, compute_backend, indices)
+        super().__init__(ImplementationStep.STREAMING, velocity_set, precision_policy, compute_backend, indices,
+                         mesh_vertices, voxelization_method)
         self.needs_padding = True
         if profile is not None and prescribed_value is not None:
             raise ValueError("specify either profile or prescribed_value, not both")
         if profile is not None and takes_coordinates(profile):
-            raise NotImplementedError(SPATIAL)
+            raise ValueError(f"{type(self).__name__} takes a zero-argument profile() returning the prescribed values "
+                             "(a constant, or an array that broadcasts over the domain), as xlb_tpu")
         self.profile = profile
         if prescribed_value is not None:
             if bc_type == "velocity":
@@ -49,8 +62,12 @@ class ZouHeBC(BoundaryCondition):
         if self.profile is None:
             raise ValueError(f"{type(self).__name__} requires a prescribed_value or a profile")
         self.prescribed_values = np.asarray(self.profile())
-        if self.prescribed_values.size != (self.velocity_set.d if bc_type == "velocity" else 1):
-            raise NotImplementedError(SPATIAL)
+
+    @property
+    def spatial(self):
+        """True when the prescription varies in space (read from the aux
+        field by the fused kernels)."""
+        return self.prescribed_values.size != (self.velocity_set.d if self.bc_type == "velocity" else 1)
 
     # -- geometric helpers --------------------------------------------------
     def _known_middle_masks(self, missing_mask):
@@ -70,18 +87,25 @@ class ZouHeBC(BoundaryCondition):
         known, middle = self._known_middle_masks(missing_mask)
         fsum = torch.sum(fpop * middle, dim=0, keepdim=True) + 2.0 * torch.sum(fpop * known, dim=0, keepdim=True)
         d = self.velocity_set.d
-        spatial = (1,) * (fpop.ndim - 1)
         if self.bc_type == "velocity":
-            vel = torch.as_tensor(self.prescribed_values.reshape((d,) + spatial), device=fpop.device).to(fpop.dtype)
+            vel = self._prescribed(d, fpop)
             unormal = torch.sum(normals * vel, dim=0, keepdim=True)
             rho = fsum / (1.0 + unormal)
             vel = vel + torch.zeros_like(fsum)
         else:
-            rho = torch.as_tensor(self.prescribed_values.reshape((1,) + spatial), device=fpop.device).to(fpop.dtype)
+            rho = self._prescribed(1, fpop)
             unormal = -1.0 + fsum / rho
             vel = unormal * normals
             rho = rho + torch.zeros_like(fsum)
         return rho, vel
+
+    def _prescribed(self, k, fpop):
+        """The prescription as a (k, ...) tensor that broadcasts against
+        the (q, *s) populations ``fpop``, rounded once to their dtype."""
+        values = _broadcast_prescribed(self.prescribed_values, (k,) + tuple(fpop.shape[1:]))
+        if values.size == k:
+            values = values.reshape((k,) + (1,) * (fpop.ndim - 1))
+        return torch.as_tensor(np.ascontiguousarray(values), device=fpop.device).to(fpop.dtype)
 
     def calculate_equilibrium(self, f_post, missing_mask):
         rho, vel = self._closure_rho_u(f_post, missing_mask)

@@ -65,27 +65,29 @@ cudaError_t dispatch(const XlbLaunch& a) {
 
 extern "C" {
 
-// store_kind: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of the launch.
+// store_kind: 0 = float32, 1 = bfloat16; aux: the (nchan, X, Y, Z) float32
+// aux field of the BCs' per-voxel prescriptions, or null. Each returns the
+// cudaError_t of the launch.
 int xlb_collide_stream_step(int store_kind, int shifted, const void* f, const void* mask, void* out, int X, int Y,
-                            int Z, float omega, const XlbStepParams* params, void* stream) {
+                            int Z, float omega, const void* aux, const XlbStepParams* params, void* stream) {
   const xlb::XlbLaunch a{xlb::XLB_KERNEL_STEP, store_kind, shifted, f, mask, out, X, Y, Z, 0, 0, 0, 0, omega, params,
-                         static_cast<cudaStream_t>(stream)};
+                         static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux)};
   return xlb::dispatch(a);
 }
 
 int xlb_collide_stream_kstep(int store_kind, int shifted, int steps, const void* f, const void* mask, void* out,
-                             int X, int Y, int Z, int TX, int TY, int TZ, float omega, const XlbStepParams* params,
-                             void* stream) {
+                             int X, int Y, int Z, int TX, int TY, int TZ, float omega, const void* aux,
+                             const XlbStepParams* params, void* stream) {
   const xlb::XlbLaunch a{xlb::XLB_KERNEL_KSTEP, store_kind, shifted, f, mask, out, X, Y, Z, TX, TY, TZ, steps, omega,
-                         params, static_cast<cudaStream_t>(stream)};
+                         params, static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux)};
   return xlb::dispatch(a);
 }
 
 int xlb_collide_stream_blocked(int store_kind, int shifted, const void* f, const void* mask, void* out, int X, int Y,
-                               int Z, int TX, int TY, int TZ, float omega, const XlbStepParams* params,
-                               void* stream) {
+                               int Z, int TX, int TY, int TZ, float omega, const void* aux,
+                               const XlbStepParams* params, void* stream) {
   const xlb::XlbLaunch a{xlb::XLB_KERNEL_BLOCKED, store_kind, shifted, f, mask, out, X, Y, Z, TX, TY, TZ, 0, omega,
-                         params, static_cast<cudaStream_t>(stream)};
+                         params, static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux)};
   return xlb::dispatch(a);
 }
 
@@ -101,9 +103,11 @@ int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const
 }
 
 // 1 when the library holds the kernel of this configuration (kernel:
-// 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint).
+// 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint; walled: 0, 1, or 2 for
+// the open-boundary epilogues).
 int xlb_has_instantiation(int kernel, int q, int collision, int walled, int store_kind, int shifted) {
-  return xlb::has_pair(q, collision) && xlb::has_form(kernel, walled, store_kind, shifted);
+  return xlb::has_pair(q, collision) && xlb::has_form(kernel, walled, store_kind, shifted) &&
+         (walled != 2 || xlb::has_open(q, collision));
 }
 
 const char* xlb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -13,12 +13,23 @@
 //   -> streaming-step epilogues: "equilibrium" (f_s := feq constant) and,
 //      when the kernel is built with EXT, "halfway" (missing l reflects
 //      the centred opp(l), plus a constant moving-wall term) and, with
-//      EXT == kExtAll only, "zouhe" and "regularized" (constant velocity
-//      or density)
+//      EXT == kExtAll (the 2D kernels) or kExtOpen, "zouhe" and
+//      "regularized" (constant velocity or density); with kExtOpen (the
+//      3D open-boundary scenes) also per-voxel velocities and densities
+//      from the aux field (zouhe, regularized, halfway's moving wall),
+//      "do_nothing" (f_s := the centred populations), "free_slip" (missing
+//      l takes the centred mirror of l across the wall) and
+//      "extrapolation_outflow" (missing l takes the centred opp(l): the
+//      value the previous step staged there)
 //   -> moments, pair-shared quadratic equilibrium, the collision
 //   -> with FORCE, the exact-difference body force
 //      f += feq(rho, u + F) - feq(rho, u) with the pre-collision rho, u
 //   -> collision-step "fullway" epilogue (f_out[l] := f_s[opp[l]])
+//   -> with kExtOpen, the outflow's staging: each missing m of an outflow
+//      voxel x stages cs f_s[m](x - n) + (1 - cs) f_s[m](x) in the
+//      outgoing slot opp(m), for the next step's epilogue to pick up; the
+//      only read of the body that is not voxel-local (staged(m, t): the
+//      pre-streaming m at x - t, t = n + c_m tangential, |t_a| <= 1)
 //   -> solid keep-out (cell type 255 keeps its pre-streaming populations)
 //   -> shifted store (- w_l, f32)
 //
@@ -30,6 +41,8 @@
 // projector tables without their zero entries, KBC with one IEEE
 // reciprocal per opposite pair. EXT and FORCE are compile-time switches,
 // so the instantiations that run no such BC or force compile without them.
+// The open epilogues read the aux field through aux(channel), at the
+// voxels of their BC alone, so the other voxels pay no bytes for it.
 //
 // The arithmetic follows the Python body term by term (same summation
 // order, same pair-shared equilibrium), so the kernels agree with the plain
@@ -52,7 +65,15 @@ enum : int {
   XLB_BC_HALFWAY = 2,
   XLB_BC_ZOUHE = 3,
   XLB_BC_REGULARIZED = 4,
+  XLB_BC_DO_NOTHING = 5,
+  XLB_BC_FREE_SLIP = 6,
+  XLB_BC_OUTFLOW = 7,  // extrapolation outflow
 };
+
+// XlbBc::flag of the kExtOpen epilogues: bit 0 a pressure (density) BC,
+// bit 1 a per-voxel prescription, read from the aux field's channels from
+// flag >> XLB_FLAG_AUX_SHIFT on (the velocity's first, or the density).
+enum : int { XLB_FLAG_PRESSURE = 1, XLB_FLAG_AUX = 2, XLB_FLAG_AUX_SHIFT = 8 };
 
 enum : int {
   XLB_COLL_BGK = 0,
@@ -70,9 +91,10 @@ enum : int {
 // The constant prescription of one BC. The kernels read it only at voxels
 // of the BC.
 struct XlbBc {
-  int flag;               // halfway: 1 = moving wall; zouhe / regularized: 1 = pressure
-  float vec[XLB_MAX_Q];   // equilibrium: the prescribed feq; halfway: 6 w_l (c_l . u_wall);
-                          // zouhe / regularized: the velocity, or the density in [0]
+  int flag;               // halfway: 1 = moving wall, XLB_FLAG_AUX: per voxel; zouhe / regularized: XLB_FLAG_*
+  float vec[XLB_MAX_Q];   // equilibrium: the prescribed feq; halfway: 6 w_l (c_l . u_wall), or 6 w_l when
+                          // per voxel; zouhe / regularized: the velocity, or the density in [0]; free_slip and
+                          // extrapolation_outflow: the outward normal in [0..2], the outflow's cs in [3]
 };
 
 // Launch parameters: the f32 weights, the BCs' kinds, ids and
@@ -90,7 +112,7 @@ struct XlbStepParams {
   // read by the kernels of the 3D collision zoo (collide_stream_3d.cuh)
   int q;            // the stencil of the launch: 9, 19 or 27
   int collision;    // XLB_COLL_*
-  int walled;       // 1: the instantiation with the halfway epilogue and the force term
+  int walled;       // 1: the instantiation with the halfway epilogue and the force term; 2: kExtOpen
   int has_force;
   float force[3];   // the body force F (exact difference)
   float coll[3];    // TRT: [0] the magic Lambda; Smagorinsky: [0] 36 Cs^2;
@@ -340,6 +362,43 @@ __device__ __forceinline__ void moments_equilibrium(const F fs[S::q], const XlbS
 
 __device__ __forceinline__ bool missing_bit(int packed, int l) { return (packed >> l) & 1; }
 
+// The EXT switch: which streaming-step epilogues besides "equilibrium" an
+// instantiation compiles. kExtAll (= true) is the 2D kernels' set; the 3D
+// kernels of the collision zoo take halfway alone, and their kExtOpen
+// instantiations (D3Q19 BGK, D3Q27 KBC) every epilogue of the open
+// boundaries.
+enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2, kExtOpen = 3 };
+
+// No aux field and no staging (the kernels that read neither).
+struct NoAux {
+  __device__ __forceinline__ float operator()(int) const { return 0.0f; }
+};
+struct NoStaged {
+  __device__ __forceinline__ float operator()(int, int, int, int) const { return 0.0f; }
+};
+
+// The direction of S with the components (cx, cy, cz), or -1; the mirror
+// of direction l across the plane normal to axis a.
+template <class S>
+__host__ __device__ constexpr int find_dir(int cx, int cy, int cz) {
+  for (int l = 0; l < S::q; ++l)
+    if (S::c(0, l) == cx && S::c(1, l) == cy && S::c(2, l) == cz) return l;
+  return -1;
+}
+template <class S>
+__host__ __device__ constexpr int mirror_dir(int a, int l) {
+  return find_dir<S>(a == 0 ? -S::c(0, l) : S::c(0, l), a == 1 ? -S::c(1, l) : S::c(1, l),
+                     a == 2 ? -S::c(2, l) : S::c(2, l));
+}
+
+// The centred (pre-streaming) population l, unshifted.
+template <bool SHIFTED, typename Center>
+__device__ __forceinline__ float centred(const Center& center, const XlbStepParams& p, int l) {
+  float v = center(l);
+  if constexpr (SHIFTED) v += p.w[l];
+  return v;
+}
+
 // "halfway" bounce-back of BC b: each missing direction l takes the centred
 // (pre-streaming) population opp(l), plus the constant moving-wall term.
 template <class S, bool SHIFTED, typename Center>
@@ -356,13 +415,80 @@ __device__ __forceinline__ void halfway_epilogue(const Center& center, int packe
   }
 }
 
-// "zouhe" / "regularized" closure of BC b with a constant velocity or
-// density (xlb_tpu's _zouhe_epilogue): the Zou-He mass balance gives rho
-// (velocity) or the normal velocity (pressure); missing directions take
-// the non-equilibrium bounce-back f_opp + feq_l - feq_opp; "regularized"
-// then rebuilds every population as feq + 4.5 w_l Q_l : Pi_neq.
-template <class S>
-__device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& p, int b, float fs[S::q]) {
+// The kExtOpen "halfway" of BC b: as halfway_epilogue, with XLB_FLAG_AUX
+// the moving-wall term 6 w_l (c_l . u_wall) of the voxel's wall velocity
+// in the aux field (vec holds 6 w_l).
+template <class S, bool SHIFTED, typename Center, typename Aux>
+__device__ __forceinline__ void open_halfway_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
+                                                      float fs[S::q], const Aux& aux) {
+  const int flag = p.bc[b].flag;
+  const int u_off = flag >> XLB_FLAG_AUX_SHIFT;
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    if (!missing_bit(packed, l)) continue;
+    float refl = centred<SHIFTED>(center, p, S::opp(l));
+    if (flag & XLB_FLAG_AUX) {
+      float cu = 0.0f;
+      bool have = false;
+#pragma unroll
+      for (int a = 0; a < S::d; ++a) {
+        const int ca = S::c(a, l);
+        if (ca == 0) continue;
+        const float u = aux(u_off + a);
+        const float t = ca == 1 ? u : -u;
+        cu = have ? __fadd_rn(cu, t) : t;
+        have = true;
+      }
+      if (have) refl = __fadd_rn(refl, __fmul_rn(p.bc[b].vec[l], cu));
+    } else if (flag) {
+      refl = __fadd_rn(refl, p.bc[b].vec[l]);
+    }
+    fs[l] = refl;
+  }
+}
+
+// The kExtOpen Zou-He prescription of BC b: the velocity, or the density
+// (XLB_FLAG_PRESSURE), constant or with XLB_FLAG_AUX the voxel's in the aux
+// field, closed by the mass balance fsum; a per-voxel velocity's every
+// component adds its normal term, as xlb_tpu's body.
+template <class S, typename Aux>
+__device__ __forceinline__ void open_prescription(const XlbStepParams& p, int b, float fsum, const float normal[S::d],
+                                                  const Aux& aux, float& rho, float u[S::d]) {
+  const int flag = p.bc[b].flag;
+  const int ch = flag >> XLB_FLAG_AUX_SHIFT;
+  if (!(flag & XLB_FLAG_PRESSURE)) {  // velocity
+    const bool spatial = flag & XLB_FLAG_AUX;
+    float unormal = 0.0f;
+    bool have = false;
+#pragma unroll
+    for (int a = 0; a < S::d; ++a) {
+      const float v = spatial ? aux(ch + a) : p.bc[b].vec[a];
+      u[a] = v;
+      if (!spatial && v == 0.0f) continue;  // a constant's zero components add no term
+      const float t = __fmul_rn(normal[a], v);
+      unormal = have ? __fadd_rn(unormal, t) : t;
+      have = true;
+    }
+    rho = fsum / (1.0f + unormal);
+  } else {  // pressure
+    rho = (flag & XLB_FLAG_AUX) ? aux(ch) : p.bc[b].vec[0];
+    const float unormal = -1.0f + fsum / rho;
+#pragma unroll
+    for (int a = 0; a < S::d; ++a) u[a] = __fmul_rn(unormal, normal[a]);
+  }
+}
+
+// "zouhe" / "regularized" closure of BC b (xlb_tpu's _zouhe_epilogue): the
+// Zou-He mass balance gives rho (velocity) or the normal velocity
+// (pressure) from the constant prescription -- with OPEN (the 3D kernels'
+// kExtOpen) also from the voxel's velocity or density in the aux field,
+// and in intrinsics nvcc never contracts (open_prescription) --; missing
+// directions take the non-equilibrium bounce-back f_opp + feq_l - feq_opp;
+// "regularized" then rebuilds every population as feq + 4.5 w_l Q_l :
+// Pi_neq.
+template <class S, bool OPEN = false, typename Aux = NoAux>
+__device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& p, int b, float fs[S::q],
+                                               const Aux& aux = Aux{}) {
   constexpr int q = S::q, d = S::d, nt = n_moments<S>();
   float miss[q];
 #pragma unroll
@@ -373,8 +499,13 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   for (int l = 0; l < q; ++l) {
     const float known = miss[S::opp(l)];
     const float middle = 1.0f - fmaxf(miss[l], known);
-    const float term = fs[l] * middle + 2.0f * fs[l] * known;
-    fsum = l == 0 ? term : fsum + term;
+    if constexpr (OPEN) {
+      const float term = __fadd_rn(__fmul_rn(fs[l], middle), __fmul_rn(2.0f * fs[l], known));
+      fsum = l == 0 ? term : __fadd_rn(fsum, term);
+    } else {
+      const float term = fs[l] * middle + 2.0f * fs[l] * known;
+      fsum = l == 0 ? term : fsum + term;
+    }
   }
 
   // inward normal from the missing main directions
@@ -394,7 +525,9 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   }
 
   float rho, u[d];
-  if (p.bc[b].flag == 0) {  // velocity
+  if constexpr (OPEN) {
+    open_prescription<S>(p, b, fsum, normal, aux, rho, u);
+  } else if (p.bc[b].flag == 0) {  // velocity
     float unormal = 0.0f;
     bool have = false;
 #pragma unroll
@@ -415,7 +548,8 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   }
 
   float feq[q], fbd[q];
-  equilibrium<S>(rho, u, p, feq);
+  if constexpr (OPEN) equilibrium_rn<S>(rho, u, p, feq);
+  else equilibrium<S>(rho, u, p, feq);
 #pragma unroll
   for (int l = 0; l < q; ++l) {
     const int o = S::opp(l);
@@ -446,28 +580,71 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
 #pragma unroll
       for (int t = 0; t < nt; ++t) {
         if (qi<S>(l, t) == 0.0f) continue;
-        const float term = pi[t] * qi<S>(l, t);
-        qipi = have ? qipi + term : term;
+        if constexpr (OPEN) {
+          const float term = __fmul_rn(pi[t], qi<S>(l, t));
+          qipi = have ? __fadd_rn(qipi, term) : term;
+        } else {
+          const float term = pi[t] * qi<S>(l, t);
+          qipi = have ? qipi + term : term;
+        }
         have = true;
       }
-      fbd[l] = feq[l] + p.w45[l] * qipi;
+      if constexpr (OPEN) fbd[l] = __fadd_rn(feq[l], __fmul_rn(p.w45[l], qipi));
+      else fbd[l] = feq[l] + p.w45[l] * qipi;
     }
   }
 #pragma unroll
   for (int l = 0; l < q; ++l) fs[l] = fbd[l];
 }
 
-// The EXT switch: which streaming-step epilogues besides "equilibrium" an
-// instantiation compiles. kExtAll (= true) is the 2D kernels' set; the 3D
-// kernels of the collision zoo take halfway alone.
-enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2 };
+// "free_slip" of BC b (specular reflection): a missing direction l that
+// crosses the wall (c_l along the normal axis == -sign(n)) takes the
+// centred population of its mirror across the wall; the other missing
+// directions (periodic wraps at corners) keep their pulled values.
+template <class S, bool SHIFTED, typename Center>
+__device__ __forceinline__ void free_slip_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
+                                                   float fs[S::q]) {
+  const int n0 = int(p.bc[b].vec[0]), n1 = int(p.bc[b].vec[1]), n2 = int(p.bc[b].vec[2]);
+  const int axis = n0 != 0 ? 0 : (n1 != 0 ? 1 : 2);
+  const int sign = n0 + n1 + n2;  // axis-aligned: the one nonzero component
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    if (!missing_bit(packed, l)) continue;
+    const int cl = axis == 0 ? S::c(0, l) : (axis == 1 ? S::c(1, l) : S::c(2, l));
+    if (cl != -sign) continue;
+    const int m = axis == 0 ? mirror_dir<S>(0, l) : (axis == 1 ? mirror_dir<S>(1, l) : mirror_dir<S>(2, l));
+    fs[l] = centred<SHIFTED>(center, p, m);
+  }
+}
+
+// The kExtOpen streaming-step epilogues of BC b at one of its voxels.
+template <class S, bool SHIFTED, typename Center, typename Aux>
+__device__ __forceinline__ void open_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
+                                              float fs[S::q], const Aux& aux) {
+  const int kind = p.bc_kind[b];
+  if (kind == XLB_BC_HALFWAY) {
+    open_halfway_epilogue<S, SHIFTED>(center, packed, p, b, fs, aux);
+  } else if (kind == XLB_BC_ZOUHE || kind == XLB_BC_REGULARIZED) {
+    zouhe_epilogue<S, true>(packed, p, b, fs, aux);
+  } else if (kind == XLB_BC_DO_NOTHING) {
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) fs[l] = centred<SHIFTED>(center, p, l);
+  } else if (kind == XLB_BC_FREE_SLIP) {
+    free_slip_epilogue<S, SHIFTED>(center, packed, p, b, fs);
+  } else if (kind == XLB_BC_OUTFLOW) {
+    // the values the previous step staged in the outgoing slots
+#pragma unroll
+    for (int l = 0; l < S::q; ++l)
+      if (missing_bit(packed, l)) fs[l] = centred<SHIFTED>(center, p, S::opp(l));
+  }
+}
 
 // The post-streaming populations of one voxel: the q pulls (store form,
 // as f32), the shifted load (+ w_l) and the streaming-step epilogues.
 // Returns whether an "equilibrium" BC replaced them by its constants.
-template <class S, bool SHIFTED, int EXT, typename Pull, typename Center>
+template <class S, bool SHIFTED, int EXT, typename Pull, typename Center, typename Aux = NoAux>
 __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Center& center, int packed,
-                                                     const XlbStepParams& p, float fs[S::q]) {
+                                                     const XlbStepParams& p, float fs[S::q], const Aux& aux = Aux{}) {
   const int bc = cell_type<S>(packed);
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
@@ -481,7 +658,7 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
       for (int l = 0; l < S::q; ++l) fs[l] = p.bc[b].vec[l];
       fixed = true;
     }
-    if constexpr (EXT != kExtNone) {
+    if constexpr (EXT == kExtHalfway || EXT == kExtAll) {
       if (bc == p.bc_id[b]) {
         if (p.bc_kind[b] == XLB_BC_HALFWAY) halfway_epilogue<S, SHIFTED>(center, packed, p, b, fs);
         if constexpr (EXT == kExtAll) {
@@ -489,8 +666,34 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
         }
       }
     }
+    if constexpr (EXT == kExtOpen) {
+      if (bc == p.bc_id[b]) open_epilogue<S, SHIFTED>(center, packed, p, b, fs, aux);
+    }
   }
   return fixed;
+}
+
+// The outflow's post-collision staging at an "extrapolation_outflow" voxel
+// of BC b (xlb_tpu's staging epilogue): for each missing m, the outgoing
+// slot l = opp(m) takes cs f_s[m](x - n) + (1 - cs) f_s[m](x). The
+// neighbour term is the pre-streaming m at x - t, t = n + c_m, which is
+// tangential (|t_a| <= 1) wherever m is missing at the face:
+// staged(m, tx, ty, tz) reads it, in store form.
+template <class S, bool SHIFTED, typename Staged>
+__device__ __forceinline__ void outflow_staging(const Staged& staged, int packed, const XlbStepParams& p, int b,
+                                                const float fs[S::q], float out[S::q]) {
+  const int n0 = int(p.bc[b].vec[0]), n1 = int(p.bc[b].vec[1]), n2 = int(p.bc[b].vec[2]);
+  const float cs = p.bc[b].vec[3], cs1 = 1.0f - cs;
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    const int m = S::opp(l);
+    if (!missing_bit(packed, m)) continue;
+    const int tx = n0 + S::c(0, m), ty = n1 + S::c(1, m), tz = n2 + S::c(2, m);
+    if (tx < -1 || tx > 1 || ty < -1 || ty > 1 || tz < -1 || tz > 1) continue;  // never a staged slot
+    float nb = staged(m, tx, ty, tz);
+    if constexpr (SHIFTED) nb += p.w[m];
+    out[l] = __fadd_rn(__fmul_rn(cs, nb), __fmul_rn(cs1, fs[m]));
+  }
 }
 
 // Whether voxel cell type bc is a solid that keeps its populations.
@@ -751,17 +954,21 @@ __device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const
 }
 
 // One voxel of one step. pull(l) returns the raw (store-form, as f32)
-// population l pulled from x - c_l; center(l) the raw population l at x.
-// Writes the post-collision populations in store form (shifted back when
-// SHIFTED), still in f32, to out. C is the collision; FORCE compiles the
-// exact-difference body force (applied when p.has_force).
-template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, typename Pull, typename Center>
+// population l pulled from x - c_l; center(l) the raw population l at x;
+// with kExtOpen, aux(channel) the voxel's aux field entry and
+// staged(m, tx, ty, tz) the raw population m at x - t (the outflow's
+// staging). Writes the post-collision populations in store form (shifted
+// back when SHIFTED), still in f32, to out. C is the collision; FORCE
+// compiles the exact-difference body force (applied when p.has_force).
+template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, typename Pull, typename Center,
+          typename Aux = NoAux, typename Staged = NoStaged>
 __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& center, int packed, float omega,
-                                              const XlbStepParams& p, float out[S::q]) {
+                                              const XlbStepParams& p, float out[S::q], const Aux& aux = Aux{},
+                                              const Staged& staged = Staged{}) {
   const int bc = cell_type<S>(packed);
 
   float fs[S::q];
-  streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
+  streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux);
 
   collide_physics<S, C, FORCE>(fs, omega, p, out);
 
@@ -769,6 +976,11 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
   if (is_fullway(bc, p)) {
 #pragma unroll
     for (int l = 0; l < S::q; ++l) out[l] = fs[S::opp(l)];
+  }
+
+  if constexpr (EXT == kExtOpen) {
+    for (int b = 0; b < p.n_bc; ++b)
+      if (p.bc_kind[b] == XLB_BC_OUTFLOW && bc == p.bc_id[b]) outflow_staging<S, SHIFTED>(staged, packed, p, b, fs, out);
   }
 
   // solid keep-out

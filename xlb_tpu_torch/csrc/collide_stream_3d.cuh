@@ -1,7 +1,9 @@
 // The fused 3D collide-stream kernels for Hopper (sm_90a), as templates
 // over the stencil S (D3Q19, D3Q27), the collision C, the store dtype T,
-// shifted storage, the EXT switch (kExtNone, or kExtHalfway: the halfway
-// epilogue) and FORCE (the exact-difference body force). Instantiated per
+// shifted storage, the EXT switch (kExtNone; kExtHalfway: the halfway
+// epilogue; kExtOpen: every epilogue of the open-boundary scenes, with the
+// aux field and the outflow's staging) and FORCE (the exact-difference
+// body force). Instantiated per
 // (stencil, collision) pair by XLB_INSTANTIATE_PAIR in the collide_stream*.cu
 // sources, one pair per source so that the build compiles them in
 // parallel; the C launchers of collide_stream.cu dispatch to them.
@@ -39,6 +41,15 @@
 // shared memory; the wrapper sizes the tile so that two 256-thread blocks
 // fit on an SM (D3Q19 bf16 4x8x32 at k=2: 78 KB; f32 4x4x32: 93 KB).
 //
+// With kExtOpen a kernel also takes the aux field (nchan, X, Y, Z) f32 of
+// the BCs' per-voxel prescriptions, read only at the voxels of those BCs,
+// and the outflow's staging reads one more population per staged slot at
+// x - t (|t_a| <= 1): step_kernel from device memory, kstep_kernel's first
+// sweep too and its later sweeps from the previous sweep in shared memory
+// (region-local index + 1 - t; the source region's depth h + 1 covers it),
+// blocked_kernel from device memory (its staged boxes hold only the pull
+// sources). So K2 still equals k K1 launches, and K0 K1, bit for bit.
+//
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
 // the family, adjoint_kernel (K8, adjoint_step.cuh) the fourth.
 #pragma once
@@ -74,7 +85,7 @@ __host__ __device__ inline size_t kstep_smem_bytes(int k, int tx, int ty, int tz
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kStepThreads)
     step_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
-                float omega, const __grid_constant__ XlbStepParams p) {
+                float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
   const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
@@ -93,7 +104,15 @@ __global__ void __launch_bounds__(kStepThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[S::q];
-  collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o);
+  if constexpr (EXT == kExtOpen) {
+    auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
+    auto staged = [&](int m, int tx, int ty, int tz) {
+      return to_f32(f[m * plane + (size_t(wrap1(x - tx, X)) * Y + wrap1(y - ty, Y)) * Z + wrap1(z - tz, Z)]);
+    };
+    collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o, aux_at, staged);
+  } else {
+    collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o);
+  }
 #pragma unroll
   for (int l = 0; l < S::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
 }
@@ -101,7 +120,8 @@ __global__ void __launch_bounds__(kStepThreads)
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kKstepThreads)
     kstep_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
-                 int TX, int TY, int TZ, int K, float omega, const __grid_constant__ XlbStepParams p) {
+                 int TX, int TY, int TZ, int K, float omega, const __grid_constant__ XlbStepParams p,
+                 const float* __restrict__ aux) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t plane = size_t(X) * Y * Z;
   const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
@@ -123,6 +143,7 @@ __global__ void __launch_bounds__(kKstepThreads)
       const int gx = wrapmod(x0 - h + ix, X), gy = wrapmod(y0 - h + iy, Y), gz = wrapmod(z0 - h + iz, Z);
       const size_t g = (size_t(gx) * Y + gy) * Z + gz;
       const int packed = mask[g];
+      auto aux_at = [&](int ch) { return aux[ch * plane + g]; };  // read by kExtOpen only
 
       float o[S::q];
       if (s == 1) {
@@ -134,7 +155,14 @@ __global__ void __launch_bounds__(kKstepThreads)
           return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
         };
         auto center = [&](int l) { return to_f32(f[l * plane + g]); };
-        collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
+        if constexpr (EXT == kExtOpen) {
+          auto staged = [&](int m, int tx, int ty, int tz) {
+            return to_f32(f[m * plane + (size_t(wrap1(gx - tx, X)) * Y + wrap1(gy - ty, Y)) * Z + wrap1(gz - tz, Z)]);
+          };
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o, aux_at, staged);
+        } else {
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
+        }
       } else {
         // region-local index in the source: dst index + 1 - c_l
         auto pull = [&](int l) {
@@ -142,7 +170,14 @@ __global__ void __launch_bounds__(kKstepThreads)
                             (iz + 1 - S::c(2, l))]);
         };
         auto center = [&](int l) { return to_f32(src[l * svol + ((ix + 1) * sy + (iy + 1)) * sz + (iz + 1)]); };
-        collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
+        if constexpr (EXT == kExtOpen) {
+          auto staged = [&](int m, int tx, int ty, int tz) {
+            return to_f32(src[m * svol + ((ix + 1 - tx) * sy + (iy + 1 - ty)) * sz + (iz + 1 - tz)]);
+          };
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o, aux_at, staged);
+        } else {
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
+        }
       }
       if (s < K) {
 #pragma unroll
@@ -172,6 +207,7 @@ struct XlbLaunch {
   cudaStream_t stream;
   const void* g;  // adjoint: the cotangent (f32, like f); out is df
   void* dom;      // adjoint: the per-voxel omega cotangent
+  const float* aux;  // kExtOpen: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null
 };
 
 }  // namespace xlb
@@ -185,30 +221,41 @@ namespace xlb {
 // (stencil, collision) pair is built for: f32 plain storage and bf16
 // deviation form (the windows) for all four kernels, bf16 plain storage
 // for the single steps and the adjoint (stepper(...) under FP32BF16), each
-// unwalled and walled (halfway epilogue and body force).
+// unwalled and walled (halfway epilogue and body force); and for the pairs
+// of has_open, the forward kernels with kExtOpen (walled == 2: every
+// open-boundary epilogue, the halfway walls and the body force).
 constexpr bool has_form(int kernel, int walled, int store_kind, int shifted) {
-  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 1) return false;
+  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 2) return false;
+  if (walled == 2 && kernel == XLB_KERNEL_ADJOINT) return false;
   if (store_kind == 0) return !shifted;
   if (store_kind == 1) return shifted || kernel != XLB_KERNEL_KSTEP;
   return false;
 }
 
+// The (stencil, collision) pairs with kExtOpen instantiations: the open-
+// boundary scenes' D3Q19 BGK (flow past a sphere) and D3Q27 KBC (wind
+// tunnel, rotating sphere).
+constexpr bool has_open(int q, int collision) {
+  return (q == 19 && collision == XLB_COLL_BGK) || (q == 27 && collision == XLB_COLL_KBC);
+}
+
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 cudaError_t launch_kernel(const XlbLaunch& a) {
   constexpr int store = std::is_same<T, float>::value ? 0 : 1;
+  constexpr int W = EXT == kExtOpen ? 2 : int(FORCE);  // the walled form of this instantiation
   const T* f = static_cast<const T*>(a.f);
   const int* mask = static_cast<const int*>(a.mask);
   T* out = static_cast<T*>(a.out);
   const XlbStepParams& p = *a.p;
   if (a.kernel == XLB_KERNEL_STEP) {
-    if constexpr (has_form(XLB_KERNEL_STEP, FORCE, store, SHIFTED)) {
+    if constexpr (has_form(XLB_KERNEL_STEP, W, store, SHIFTED)) {
       const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
       step_kernel<S, C, T, SHIFTED, EXT, FORCE><<<(n + kStepThreads - 1) / kStepThreads, kStepThreads, 0, a.stream>>>(
-          f, mask, out, a.X, a.Y, a.Z, a.omega, p);
+          f, mask, out, a.X, a.Y, a.Z, a.omega, p, a.aux);
       return cudaGetLastError();
     }
   } else if (a.kernel == XLB_KERNEL_KSTEP) {
-    if constexpr (has_form(XLB_KERNEL_KSTEP, FORCE, store, SHIFTED)) {
+    if constexpr (has_form(XLB_KERNEL_KSTEP, W, store, SHIFTED)) {
       if (a.K < 2 || a.TX < 1 || a.TY < 1 || a.TZ < 1) return cudaErrorInvalidValue;
       const size_t smem = kstep_smem_bytes<S>(a.K, a.TX, a.TY, a.TZ, sizeof(T));
       if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
@@ -219,20 +266,20 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
       }
       const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.TX - 1) / a.TX);
       kstep_kernel<S, C, T, SHIFTED, EXT, FORCE><<<grid, kKstepThreads, smem, a.stream>>>(
-          f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.K, a.omega, p);
+          f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.K, a.omega, p, a.aux);
       return cudaGetLastError();
     }
   } else if (a.kernel == XLB_KERNEL_BLOCKED) {
-    if constexpr (has_form(XLB_KERNEL_BLOCKED, FORCE, store, SHIFTED)) {
+    if constexpr (has_form(XLB_KERNEL_BLOCKED, W, store, SHIFTED)) {
       const int threads = a.TX * a.TY * a.TZ;
       if (a.TX < 1 || a.TY < 1 || a.TZ < 1 || threads > kBlockedThreads) return cudaErrorInvalidValue;
       const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.TX - 1) / a.TX);
       blocked_kernel<S, C, T, SHIFTED, EXT, FORCE>
-          <<<grid, threads, 0, a.stream>>>(f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.omega, p);
+          <<<grid, threads, 0, a.stream>>>(f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.omega, p, a.aux);
       return cudaGetLastError();
     }
   } else if (a.kernel == XLB_KERNEL_ADJOINT) {
-    if constexpr (has_form(XLB_KERNEL_ADJOINT, FORCE, store, SHIFTED)) {
+    if constexpr (has_form(XLB_KERNEL_ADJOINT, W, store, SHIFTED)) {
       const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
       const unsigned blocks = (n + kAdjointThreads - 1) / kAdjointThreads;
       const float* g = static_cast<const float*>(a.g);
@@ -255,8 +302,27 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
   return cudaErrorInvalidValue;  // outside the table
 }
 
+// The kExtOpen kernels of a pair of has_open, instantiated by
+// XLB_INSTANTIATE_OPEN in a source of their own (collide_stream_*_open.cu),
+// so that the build compiles them beside the pair's other kernels.
+template <class S, class C>
+cudaError_t launch_open(const XlbLaunch& a);
+
+template <class S, class C>
+cudaError_t launch_open_impl(const XlbLaunch& a) {
+  if (a.store_kind == 0)
+    return a.shifted ? launch_kernel<S, C, float, true, kExtOpen, true>(a)
+                     : launch_kernel<S, C, float, false, kExtOpen, true>(a);
+  return a.shifted ? launch_kernel<S, C, __nv_bfloat16, true, kExtOpen, true>(a)
+                   : launch_kernel<S, C, __nv_bfloat16, false, kExtOpen, true>(a);
+}
+
 template <class S, class C, typename T, bool SHIFTED>
 cudaError_t launch_walled(const XlbLaunch& a) {
+  if (a.p->walled == 2) {
+    if constexpr (has_open(S::q, C::id)) return launch_open<S, C>(a);
+    return cudaErrorInvalidValue;
+  }
   if (a.p->walled) return launch_kernel<S, C, T, SHIFTED, kExtHalfway, true>(a);
   return launch_kernel<S, C, T, SHIFTED, kExtNone, false>(a);
 }
@@ -277,5 +343,9 @@ cudaError_t launch_pair(const XlbLaunch& a);
 #define XLB_INSTANTIATE_PAIR(S, C) \
   template <>                      \
   cudaError_t launch_pair<S, C>(const XlbLaunch& a) { return launch_pair_impl<S, C>(a); }
+
+#define XLB_INSTANTIATE_OPEN(S, C) \
+  template <>                      \
+  cudaError_t launch_open<S, C>(const XlbLaunch& a) { return launch_open_impl<S, C>(a); }
 
 }  // namespace xlb

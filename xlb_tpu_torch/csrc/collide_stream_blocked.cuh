@@ -29,6 +29,10 @@
 // element, inside the caching allocator's 512-byte granule; the wrapper
 // checks that the tensor starts on a 4-byte boundary.
 //
+// With kExtOpen the aux field and the outflow's staged neighbours
+// (x - t, |t_a| <= 1, at outflow voxels only) are read from device memory,
+// as step_kernel reads them.
+//
 // Bound: the same bytes and operations per voxel as step_kernel.
 #pragma once
 
@@ -75,7 +79,8 @@ __device__ __forceinline__ float from_word(uint32_t word, bool odd) {
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kBlockedThreads)
     blocked_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
-                   int TX, int TY, int TZ, float omega, const __grid_constant__ XlbStepParams p) {
+                   int TX, int TY, int TZ, float omega, const __grid_constant__ XlbStepParams p,
+                   const float* __restrict__ aux) {
   __shared__ __align__(16) uint32_t stage[S::q * kBlockedThreads];  // [l][thread]
   const int t = threadIdx.x, nt = blockDim.x;
   const int iz = t % TZ, iy = (t / TZ) % TY, ix = t / (TZ * TY);
@@ -100,7 +105,15 @@ __global__ void __launch_bounds__(kBlockedThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[S::q];
-  collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o);
+  if constexpr (EXT == kExtOpen) {
+    auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
+    auto staged = [&](int m, int tx, int ty, int tz) {
+      return to_f32(f[m * plane + (size_t(wrap1(x - tx, X)) * Y + wrap1(y - ty, Y)) * Z + wrap1(z - tz, Z)]);
+    };
+    collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o, aux_at, staged);
+  } else {
+    collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o);
+  }
 #pragma unroll
   for (int l = 0; l < S::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
 }

@@ -28,7 +28,8 @@ MAX_Q = 27
 MAX_BC = 256  # the packed id field's reach (XLB_MAX_BC)
 STORE_KIND = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' store_kind codes
 # the XlbStepParams::bc_kind codes (enum in csrc/collide_stream.cuh)
-BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4}
+BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4, "do_nothing": 5,
+           "free_slip": 6, "extrapolation_outflow": 7}
 # the collision codes of XlbStepParams::collision (enum in csrc/collide_stream.cuh)
 COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "PowerLawBGK": 5}
 
@@ -36,8 +37,10 @@ COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "Po
 class XlbBc(ctypes.Structure):
     """Mirror of ``struct XlbBc`` in ``csrc/collide_stream.cuh``: the
     constant prescription of one BC (``vec``: the equilibrium's feq, the
-    halfway moving-wall term, or the Zou-He / regularized velocity or
-    density)."""
+    halfway moving-wall term -- or 6 w_l for a per-voxel wall velocity --,
+    the Zou-He / regularized velocity or density, the free-slip or outflow
+    normal and the outflow's sound speed; ``flag``: a moving wall, a
+    pressure BC, a per-voxel prescription and its aux channel)."""
 
     _fields_ = [
         ("flag", ctypes.c_int),
@@ -129,6 +132,12 @@ def mrt_table_header():
     return "\n".join(out) + "\n"
 
 
+def data_ptr(t):
+    """The device address of a tensor for a launcher, or None (a null
+    pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def find_nvcc():
     """Path of ``nvcc`` from ``CUDA_HOME`` (as PyTorch resolves it: the
     environment, then ``PATH``, then the default toolkit location)."""
@@ -188,11 +197,14 @@ def load_library():
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     params = ctypes.POINTER(XlbStepParams)
-    lib.xlb_collide_stream_step.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
+    # ... omega, aux (the BCs' per-voxel prescriptions, or null), params, stream
+    lib.xlb_collide_stream_step.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, f32, ptr, params, ptr]
     lib.xlb_collide_stream_step.restype = i32
-    lib.xlb_collide_stream_kstep.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_kstep.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr, params,
+                                             ptr]
     lib.xlb_collide_stream_kstep.restype = i32
-    lib.xlb_collide_stream_blocked.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_blocked.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr, params,
+                                               ptr]
     lib.xlb_collide_stream_blocked.restype = i32
     lib.xlb_has_instantiation.argtypes = [i32, i32, i32, i32, i32, i32]
     lib.xlb_has_instantiation.restype = i32

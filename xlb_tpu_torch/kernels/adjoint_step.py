@@ -28,17 +28,18 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream_dma import FusedKernel, plain_collide
+from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
+from xlb_tpu_torch.kernels.collide_stream_dma import OPEN_KINDS, FusedKernel, plain_collide
 
-# BC kinds whose epilogue is not voxel-local and so has no fused adjoint.
-# Every kind the port's fused 3D forward takes (equilibrium, fullway,
-# halfway) is eligible, as in xlb_tpu.
-ADJOINT_UNSUPPORTED_KINDS = ()
+# BC kinds the adjoint kernel does not take yet: the open-boundary
+# epilogues of the forward (xlb_tpu's fused adjoint takes them; ROADMAP
+# Queue A 4), and any per-voxel (aux) prescription.
+ADJOINT_UNSUPPORTED_KINDS = tuple(sorted(OPEN_KINDS))
 
 
 def adjoint_supported(bc_specs):
-    """True when every BC epilogue is fused-adjoint eligible."""
-    return all(s["kind"] not in ADJOINT_UNSUPPORTED_KINDS for s in bc_specs)
+    """True when the adjoint kernel takes every BC epilogue of the scene."""
+    return all(s["kind"] not in ADJOINT_UNSUPPORTED_KINDS and not spec_uses_aux(s) for s in bc_specs)
 
 
 def collide_stream_adjoint_plain(vs, bc_specs, f_primal, g, mask_i32, omega, shifted=False, has_solids=True,
@@ -66,7 +67,11 @@ class CollideStreamAdjoint(FusedKernel):
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
                  store_dtype=torch.float32, shifted=False, has_solids=True, force_vector=None):
         if not adjoint_supported(bc_specs):
-            raise NotImplementedError(f"no fused adjoint for BC kinds {ADJOINT_UNSUPPORTED_KINDS}")
+            kinds = sorted({s["kind"] + (" (per-voxel)" if spec_uses_aux(s) else "") for s in bc_specs
+                            if not adjoint_supported([s])})
+            raise NotImplementedError(
+                f"the adjoint kernel K8 does not take the BC kinds {kinds} yet (ROADMAP Queue A 4): no gradient "
+                "through a fused step with open boundaries")
         super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids,
                          force_vector)
 

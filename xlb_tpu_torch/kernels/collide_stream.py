@@ -3,16 +3,20 @@
 ``pointwise_core`` is the plain torch version of the per-voxel physics of
 ``xlb_tpu.kernels.collide_stream._build_kernel_body`` for the epilogue
 kinds this port supports: the streaming-step ``equilibrium``,
-``halfway`` (constant moving wall), ``zouhe`` and ``regularized`` BCs
-(constant prescriptions), the collision-step ``fullway`` BC, the solid
-keep-out and shifted (g = f - w) load and store, around moments, the
+``do_nothing``, ``halfway`` (constant or per-voxel moving wall),
+``free_slip``, ``zouhe`` and ``regularized`` (constant or per-voxel
+velocity or density) and ``extrapolation_outflow`` BCs, the
+collision-step ``fullway`` BC, the outflow's post-collision staging, the
+solid keep-out and shifted (g = f - w) load and store, around moments, the
 pair-shared quadratic equilibrium, the collision (BGK, KBC, Smagorinsky,
 PowerLaw, TRT, MRT, in the kernel body's form: TRT per opposite pair, MRT
 as unrolled projector rows without their zero entries, KBC with the
 pair-shared entropic products) and the exact-difference body force. The
 CUDA kernels (``csrc/collide_stream.cuh``) compute the same terms in the
 same order; this version is what the CPU tests run and what
-``chip_smoke.py`` holds the kernels against.
+``chip_smoke.py`` holds the kernels against. Per-voxel prescriptions ride
+the aux field of ``fused_step.build_aux_field``, in the channel layout of
+``aux_layout``.
 """
 
 import numpy as np
@@ -62,6 +66,39 @@ def kernel_sfv_id(q):
     """Packed id of cell type 254 (the multires ghost ring and refined
     region: kept through the collide)."""
     return kernel_bc_id(254, q)
+
+
+def spec_uses_aux(spec):
+    """True when a BC spec reads a per-voxel aux channel (a prescribed
+    velocity or density, or a moving-wall velocity) -- as
+    ``xlb_tpu.kernels.collide_stream.spec_uses_aux`` for the kinds the port
+    takes."""
+    return _names(spec.get("mw"), "aux") or _names(spec.get("value"), "aux", "aux_rho")
+
+
+def _names(x, *names):
+    """True when the prescription ``x`` is one of the strings ``names``
+    (it may also be a NumPy vector or a float)."""
+    return isinstance(x, str) and x in names
+
+
+def aux_layout(bc_specs, vs):
+    """The channel layout of the aux field shared by the kernel body and
+    ``fused_step.build_aux_field``: d velocity channels first (spatial
+    prescribed-velocity and moving-wall BCs), then one prescribed-density
+    channel (spatial pressure BCs), as ``xlb_tpu``'s ``aux_layout`` lays
+    them out before its hybrid wall-distance blocks. Returns (u_off,
+    rho_off, nchan), an offset None when no BC needs that channel."""
+    has_u = any(_names(s.get("mw"), "aux") or _names(s.get("value"), "aux") for s in bc_specs)
+    has_rho = any(_names(s.get("value"), "aux_rho") for s in bc_specs)
+    u_off = 0 if has_u else None
+    rho_off = (vs.d if has_u else 0) if has_rho else None
+    return u_off, rho_off, (vs.d if has_u else 0) + (1 if has_rho else 0)
+
+
+def outflow_cs():
+    """The extrapolation outflow's sound speed 1 / sqrt(3) in float32."""
+    return float(np.float32(1.0 / np.sqrt(3.0)))
 
 
 def packed_cell(cell_type, q):
@@ -195,9 +232,11 @@ def _f32(x):
     return float(np.float32(x))
 
 
-def _zouhe_epilogue(vs, spec, on, missing, f_s, w):
-    """Zou-He / regularized closure with a constant prescription, term by
-    term as ``xlb_tpu``'s kernel body (``_zouhe_epilogue``)."""
+def _zouhe_epilogue(vs, spec, on, missing, f_s, w, aux=None, u_off=None, rho_off=None):
+    """Zou-He / regularized closure, term by term as ``xlb_tpu``'s kernel
+    body (``_zouhe_epilogue``): a constant prescription, or ``"aux"`` /
+    ``"aux_rho"`` -- the per-voxel velocity or density of the aux field
+    ``aux`` (nchan, *s) at channel ``u_off`` / ``rho_off``."""
     q, d, c, opp = vs.q, vs.d, vs._c, vs._opp_indices
     miss_f = [missing(l).to(torch.float32) for l in range(q)]
     known_f = [miss_f[opp[l]] for l in range(q)]
@@ -220,19 +259,28 @@ def _zouhe_epilogue(vs, spec, on, missing, f_s, w):
         normals.append(-acc)
 
     if spec["bc_type"] == "velocity":
-        vel = spec["value"]  # (d,) float64
-        unormal = None
-        for a in range(d):
-            if vel[a] == 0.0:
-                continue
-            t = normals[a] * _f32(vel[a])
-            unormal = t if unormal is None else unormal + t
-        if unormal is None:
-            unormal = torch.zeros_like(fsum)
+        if _names(spec["value"], "aux"):  # per-voxel prescribed velocity
+            u = [aux[u_off + a] for a in range(d)]
+            unormal = normals[0] * u[0]
+            for a in range(1, d):
+                unormal = unormal + normals[a] * u[a]
+        else:
+            vel = spec["value"]  # (d,) float64
+            unormal = None
+            for a in range(d):
+                if vel[a] == 0.0:
+                    continue
+                t = normals[a] * _f32(vel[a])
+                unormal = t if unormal is None else unormal + t
+            if unormal is None:
+                unormal = torch.zeros_like(fsum)
+            u = [torch.full_like(fsum, _f32(vel[a])) for a in range(d)]
         rho = fsum / (1.0 + unormal)
-        u = [torch.full_like(fsum, _f32(vel[a])) for a in range(d)]
     else:
-        rho = torch.full_like(fsum, _f32(spec["value"]))
+        if _names(spec["value"], "aux_rho"):  # per-voxel prescribed density
+            rho = aux[rho_off] + torch.zeros_like(fsum)
+        else:
+            rho = torch.full_like(fsum, _f32(spec["value"]))
         unormal = -1.0 + fsum / rho
         u = [unormal * normals[a] for a in range(d)]
 
@@ -361,7 +409,7 @@ def collide(vs, collision, f_s, feq, rho, omega):
 
 
 def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, has_solids=True, collision="BGK",
-                   force_vector=None):
+                   force_vector=None, aux=None, staging_read=None):
     """Per-voxel physics given already-gathered populations (float32).
 
     ``fs_raw[l]`` is the raw (store-form) pulled slab of direction l;
@@ -371,12 +419,19 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
     broadcasts against the slabs: a 0-d tensor, or the per-voxel field
     through which the adjoint takes omega's cotangent. ``collision`` is a
     ``kernel_collision_spec``; ``force_vector`` a constant body force or
-    None. Returns the list of post-collision slabs (unshifted, uncast)."""
+    None. ``aux`` is the (nchan, *s) float32 aux field of the BCs with
+    per-voxel prescriptions (``aux_layout``), or None. ``staging_read(m,
+    t)`` returns the raw slab of direction m pulled from x - t (``t`` a
+    d-tuple with |t_a| <= 1): the extrapolation outflow's post-collision
+    staging reads the pre-streaming population m at x - n - c_m through it,
+    the only read of the body that is not voxel-local. Returns the list of
+    post-collision slabs (unshifted, uncast)."""
     q, d = vs.q, vs.d
     c, opp = vs._c, vs._opp_indices
     w = f32_weights(vs)
     if not isinstance(omega, torch.Tensor):
         omega = float(np.float32(omega))
+    u_off, rho_off, _ = aux_layout(bc_specs, vs)
     bc = unpack_bc_id(packed, q)
     f_s = [fs_raw[l] + w[l] if shifted else fs_raw[l] for l in range(q)]
 
@@ -393,13 +448,36 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
         kind = spec["kind"]
         if kind == "equilibrium":
             f_s = [torch.where(on, float(spec["feq"][l]), f_s[l]) for l in range(q)]
+        elif kind == "do_nothing":
+            f_s = [torch.where(on, f_pre(l), f_s[l]) for l in range(q)]
         elif kind == "halfway":
             mw = spec.get("mw")
             for l in range(q):
-                refl = f_pre(opp[l]) if mw is None else f_pre(opp[l]) + _f32(mw[l])
+                if _names(mw, "aux"):
+                    # per-voxel moving wall: 6 w_l (c_l . u_wall(x))
+                    cu = None
+                    for a in range(d):
+                        if c[a, l] == 0:
+                            continue
+                        t = aux[u_off + a] if c[a, l] == 1 else -aux[u_off + a]
+                        cu = t if cu is None else cu + t
+                    refl = f_pre(opp[l]) if cu is None else f_pre(opp[l]) + _f32(6.0 * vs._w[l]) * cu
+                else:
+                    refl = f_pre(opp[l]) if mw is None else f_pre(opp[l]) + _f32(mw[l])
                 f_s[l] = torch.where(on & missing(l), refl, f_s[l])
+        elif kind == "free_slip":
+            # specular reflection: a missing direction that crosses the wall
+            # takes the pre-streaming population of its mirror
+            for l in range(q):
+                if spec["reflect_dirs"][l]:
+                    f_s[l] = torch.where(on & missing(l), f_pre(int(spec["spec_indices"][l])), f_s[l])
         elif kind in ("zouhe", "regularized"):
-            f_s = _zouhe_epilogue(vs, spec, on, missing, f_s, w)
+            f_s = _zouhe_epilogue(vs, spec, on, missing, f_s, w, aux, u_off, rho_off)
+        elif kind == "extrapolation_outflow":
+            # missing directions take the values staged in the outgoing
+            # slots by the previous step
+            for l in range(q):
+                f_s[l] = torch.where(on & missing(l), f_pre(opp[l]), f_s[l])
         else:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the fused step")
 
@@ -421,6 +499,27 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
             raise NotImplementedError(f"BC kind {spec['kind']!r} is not ported to the fused step")
         on = bc == kernel_bc_id(spec["id"], q)
         f_out = [torch.where(on, f_s[opp[l]], f_out[l]) for l in range(q)]
+
+    # extrapolation outflow: stage cs f_s[m](x - n) + (1 - cs) f_s[m](x)
+    # in the outgoing slot l = opp(m) of each missing m. f_s[m](x - n) is
+    # the pre-streaming m at x - t, t = n + c_m, tangential wherever m is
+    # missing at the face (|t_a| <= 1).
+    for spec in bc_specs:
+        if spec["kind"] != "extrapolation_outflow":
+            continue
+        on = bc == kernel_bc_id(spec["id"], q)
+        n = [int(x) for x in spec["normal"]]
+        cs = outflow_cs()
+        cs1 = float(np.float32(1.0) - np.float32(cs))
+        for l in range(q):
+            m = int(opp[l])
+            t = tuple(n[a] + int(c[a, m]) for a in range(d))
+            if any(abs(x) > 1 for x in t):
+                continue  # c_m . n >= 1: never a staged slot at this face
+            neighbour = staging_read(m, t)
+            if shifted:
+                neighbour = neighbour + w[m]
+            f_out[l] = torch.where(on & missing(m), cs * neighbour + cs1 * f_s[m], f_out[l])
 
     # solid voxels keep their previous populations
     if has_solids:

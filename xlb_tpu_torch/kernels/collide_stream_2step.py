@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream_dma import FusedKernel
+from xlb_tpu_torch.kernels.collide_stream_dma import OPEN_KINDS_3D, FusedKernel
 
 # default tiles leave room for two blocks on one SM (228 KB, 1 KB reserved per block)
 TILE_BUDGET = 113 * 1024
@@ -59,6 +59,7 @@ class CollideStreamKStep(FusedKernel):
     launches = 0
     plain_calls = 0
     zoo = True
+    bc_kinds = OPEN_KINDS_3D
     kernel_kind = 2  # XLB_KERNEL_KSTEP
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
@@ -70,17 +71,17 @@ class CollideStreamKStep(FusedKernel):
         self.steps = int(steps)
         self.tile = default_tile(self.steps, store_dtype, velocity_set.q)
 
-    def plain(self, f, mask_i32, omega):
+    def plain(self, f, mask_i32, omega, aux=None):
         """k single plain steps, each rounded to the store dtype."""
         CollideStreamKStep.plain_calls += 1
         for _ in range(self.steps):
-            f = self._plain_step(f, mask_i32, omega)
+            f = self._plain_step(f, mask_i32, omega, aux)
         return f
 
-    def _launch(self, lib, f, mask_i32, out, omega, stream):
+    def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y, Z = self.shape
         TX, TY, TZ = self.tile
         return lib.xlb_collide_stream_kstep(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), self.steps, f.data_ptr(), mask_i32.data_ptr(),
-            out.data_ptr(), X, Y, Z, TX, TY, TZ, omega, ctypes.byref(self.params), stream,
+            out.data_ptr(), X, Y, Z, TX, TY, TZ, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,
         )

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream_dma import FusedKernel
+from xlb_tpu_torch.kernels.collide_stream_dma import OPEN_KINDS_3D, FusedKernel
 
 # (TX, TY, TZ): 256 threads, 32 along z so that each warp's pulls of a
 # direction cover one contiguous z run
@@ -37,6 +37,7 @@ class CollideStreamBlocked(FusedKernel):
     launches = 0
     plain_calls = 0
     zoo = True
+    bc_kinds = OPEN_KINDS_3D
     kernel_kind = 3  # XLB_KERNEL_BLOCKED
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
@@ -47,18 +48,18 @@ class CollideStreamBlocked(FusedKernel):
         if len(self.tile) != 3 or min(self.tile) < 1 or self.tile[0] * self.tile[1] * self.tile[2] > MAX_THREADS:
             raise ValueError(f"tile must be (TX, TY, TZ) with at most {MAX_THREADS} voxels, got {tile}")
 
-    def plain(self, f, mask_i32, omega):
+    def plain(self, f, mask_i32, omega, aux=None):
         CollideStreamBlocked.plain_calls += 1
-        return self._plain_step(f, mask_i32, omega)
+        return self._plain_step(f, mask_i32, omega, aux)
 
-    def _launch(self, lib, f, mask_i32, out, omega, stream):
+    def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         if f.data_ptr() % 4:
             raise ValueError("the blocked kernel copies whole 32-bit words: f must start on a 4-byte boundary")
         X, Y, Z = self.shape
         TX, TY, TZ = self.tile
         return lib.xlb_collide_stream_blocked(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), f.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
-            X, Y, Z, TX, TY, TZ, omega, ctypes.byref(self.params), stream,
+            X, Y, Z, TX, TY, TZ, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,
         )
 
 

@@ -6,7 +6,10 @@ plain version.
 Its CUDA kernel (``csrc/collide_stream_3d.cuh::step_kernel``) replaces
 that TPU kernel in its plain mode, with and without shifted storage, for
 D3Q19 and D3Q27, every collision, the exact-difference force and halfway
-walls. The TPU kernel's double-buffered halo DMAs have no counterpart: on
+walls, and -- on D3Q19 BGK and D3Q27 KBC -- the open-boundary epilogues
+(``OPEN_KINDS``: do-nothing, free-slip, Zou-He and regularized in 3D,
+extrapolation outflow with its staging, per-voxel prescriptions from the
+aux field). The TPU kernel's double-buffered halo DMAs have no counterpart: on
 Hopper each thread pulls its q neighbours straight from device memory, and
 L1/L2 serve the reuse.
 
@@ -20,27 +23,32 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream import (collision_constants, f32_weights, kernel_bc_id, pointwise_core,
-                                                  split_collision)
+from xlb_tpu_torch.kernels.collide_stream import (aux_layout, collision_constants, f32_weights, kernel_bc_id,
+                                                  outflow_cs, pointwise_core, spec_uses_aux, split_collision)
 
 
 def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=True, collision="BGK",
-                  force_vector=None):
+                  force_vector=None, aux=None):
     """The plain step before its store: pull-stream gather of the float32
-    store-form field ``fc`` with periodic wrap, then ``pointwise_core``.
-    Returns the post-collision populations (q, *s), unshifted, float32."""
+    store-form field ``fc`` with periodic wrap, then ``pointwise_core``
+    (``aux``: the BCs' per-voxel prescriptions, or None). Returns the
+    post-collision populations (q, *s), unshifted, float32."""
     dims = tuple(range(vs.d))
-    fs_raw = [torch.roll(fc[l], shifts=tuple(int(s) for s in vs._c[:, l]), dims=dims) for l in range(vs.q)]
+
+    def pulled(l, t):
+        return torch.roll(fc[l], shifts=tuple(int(s) for s in t), dims=dims)
+
+    fs_raw = [pulled(l, vs._c[:, l]) for l in range(vs.q)]
     return torch.stack(pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids,
-                                      collision, force_vector))
+                                      collision, force_vector, aux, pulled))
 
 
 def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True,
-                              collision="BGK", force_vector=None):
+                              collision="BGK", force_vector=None, aux=None):
     """Plain torch version of one fused step: ``plain_collide``, then the
     (shifted) store."""
     out = plain_collide(vs, bc_specs, f.to(torch.float32), mask_i32, omega, shifted, has_solids, collision,
-                        force_vector)
+                        force_vector, aux)
     if shifted:
         out = out - torch.tensor(f32_weights(vs), device=out.device).reshape((-1,) + (1,) * vs.d)
     return out.to(store_dtype)
@@ -48,12 +56,26 @@ def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shi
 
 # epilogue kinds behind the EXT switch of csrc/collide_stream.cuh: all of
 # them in the 2D kernels (K3, K4); halfway alone in the 3D kernels of the
-# collision zoo (K0, K1, K2)
+# collision zoo (K0, K1, K2) and their adjoint (K8)
 EXT_KINDS = ("halfway", "zouhe", "regularized")
+KINDS_2D = frozenset({"equilibrium", "fullway"} | set(EXT_KINDS))
 # the kinds of the 3D kernels that take no EXT epilogue (K5, K7, K8) and of
 # those that take halfway
 BASE_KINDS_3D = frozenset({"equilibrium", "fullway"})
 ZOO_KINDS_3D = BASE_KINDS_3D | {"halfway"}
+# the open-boundary epilogues (EXT == kExtOpen), in K0, K1 and K2 only, and
+# only for OPEN_PAIRS; a halfway wall with a per-voxel velocity is one too
+OPEN_KINDS = frozenset({"do_nothing", "free_slip", "zouhe", "regularized", "extrapolation_outflow"})
+OPEN_KINDS_3D = ZOO_KINDS_3D | OPEN_KINDS
+OPEN_PAIRS = ((19, "BGK"), (27, "KBC"))
+# XlbBc.flag bits of the open epilogues; the aux channel offset sits above them
+FLAG_PRESSURE, FLAG_AUX, FLAG_AUX_SHIFT = 1, 2, 8
+
+
+def needs_open(bc_specs, dims=3):
+    """True when a 3D scene's BCs need the open-boundary instantiation
+    (kExtOpen): an open kind, or a per-voxel prescription."""
+    return dims == 3 and any(s["kind"] in OPEN_KINDS or spec_uses_aux(s) for s in bc_specs)
 
 
 def _f32_list(values):
@@ -82,23 +104,39 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     # id; distinct ids, so at most MAX_BC), as in xlb_tpu
     if len(bc_specs) > _cuda.MAX_BC:
         raise ValueError(f"{len(bc_specs)} BCs exceed the packed id field's {_cuda.MAX_BC} ids")
-    allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else set(_cuda.BC_KIND))
+    allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else KINDS_2D)
+    u_off, rho_off, _ = aux_layout(bc_specs, vs)
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
         if kind not in allowed:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
+        if spec_uses_aux(spec) and not (vs.d == 3 and OPEN_KINDS <= set(allowed)):
+            raise NotImplementedError(
+                f"a per-voxel {kind!r} prescription needs the aux channels, which only the 3D kernels K0, K1 and K2 "
+                "read")
         p.bc_kind[b] = _cuda.BC_KIND[kind]
         p.bc_id[b] = kernel_bc_id(int(spec["id"]), q)
         bc = p.bc[b]
         if kind == "equilibrium":
             bc.vec[:q] = [float(x) for x in np.asarray(spec["feq"], dtype=np.float32)]
+        elif kind == "halfway" and isinstance(spec["mw"], str):
+            # per-voxel wall velocity: vec holds 6 w_l, the aux its velocity
+            bc.flag = FLAG_AUX | (u_off << FLAG_AUX_SHIFT)
+            bc.vec[:q] = _f32_list(6.0 * vs._w)
         elif kind == "halfway" and spec["mw"] is not None:
             bc.flag = 1
             bc.vec[:q] = _f32_list(spec["mw"])
         elif kind in ("zouhe", "regularized"):
-            value = _f32_list(spec["value"])
-            bc.flag = int(spec["bc_type"] == "pressure")
-            bc.vec[: len(value)] = value
+            bc.flag = FLAG_PRESSURE if spec["bc_type"] == "pressure" else 0
+            if spec_uses_aux(spec):
+                bc.flag |= FLAG_AUX | ((u_off if spec["value"] == "aux" else rho_off) << FLAG_AUX_SHIFT)
+            else:
+                value = _f32_list(spec["value"])
+                bc.vec[: len(value)] = value
+        elif kind in ("free_slip", "extrapolation_outflow"):
+            # the outward normal; the outflow's sound speed after it
+            bc.vec[:3] = [float(x) for x in spec["normal"]]
+            bc.vec[3] = outflow_cs()
 
     name, _ = split_collision(collision)
     if name not in _cuda.COLLISION:
@@ -109,6 +147,12 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     p.q = q
     p.collision = _cuda.COLLISION[name]
     p.walled = int(force_vector is not None or any(s["kind"] == "halfway" for s in bc_specs))
+    if needs_open(bc_specs, vs.d):
+        if (q, name) not in OPEN_PAIRS:
+            raise NotImplementedError(
+                f"the open-boundary epilogues ({sorted({s['kind'] for s in bc_specs})}) are instantiated for "
+                f"D3Q19 BGK and D3Q27 KBC only, got D3Q{q} {name}")
+        p.walled = 2  # the kExtOpen instantiation
     if force_vector is not None:
         p.has_force = 1
         p.force[: vs.d] = _f32_list(force_vector)
@@ -142,8 +186,11 @@ class FusedKernel:
     another dimension than 3; a kernel with another signature defines its
     own ``__call__`` around ``_dispatch``. The kernels of the 3D collision
     zoo (``zoo = True``: K0, K1, K2) take every collision, D3Q27, the body
-    force and halfway walls; the others BGK without force on D3Q19 or
-    D2Q9."""
+    force and halfway walls, and on ``OPEN_PAIRS`` the open-boundary kinds;
+    the others BGK without force on D3Q19 or D2Q9. A scene whose BCs read
+    per-voxel prescriptions (``aux_channels`` > 0) passes its aux field,
+    (aux_channels, *shape) float32 from ``fused_step.build_aux_field``, to
+    every call."""
 
     dims = 3
     zoo = False
@@ -178,11 +225,26 @@ class FusedKernel:
         self.has_solids = bool(has_solids)
         kinds = self.bc_kinds if self.bc_kinds is not None else (ZOO_KINDS_3D if self.zoo else None)
         self.params = kernel_params(velocity_set, self.bc_specs, has_solids, kinds, collision, self.force_vector)
+        self.aux_channels = aux_layout(self.bc_specs, velocity_set)[2]
 
-    def _plain_step(self, f, mask_i32, omega):
+    def _plain_step(self, f, mask_i32, omega, aux=None):
         """One plain step of this configuration, stored in the store dtype."""
         return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted,
-                                         self.has_solids, self.collision, self.force_vector)
+                                         self.has_solids, self.collision, self.force_vector, aux)
+
+    def _check_aux(self, f, aux):
+        """Raise unless ``aux`` is the aux field this configuration reads
+        (None when it reads none)."""
+        if not self.aux_channels:
+            if aux is not None:
+                raise ValueError(f"{type(self).__name__}: this scene's BCs read no aux field")
+            return
+        shape = (self.aux_channels,) + self.shape
+        if aux is None:
+            raise ValueError(f"{type(self).__name__}: this scene's BCs read a {shape} aux field (build_aux_field)")
+        if aux.shape != shape or aux.dtype != torch.float32 or not aux.is_contiguous() or aux.device != f.device:
+            raise ValueError(f"aux must be a contiguous float32 {shape} tensor on {f.device}, got {aux.dtype} "
+                             f"{tuple(aux.shape)} on {aux.device}")
 
     def _require_instantiation(self, lib):
         """Raise, naming it, when the library holds no instantiation of this
@@ -191,9 +253,9 @@ class FusedKernel:
         if not lib.xlb_has_instantiation(self.kernel_kind, p.q, p.collision, p.walled,
                                          _cuda.STORE_KIND[self.store_dtype], int(self.shifted)):
             name, _ = split_collision(self.collision)
+            form = ("unwalled", "walled (halfway / force)", "open boundaries (kExtOpen)")[p.walled]
             raise NotImplementedError(
-                f"{type(self).__name__}: no CUDA instantiation for D3Q{p.q} {name}, "
-                f"{'walled (halfway / force)' if p.walled else 'unwalled'}, store {self.store_dtype}, "
+                f"{type(self).__name__}: no CUDA instantiation for D3Q{p.q} {name}, {form}, store {self.store_dtype}, "
                 f"shifted={self.shifted} (the table of csrc/collide_stream_3d.cuh)")
 
     def _check(self, f, mask_i32):
@@ -233,14 +295,16 @@ class FusedKernel:
         type(self).launches += 1
         return result
 
-    def __call__(self, f, mask_i32, omega):
+    def __call__(self, f, mask_i32, omega, aux=None):
         self._check(f, mask_i32)
+        self._check_aux(f, aux)
+        extra = () if aux is None else (aux,)
 
         def launch(lib, stream):
             out = torch.empty_like(f)
-            return out, self._launch(lib, f, mask_i32, out, float(omega), stream)
+            return out, self._launch(lib, f, mask_i32, out, float(omega), stream, *extra)
 
-        return self._dispatch(f, lambda: self.plain(f, mask_i32, omega), launch)
+        return self._dispatch(f, lambda: self.plain(f, mask_i32, omega, *extra), launch)
 
 
 class CollideStreamStep(FusedKernel):
@@ -249,15 +313,16 @@ class CollideStreamStep(FusedKernel):
     launches = 0
     plain_calls = 0
     zoo = True
+    bc_kinds = OPEN_KINDS_3D
     kernel_kind = 1  # XLB_KERNEL_STEP
 
-    def plain(self, f, mask_i32, omega):
+    def plain(self, f, mask_i32, omega, aux=None):
         CollideStreamStep.plain_calls += 1
-        return self._plain_step(f, mask_i32, omega)
+        return self._plain_step(f, mask_i32, omega, aux)
 
-    def _launch(self, lib, f, mask_i32, out, omega, stream):
+    def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y, Z = self.shape
         return lib.xlb_collide_stream_step(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), f.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
-            X, Y, Z, omega, ctypes.byref(self.params), stream,
+            X, Y, Z, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,
         )

@@ -1,15 +1,19 @@
 """Glue between the NSE stepper and the fused collide-stream kernels.
 
 Translates BC objects into static kernel epilogue specs, packs
-``bc_mask`` / ``missing_mask`` into one int32 voxel field, and builds the
+``bc_mask`` / ``missing_mask`` into one int32 voxel field, assembles the
+aux field of per-voxel prescriptions (``build_aux_field``), and builds the
 CUDA-tier step and window, in 3D (D3Q19, D3Q27) and 2D (D2Q9). BCs
-supported in the fused step so far: EquilibriumBC, FullwayBounceBackBC
-and HalfwayBounceBackBC (constant moving wall), and in 2D also ZouHeBC and
-RegularizedBC (constant prescriptions); any other kind raises. In 3D every
-collision of the TORCH tier and the exact-difference body force run in the
-kernels, through the single-step kernel (``kernel="dma"``, the default,
-with the k-step kernel in windows) or the block-tiled one
-(``kernel="blocked"``).
+supported in the fused step: EquilibriumBC, FullwayBounceBackBC and
+HalfwayBounceBackBC with a constant wall everywhere; ZouHeBC and
+RegularizedBC with constant prescriptions in 2D; and in 3D on D3Q19 BGK
+and D3Q27 KBC (the open-boundary kernels) ZouHeBC and RegularizedBC,
+DoNothingBC, FreeSlipBC, ExtrapolationOutflowBC and per-voxel
+prescriptions (a halfway wall's velocity, a Zou-He / regularized velocity
+or density); any other kind or pair raises. In 3D every collision of
+the TORCH tier and the exact-difference body force run in the kernels,
+through the single-step kernel (``kernel="dma"``, the default, with the
+k-step kernel in windows) or the block-tiled one (``kernel="blocked"``).
 
 None of the TPU machinery of ``xlb_tpu.kernels.fused_step`` is carried
 over: no z padding to lane multiples, no tile estimators for on-chip
@@ -21,12 +25,15 @@ import torch
 
 from xlb_tpu_torch.boundary.base import ImplementationStep
 from xlb_tpu_torch.boundary.bc_bounce_back import FullwayBounceBackBC, HalfwayBounceBackBC
+from xlb_tpu_torch.boundary.bc_do_nothing import DoNothingBC
 from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
+from xlb_tpu_torch.boundary.bc_extrapolation_outflow import ExtrapolationOutflowBC
+from xlb_tpu_torch.boundary.bc_free_slip import FreeSlipBC
 from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
-from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC
-from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, kernel_collision_spec, packed_cell
+from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC, _broadcast_prescribed
+from xlb_tpu_torch.kernels.collide_stream import aux_layout, bc_id_shift, kernel_collision_spec, packed_cell
 from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
-from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep, needs_open
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
 from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
 from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
@@ -44,14 +51,71 @@ def bc_to_spec(bc, velocity_set):
         return {"kind": "fullway", "id": bc.id, "step": step}
     if isinstance(bc, HalfwayBounceBackBC):
         return {"kind": "halfway", "id": bc.id, "step": step, "mw": bc.moving_wall_np()}
+    if isinstance(bc, DoNothingBC):
+        return {"kind": "do_nothing", "id": bc.id, "step": step}
+    if isinstance(bc, FreeSlipBC):
+        # the plain body reflects through spec_indices / reflect_dirs, as
+        # xlb_tpu's; the kernels derive both from the normal
+        return {"kind": "free_slip", "id": bc.id, "step": step, "normal": np.asarray(bc.normal, dtype=np.int64),
+                "spec_indices": bc.spec_indices, "reflect_dirs": bc.reflect_dirs}
+    if isinstance(bc, ExtrapolationOutflowBC):
+        return {"kind": "extrapolation_outflow", "id": bc.id, "step": step,
+                "normal": np.asarray(bc.normal, dtype=np.int64)}
     if isinstance(bc, (ZouHeBC, RegularizedBC)):
         kind = "regularized" if isinstance(bc, RegularizedBC) else "zouhe"
         value = np.asarray(bc.prescribed_values, dtype=np.float64)
-        spec_value = value.reshape(-1) if bc.bc_type == "velocity" else float(value.reshape(-1)[0])
+        if bc.spatial:  # a per-voxel velocity or density from the aux field
+            spec_value = "aux" if bc.bc_type == "velocity" else "aux_rho"
+        else:
+            spec_value = value.reshape(-1) if bc.bc_type == "velocity" else float(value.reshape(-1)[0])
         return {"kind": kind, "id": bc.id, "step": step, "bc_type": bc.bc_type, "value": spec_value}
     raise NotImplementedError(
         f"{type(bc).__name__} is not yet supported by the fused CUDA kernels; use ComputeBackend.TORCH"
     )
+
+
+def build_aux_field(stepper):
+    """The aux field of the BCs' per-voxel prescriptions, as a host NumPy
+    (nchan, *shape) float32 array, or None when no BC has one -- the port
+    of ``xlb_tpu.kernels.fused_step.build_aux_field`` (without its hybrid
+    wall-distance channels), channel for channel: d velocity channels
+    (spatial Zou-He / regularized velocities, moving-wall velocities), then
+    a density channel (spatial pressures; 1 off the BC), in the layout of
+    ``collide_stream.aux_layout``. A moving wall is evaluated on its BC's
+    dilated voxel set, a Zou-He / regularized prescription sampled at its
+    voxels; indices outside the domain are dropped. Build it after
+    ``prepare_fields`` (mesh BCs get their indices there)."""
+    vs = stepper.velocity_set
+    shape = tuple(stepper.grid.shape)
+    specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+    u_off, rho_off, nchan = aux_layout(specs, vs)
+    if nchan == 0:
+        return None
+    aux = np.zeros((nchan,) + shape, np.float32)
+    if rho_off is not None:
+        aux[rho_off] = 1.0  # inert default: keeps fsum / rho finite off the BC
+
+    def inside(idx):
+        return np.all((idx >= 0) & (idx < np.asarray(shape)[:, None]), axis=0)
+
+    for bc, spec in zip(stepper.boundary_conditions, specs):
+        if isinstance(spec.get("mw"), str):
+            idx, u_wall = bc.spatial_wall_velocity()
+            keep = inside(idx)
+            aux[(slice(u_off, u_off + vs.d),) + tuple(idx[:, keep])] = u_wall[:, keep].astype(np.float32)
+        elif isinstance(spec.get("value"), str):
+            if bc.indices is None:
+                raise NotImplementedError("spatial Zou-He / regularized profiles need voxel indices (prepare_fields)")
+            idx = np.asarray(bc.indices, dtype=np.int64)
+            idx = tuple(idx[:, inside(idx)])
+            values = np.asarray(bc.prescribed_values, dtype=np.float32)
+            if spec["value"] == "aux":
+                full = np.broadcast_to(_broadcast_prescribed(values, (vs.d,) + shape), (vs.d,) + shape)
+                aux[(slice(u_off, u_off + vs.d),) + idx] = full[(slice(None),) + idx]
+            else:
+                full = np.broadcast_to(_broadcast_prescribed(values, (1,) + shape), (1,) + shape)
+                aux[(rho_off,) + idx] = full[(0,) + idx]
+    return aux
 
 
 def ring_val(q):
@@ -143,7 +207,10 @@ class _FusedSweeps:
     "torch" -- the TORCH tier's VJP (the 2D step, and every 3D "blocked"
     configuration, as ``xlb_tpu`` differentiates its blocked kernel
     through the jnp tier); None -- no backward (the 2D window, as in
-    ``xlb_tpu``), and ``no_backward`` says why."""
+    ``xlb_tpu``, and any scene with an open-boundary BC, whose epilogues
+    the adjoint kernel K8 does not take yet), and ``no_backward`` says
+    why. The aux field of the BCs' per-voxel prescriptions is built at the
+    first call, after ``prepare_fields`` gave mesh BCs their indices."""
 
     def __init__(self, stepper, num_steps, shifted, temporal_steps=None, kernel="dma", tile=None):
         vs = stepper.velocity_set
@@ -160,6 +227,8 @@ class _FusedSweeps:
                    force_vector=stepper_force_vector(stepper))
         shape = stepper.grid.shape
         self.adjoint, self.no_backward = None, None
+        self._aux = None
+        open_bcs = needs_open(cfg["bc_specs"], vs.d)
         if vs.d == 2:
             if kernel != "dma":
                 raise NotImplementedError("kernel='blocked' is a 3D kernel; the 2D step has its own (K3, K4)")
@@ -180,8 +249,15 @@ class _FusedSweeps:
             self.k = k = min(k, num_steps)
             self.single = CollideStreamStep(vs, shape, **cfg)
             self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
-            self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
             self.backward = "adjoint"
+            if not open_bcs:
+                self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
+        if open_bcs:
+            kinds = sorted({sp["kind"] for sp in cfg["bc_specs"]})
+            self.backward = None
+            self.no_backward = (f"no backward through the CUDA tier for the open-boundary BCs of this scene ({kinds}): "
+                                "the adjoint kernel K8 does not take them yet (ROADMAP Queue A 4); differentiate "
+                                "through ComputeBackend.TORCH")
         self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
@@ -193,10 +269,15 @@ class _FusedSweeps:
 
     def value(self, f_0, mask_i32, omega):
         g = self._to_store_form(f_0)
+        extra = ()
+        if self.single.aux_channels:
+            if self._aux is None:  # built at the first call: mesh BCs have their indices after prepare_fields
+                self._aux = torch.as_tensor(build_aux_field(self.stepper), device=f_0.device).contiguous()
+            extra = (self._aux,)
         for _ in range(self.n_k):
-            g = self.kstep(g, mask_i32, omega)
+            g = self.kstep(g, mask_i32, omega, *extra)
         for _ in range(self.num_steps - self.n_k * self.k):
-            g = self.single(g, mask_i32, omega)
+            g = self.single(g, mask_i32, omega, *extra)
         if self.shifted:
             return g.to(self.pp.compute_dtype) + self.w_shift.to(device=g.device, dtype=self.pp.compute_dtype)
         return g
@@ -254,12 +335,15 @@ def build_fused_step(stepper, kernel="dma", tile=None):
     float or a 0-d tensor): its backward is the adjoint kernel
     (``kernels/adjoint_step.py``) for "dma", and ``torch.func.vjp`` of the
     TORCH-tier step for "blocked" and in 2D, where the forward still runs
-    the kernel."""
+    the kernel. A scene with an open-boundary BC has no backward yet: under
+    autograd it raises ``NotImplementedError``."""
     sweeps = _FusedSweeps(stepper, 1, shifted=False, kernel=kernel, tile=tile)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
         sweeps.check_backward(f_0, omega)
         mask_i32 = pack_masks(bc_mask, missing_mask)
+        if sweeps.backward is None:
+            return f_0, sweeps.value(f_0.detach(), mask_i32, _host_float(omega))
         return f_0, _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
 
     return step

@@ -12,17 +12,21 @@ Two tiers:
   (D3Q19 and D3Q27) and 2D (D2Q9); one pass over device memory per step,
   or per k steps in a window. The grid must live on a CUDA device. In 3D
   every collision of the TORCH tier runs in the kernels, with the
-  exact-difference body force and halfway walls; in 2D, BGK.
+  exact-difference body force and halfway walls, and on D3Q19 BGK and
+  D3Q27 KBC the open boundaries (Zou-He, regularized, do-nothing,
+  free-slip, extrapolation outflow, per-voxel prescriptions); in 2D, BGK.
+
+BCs take voxel ``indices`` or a triangle mesh (``mesh_vertices``), which
+``prepare_fields`` voxelizes on the host (``geometry``).
 
 Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
 and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
 per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
 ``build_multi_step`` is the fused adjoint kernel
-(``kernels/adjoint_step.py``) for unforced D3Q19 BGK; the other collisions,
-D3Q27 and the forced step have no adjoint kernel yet and raise under
-autograd. In 2D, as in ``xlb_tpu``, the backward of ``stepper(...)`` is
-the TORCH tier's VJP and the window has none (it raises under autograd).
-The masks and BC prescriptions get no gradient.
+(``kernels/adjoint_step.py``); a scene with an open-boundary BC has none
+yet and raises under autograd. In 2D, as in ``xlb_tpu``, the backward of
+``stepper(...)`` is the TORCH tier's VJP and the window has none (it
+raises under autograd). The masks and BC prescriptions get no gradient.
 """
 
 import torch
@@ -125,9 +129,22 @@ class IncompressibleNavierStokesStepper(Stepper):
 
     def _process_boundary_conditions(self, boundary_conditions, bc_mask, missing_mask):
         check_bc_overlaps(boundary_conditions, self.velocity_set.d)
-        unsupported = [type(bc).__name__ for bc in boundary_conditions if bc.indices is None]
-        if unsupported:
-            raise NotImplementedError(f"BCs without voxel indices (mesh-based) are not ported yet: {unsupported}")
+        for bc in boundary_conditions:
+            if bc.needs_mesh_distance:
+                raise NotImplementedError(
+                    f"{type(bc).__name__} needs per-link mesh distances (xlb_tpu's HybridBC and "
+                    "geometry.distances), which are not ported yet")
+            if bc.indices is None and bc.mesh_vertices is None:
+                raise ValueError(f"{type(bc).__name__} has neither indices nor mesh_vertices")
+        with_indices = [bc for bc in boundary_conditions if bc.indices is not None]
+        with_mesh = [bc for bc in boundary_conditions if bc.indices is None]
+        for bc in with_mesh:
+            # voxelize the mesh on the host; its solid voxels take the
+            # indices path, after the BCs given by indices (as xlb_tpu)
+            from xlb_tpu_torch.geometry.mesh_masker import assign_mesh_indices
+
+            assign_mesh_indices(bc, self.grid)
+        boundary_conditions = with_indices + with_mesh
         if boundary_conditions:
             masker = IndicesBoundaryMasker(
                 velocity_set=self.velocity_set,
@@ -158,9 +175,11 @@ class IncompressibleNavierStokesStepper(Stepper):
         feq = self.equilibrium(rho, u)
         f_post_collision = self.collision(f_post_stream, feq, omega)
 
-        # the "pre-streaming" population a collision-step BC reflects is
-        # the post-stream one
+        # staging for the next step (the extrapolation outflow), then the
+        # collision-step BCs; the "pre-streaming" population a collision-step
+        # BC reflects is the post-stream one
         for bc in self.boundary_conditions:
+            f_post_collision = bc.assemble_auxiliary_data(f_post_stream, f_post_collision, bc_mask, missing_mask)
             if bc.implementation_step == ImplementationStep.COLLISION:
                 f_post_collision = bc(f_post_stream, f_post_collision, bc_mask, missing_mask)
 

@@ -33,6 +33,14 @@ def fields_from_numpy(f_0, f_1, bc_mask, missing_mask, device="cuda", dtype=None
     )
 
 
+def aux_from_numpy(aux, device="cuda"):
+    """The aux field of per-voxel BC prescriptions (``xlb_tpu``'s or the
+    port's ``build_aux_field``: a float32 (nchan, *shape) NumPy array, or
+    None) as the contiguous float32 tensor the fused kernels read, on
+    ``device``; None stays None."""
+    return None if aux is None else _to_tensor(aux, device, torch.float32).contiguous()
+
+
 def _as_numpy(t):
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
