@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab LABEL [--quick]   # one tree's kernel times (ab_line)
+    python3 chip_smoke.py --ptxas                # one tree's ptxas report: PTXAS {kernel: [registers,
+                                                 # spill stores, spill loads, static smem]}
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from xlb_tpu_torch/csrc with nvcc (sm_90a) and
@@ -142,11 +144,38 @@
    beside the bound (aux bytes of the inlet included) and its share of
    [16]'s measured copy roofline; [4]'s cavity MLUPS beside those PERF.md
    records for the cavity's kernels before the open-boundary forms.
-18. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+18. The curved-wall path (HybridBC; K1, K2 and K0 with the kExtHybrid
+   epilogues, K3 and K4 with the 2D aux form). K1, K2 (k = 2) and K0
+   against their plain versions at a ragged 100x52x44, f32 and
+   bf16-shifted, on the tunnels of hybrid_bcs past a mesh sphere: for
+   D3Q19 BGK and D3Q27 KBC, each of the four methods, with wall distances
+   and a static moving wall (fullway walls, equilibrium inlet), with t = 1/2
+   and a spinning wall (per-voxel, through the aux field; free-slip walls,
+   regularized inlet and outlet), and with distances and the spinning
+   wall; K0 == K1 and K2 == two K1 launches bit for bit. K3 and K4 (k = 2,
+   8) on the Schafer-Turek scene at D = 20 (441x84: the parabolic inlet
+   through aux, the pressure outlet, halfway walls, the hybrid cylinder
+   with its circle distances) for each method, K4 == k K3 bit for bit;
+   K3 and K4 (k = 8) timed at the scene's D = 60 shape beside the bound.
+   Then the torch forms of cylinder_benchmark_schafer_turek.py (D = 60,
+   ~428,500 steps) and sphere_drag_validation.py (D = 24, ~41,000 steps)
+   at their defaults on the CUDA tier: Cd_max, Cl_max and St in the
+   published intervals, the sphere's Cd in [1.00, 1.18], each beside
+   xlb_tpu's value; CUDA against TORCH tier on the card: 10 steps of
+   stepper(...) (K1) on the sphere tunnel, two shedding periods of the
+   Schafer-Turek force history (K3) and windtunnel_3d.py --object-bc
+   hybrid's Cd history (1e-3 of the largest |value|); launch counts reset
+   before and read after each CUDA run. Then the sphere-drag
+   tunnel at D = 48 (576x288x288, 47.8 M voxels) under FP32FP32 and
+   FP32BF16: the setup's seconds, build_multi_step(200), one warm-up
+   window, best of 3 (MLUPS), and K1, K2, K0 on its final state against
+   the plain version and timed beside the bound (the hybrid voxels' aux bytes
+   included) and [16]'s measured copy roofline.
+19. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
    training times and each kernel's per-dtype errors and times, then the
    kernels' JSON line (K0-K12; K0, K1 and K2 with an "open" entry for the
-   open-boundary path), then the result line {"ok": true, "device":
-   {...}} last.
+   open-boundary path; K0-K4 with a "hybrid" entry for the curved-wall
+   path), then the result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -1922,6 +1951,46 @@ def open_bcs(kind, grid, bnd, geo):
             bnd.ZouHeBC("pressure", profile=lambda: rho_out, indices=box_ne["right"])]
 
 
+# [18]: the curved-wall (hybrid) scenes -- (velocity set, collision) of each tunnel of hybrid_bcs
+HYBRID_PAIRS = (("D3Q19", "BGK"), ("D3Q27", "KBC"))
+HYBRID_METHODS = ("bounceback", "bounceback_regularized", "bounceback_grads", "nonequilibrium_regularized")
+HYBRID_U = 0.03
+
+
+def hybrid_bcs(grid, bnd, geo, method, use_dist=True, wall=None, tunnel="closed"):
+    """The BCs of a tunnel past a hybrid mesh sphere (radius ny / 5 at the
+    centre) on ``grid``, from a package's BC classes and geometry:
+    - tunnel "closed": xlb_tpu's tests/kernels/test_fused_hybrid.py set --
+      fullway walls on the four sides and the back, an equilibrium inlet;
+    - tunnel "open": sphere_drag_validation.py's -- free-slip sides, a
+      regularized velocity inlet and pressure outlet.
+    ``use_dist``: the wall distances from the mesh, or t = 1/2; ``wall``:
+    None, "static" (a constant wall velocity) or "spin" (a per-voxel wall
+    velocity, profile(coords): Omega x (x - c), Omega = 0.01 e_z)."""
+    nx, ny, nz = grid.shape
+    box, box_ne = grid.bounding_box_indices(), grid.bounding_box_indices(remove_edges=True)
+    center = np.array([nx / 2, ny / 2, nz / 2])
+    tris = geo.sphere_triangles(center=center, radius=ny / 5, subdivisions=2)
+
+    def spin(coords):
+        return np.cross(np.array([0.0, 0.0, 0.01])[None, :], (coords - center[:, None]).T).T
+
+    kw = {"static": {"prescribed_value": (0.01, -0.005, 0.002)}, "spin": {"profile": spin}, None: {}}[wall]
+    sphere = bnd.HybridBC(bc_method=method, mesh_vertices=tris, use_mesh_distance=use_dist, **kw)
+    if tunnel == "closed":
+        walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top", "front", "back", "right")],
+                                         axis=1), axis=1)
+        return [bnd.FullwayBounceBackBC(indices=walls.tolist()),
+                bnd.EquilibriumBC(rho=1.0, u=(HYBRID_U, 0.0, 0.0), indices=box_ne["left"]), sphere]
+    g = np.indices(grid.shape)
+    return [bnd.FreeSlipBC(indices=g[:, :, 0, :].reshape(3, -1).tolist(), normal=(0, -1, 0)),
+            bnd.FreeSlipBC(indices=g[:, :, ny - 1, :].reshape(3, -1).tolist(), normal=(0, 1, 0)),
+            bnd.FreeSlipBC(indices=g[:, :, 1:ny - 1, 0].reshape(3, -1).tolist(), normal=(0, 0, -1)),
+            bnd.FreeSlipBC(indices=g[:, :, 1:ny - 1, nz - 1].reshape(3, -1).tolist(), normal=(0, 0, 1)),
+            bnd.RegularizedBC("velocity", prescribed_value=(HYBRID_U, 0.0, 0.0), indices=box_ne["left"]),
+            bnd.RegularizedBC("pressure", prescribed_value=1.0, indices=box_ne["right"]), sphere]
+
+
 OPEN_RAGGED = (100, 52, 44)
 OPEN_OMEGA = 1.6
 OPEN_BIG = (512, 256, 256)  # the flow past a sphere at 33.5 M voxels
@@ -2216,6 +2285,381 @@ def open_big(device):
     return out
 
 
+HYBRID_RAGGED = (100, 52, 44)
+HYBRID_OMEGA = 1.6
+# each pair of HYBRID_PAIRS and method of HYBRID_METHODS in these hybrid_bcs variants: (wall distances, wall, tunnel)
+HYBRID_VARIANTS = ((True, "static", "closed"), (False, "spin", "open"), (True, "spin", "open"))
+HYBRID_2D_D = 20  # the Schafer-Turek scene at D = 20: 441x84 (ragged against K4's 32x48 tile)
+ST_REFERENCE = {"cd_max": 3.2253, "cl_max": 0.9964, "st": 0.2994}  # xlb_tpu's run() at the defaults (its docstring)
+SPHERE_CD_REFERENCE = 1.155  # xlb_tpu's sphere_drag_validation.run() at D = 24 (its docstring)
+ST_PARITY_PERIODS = 2
+SPHERE_BIG_D = 48  # the sphere-drag tunnel at 576x288x288 (47.8 M voxels)
+SPHERE_BIG_WINDOW, SPHERE_BIG_REPS = 200, 3
+
+
+def hybrid_scene(pair, method, use_dist, wall, tunnel, shape, device):
+    """(stepper, prepare_fields()) of a hybrid_bcs tunnel on the TORCH tier."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import boundary, geometry
+    from xlb_tpu_torch import velocity_set as vsets
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    vs_name, collision = pair
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=getattr(vsets, vs_name)(), default_backend=xlb.ComputeBackend.TORCH,
+             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+    grid = xlb.grid_factory(shape, device=device)
+    bcs = hybrid_bcs(grid, boundary, geometry, method, use_dist, wall, tunnel)
+    stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type=collision)
+    return stepper, stepper.prepare_fields()
+
+
+def perturbed(vs, shape, store, shifted, seed, device):
+    """A seeded perturbed state in store form (bf16 deviation form when
+    shifted)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    noise = torch.randn((vs.q,) + tuple(shape), generator=gen, device=device)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape((-1,) + (1,) * vs.d)
+    return ((0.02 * w * noise) if shifted else (w * (1.0 + 0.05 * noise))).to(store).contiguous()
+
+
+def compare_hybrid(device):
+    """[18]: K1, K2 (k = 2) and K0 (kExtHybrid) against their plain versions
+    on the hybrid_bcs tunnels at HYBRID_RAGGED for each pair, method and
+    variant, f32 and bf16-shifted, K0 == K1 and K2 == two K1 launches bit
+    for bit; then K3 and K4 (k = 2, 8; the kExtHybrid 2D form) on the
+    Schafer-Turek scene at D = HYBRID_2D_D for each method, K4 == k K3 bit
+    for bit. Returns ({kernel: largest max |err|}, {kernel: largest
+    tolerance share}, comparisons)."""
+    import torch
+
+    from xlb_tpu_torch.examples.cfd.cylinder_benchmark_schafer_turek import build
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    errs = {k: 0.0 for k in ("K1", "K2", "K0", "K3", "K4")}
+    shares = dict(errs)
+    n = 0
+
+    def note(found):
+        for k, (e, sh) in found.items():
+            errs[k], shares[k] = max(errs[k], e), max(shares[k], sh)
+
+    for pair in HYBRID_PAIRS:
+        for method in HYBRID_METHODS:
+            for use_dist, wall, tunnel in HYBRID_VARIANTS:
+                stepper, (_, _, bc_mask, missing_mask) = hybrid_scene(pair, method, use_dist, wall, tunnel,
+                                                                      HYBRID_RAGGED, device)
+                vs = stepper.velocity_set
+                mask = pack_masks(bc_mask, missing_mask)
+                for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+                    f = perturbed(vs, HYBRID_RAGGED, store, shifted, 18, device)
+                    (one, two, blocked), aux, _ = open_kernels(stepper, store, shifted)
+                    check(one.params.walled == 3, "the hybrid scene did not select the kExtHybrid form")
+                    om = HYBRID_OMEGA
+                    k1, k2, k0 = one(f, mask, om, *aux), two(f, mask, om, *aux), blocked(f, mask, om, *aux)
+                    k11 = one(k1, mask, om, *aux)
+                    p1 = one.plain(f, mask, om, *aux)
+                    p2 = one.plain(p1, mask, om, *aux)
+                    torch.cuda.synchronize()
+                    found = {"K1": held(k1, p1, store), "K2": held(k2, p2, store), "K0": held(k0, p1, store)}
+                    same = torch.equal(k0, k1) and torch.equal(k2, k11)
+                    label = (f"{pair[0]} {pair[1]} {method} {'dist' if use_dist else 'halfway t'} {wall} {tunnel} "
+                             f"{'f32' if store == torch.float32 else 'bf16-shifted'}")
+                    print(f"  {label}: " + ", ".join(f"{k} {e:.2e} ({sh:.3f} of tol)" for k, (e, sh) in found.items())
+                          + f"; K0 == K1 and K2 == 2 K1 {same}")
+                    check(all(bool(torch.isfinite(t.float()).all()) for t in (k1, k2, k0)), f"{label}: non-finite")
+                    check(max(sh for _, sh in found.values()) <= 1.0, f"{label}: a kernel disagrees with its plain version")
+                    check(same, f"{label}: K0 differs from K1, or K2 from two K1 launches")
+                    note(found)
+                    n += 1
+                del stepper, bc_mask, missing_mask, mask
+        torch.cuda.empty_cache()
+    for method in HYBRID_METHODS:
+        stepper, (_, _, bc_mask, missing_mask), omega, _ = build(d=HYBRID_2D_D, hybrid_method=method, backend="torch",
+                                                                  device=device)
+        vs, shape = stepper.velocity_set, tuple(stepper.grid.shape)
+        mask = pack_masks(bc_mask, missing_mask)
+        specs = [bc_to_spec(b, vs) for b in stepper.boundary_conditions]
+        aux = torch.as_tensor(build_aux_field(stepper), device=device).contiguous()
+        for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+            f = perturbed(vs, shape, store, shifted, 19, device)
+            kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+            one = CollideStream2DStep(vs, shape, **kw)
+            check(one.ext == 4, "the Schafer-Turek scene did not select the 2D kExtHybrid form")
+            k3 = one(f, mask, omega, aux)
+            found = {"K3": held(k3, one.plain(f, mask, omega, aux), store)}
+            same = True
+            for k in (2, 8):
+                kstep = CollideStream2DKStep(vs, shape, steps=k, **kw)
+                g = f
+                for _ in range(k):
+                    g = one(g, mask, omega, aux)
+                k4 = kstep(f, mask, omega, aux)
+                found[f"K4 k={k}"] = held(k4, kstep.plain(f, mask, omega, aux), store)
+                same = same and torch.equal(k4, g)
+            torch.cuda.synchronize()
+            label = f"Schafer-Turek {'x'.join(map(str, shape))} {method} {'f32' if store == torch.float32 else 'bf16-shifted'}"
+            print(f"  {label}: " + ", ".join(f"{k} {e:.2e} ({sh:.3f} of tol)" for k, (e, sh) in found.items())
+                  + f"; K4 == k K3 {same}")
+            check(max(sh for _, sh in found.values()) <= 1.0, f"{label}: a kernel disagrees with its plain version")
+            check(same, f"{label}: K4 differs from k K3 launches")
+            note({"K3": found["K3"], "K4": max(found["K4 k=2"], found["K4 k=8"], key=lambda x: x[1])})
+            n += 1
+    return errs, shares, n
+
+
+def counts_2d(reset=False):
+    """{kernel class name: (launches, plain calls)} of K3 and K4."""
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+
+    kernels = (CollideStream2DStep, CollideStream2DKStep)
+    if reset:
+        for k in kernels:
+            k.launches = k.plain_calls = 0
+    return {k.__name__: (k.launches, k.plain_calls) for k in kernels}
+
+
+def hybrid_scripts(device, smi):
+    """[18]: the torch forms of cylinder_benchmark_schafer_turek.py and
+    sphere_drag_validation.py at their defaults on the CUDA tier (launch
+    counts reset just before and read just after each), their results
+    against the published intervals; then CUDA against TORCH tier on the
+    card: OPEN_PARITY_STEPS steps of stepper(...) (K1) on the sphere-drag
+    tunnel (rtol 1e-4), the Schafer-Turek Cd / Cl history over
+    ST_PARITY_PERIODS shedding periods from build()'s state, and
+    windtunnel_3d.py --object-bc hybrid's Cd history (each within 1e-3 of
+    the largest |value|). Returns (record,
+    {kernel: launches of the scripts' CUDA runs})."""
+    import torch
+
+    from xlb_tpu_torch.examples.cfd import cylinder_benchmark_schafer_turek as st
+    from xlb_tpu_torch.examples.cfd import sphere_drag_validation as sd
+    from xlb_tpu_torch.examples.cfd import windtunnel_3d
+    from xlb_tpu_torch.ops import MomentumTransfer
+
+    rec, launches = {}, {}
+
+    def counted(fn, counter):
+        counter(reset=True)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = counter()
+        check(all(p == 0 for _, p in counts.values()), "a plain version ran on a script's CUDA-tier run")
+        for k, (n, _) in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return out, counts, seconds
+
+    (cd_max, cl_max, strouhal), counts, seconds = counted(lambda: st.run(backend="cuda", device=device), counts_2d)
+    gaps = {"cd_max": cd_max - ST_REFERENCE["cd_max"], "cl_max": cl_max - ST_REFERENCE["cl_max"],
+            "st": strouhal - ST_REFERENCE["st"]}
+    inside = all(lo <= v <= hi for v, (lo, hi) in zip((cd_max, cl_max, strouhal), st.INTERVALS.values()))
+    rec["schafer_turek"] = {"cd_max": cd_max, "cl_max": cl_max, "st": strouhal, "gap_to_xlb_tpu": gaps,
+                            "launches": counts, "seconds": seconds, "in_intervals": inside}
+    print(f"  Schafer-Turek at its defaults (D=60, 1321x248, U 0.035, hybrid bounceback), CUDA tier, {smi}: Cd_max "
+          f"{cd_max:.4f} (xlb_tpu {ST_REFERENCE['cd_max']}, {gaps['cd_max']:+.4f}), Cl_max {cl_max:.4f} "
+          f"({ST_REFERENCE['cl_max']}, {gaps['cl_max']:+.4f}), St {strouhal:.4f} ({ST_REFERENCE['st']}, "
+          f"{gaps['st']:+.4f}); published intervals {st.INTERVALS}: {'inside' if inside else 'OUTSIDE'}; "
+          f"{seconds:.1f} s; launches {counts}")
+    check(counts["CollideStream2DKStep"][0] > 0 and counts["CollideStream2DStep"][0] > 0,
+          "the Schafer-Turek run did not launch K3 and K4")
+    check(inside, "Schafer-Turek: Cd_max, Cl_max or St outside the published intervals")
+
+    cd, counts, seconds = counted(lambda: sd.run(backend="cuda", device=device), zoo_counts)
+    lo, hi = sd.CD_BAND
+    rec["sphere_drag"] = {"cd": cd, "launches": counts, "seconds": seconds}
+    print(f"  sphere drag at its defaults (D=24, 288x144x144, Re 100, hybrid bounceback), CUDA tier, {smi}: Cd {cd:.4f} "
+          f"(band [{lo}, {hi}], xlb_tpu {SPHERE_CD_REFERENCE}, published {sd.CD_PUBLISHED[100.0]}); {seconds:.1f} s; "
+          f"launches {counts}")
+    check(counts["CollideStreamKStep"][0] > 0, "the sphere drag run did not launch K2")
+    check(lo <= cd <= hi, f"sphere drag: Cd {cd:.4f} outside [{lo}, {hi}]")
+    # stepper(...) through K1 on the script's tunnel, against the TORCH tier
+    stepper, fields, omega, _ = sd.build(backend="cuda", device=device)
+    err, counts, _ = counted(lambda: open_tier_parity(stepper, fields, omega, "sphere drag D=24"), zoo_counts)
+    check(counts["CollideStreamStep"][0] == OPEN_PARITY_STEPS, "stepper(...) did not launch K1 once per step")
+    rec["sphere_drag"]["tier_err"] = err
+    del stepper, fields
+
+    # CUDA against TORCH tier: the force history over two shedding periods from the same state
+    n = ST_PARITY_PERIODS * st.period_steps(60, 0.035)
+    hist = {}
+    for backend in ("cuda", "torch"):
+        stepper, fields, omega, bc_cyl = st.build(backend=backend, device=device)
+        run = lambda: st.force_history(stepper, fields, omega, MomentumTransfer(bc_cyl), n)[1]
+        if backend == "cuda":
+            hist[backend], counts, _ = counted(run, counts_2d)
+            check(counts["CollideStream2DStep"][0] == n, "stepper(...) did not launch K3 once per step")
+        else:
+            hist[backend] = run()
+        del stepper, fields
+    coef = 2.0 / (0.035**2 * 60)
+    rel = [float(np.abs(hist["cuda"][:, a] - hist["torch"][:, a]).max() / np.abs(hist["torch"][:, a]).max())
+           for a in range(2)]
+    rec["schafer_turek_tiers"] = {"steps": n, "cd_rel_err": rel[0], "cl_rel_err": rel[1],
+                                  "cd_last": coef * float(hist["cuda"][-1, 0]), "cl_last": coef * float(hist["cuda"][-1, 1])}
+    print(f"  Schafer-Turek Cd / Cl over {n} steps ({ST_PARITY_PERIODS} periods), CUDA vs TORCH tier: largest "
+          f"difference {rel[0]:.3e} / {rel[1]:.3e} of the largest |Cd| / |Cl| (Cd, Cl at the end "
+          f"{rec['schafer_turek_tiers']['cd_last']:.4f}, {rec['schafer_turek_tiers']['cl_last']:.4f})")
+    check(max(rel) <= 1e-3, "Schafer-Turek: the tiers' Cd / Cl histories differ")
+
+    cd_c, counts, _ = counted(lambda: windtunnel_3d.run(object_bc="hybrid", backend="cuda", device=device), zoo_counts)
+    cd_t = windtunnel_3d.run(object_bc="hybrid", backend="torch", device=device)
+    rel = float(np.max(np.abs(np.subtract(cd_c, cd_t))) / np.max(np.abs(cd_t)))
+    rec["windtunnel_hybrid"] = {"cd": cd_c, "cd_torch": cd_t, "cd_rel_err": rel, "launches": counts}
+    print(f"  windtunnel_3d --object-bc hybrid: Cd history {[round(c, 4) for c in cd_c]}, TORCH tier "
+          f"{[round(c, 4) for c in cd_t]}, largest difference {rel:.3e} of the largest |Cd|; launches {counts}")
+    check(bool(np.all(np.isfinite(cd_c))) and rel <= 1e-3, "windtunnel_3d hybrid: the tiers' Cd histories differ")
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def hybrid_2d_times(device):
+    """[18]: K3 and K4 (k = 8) in their kExtHybrid form at the
+    Schafer-Turek scene's shape (D=60, 1321x248) on its initial state,
+    f32 and bf16-shifted: against the plain version and timed (CUDA
+    events) beside the bound (the aux bytes of the inlet and the cylinder's
+    voxels included). Returns {kernel: {label: record}}."""
+    import torch
+
+    from xlb_tpu_torch.examples.cfd.cylinder_benchmark_schafer_turek import build
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    stepper, (f_0, _, bc_mask, missing_mask), omega, _ = build(backend="cuda", device=device)
+    vs, shape = stepper.velocity_set, tuple(stepper.grid.shape)
+    mask = pack_masks(bc_mask, missing_mask)
+    specs = [bc_to_spec(b, vs) for b in stepper.boundary_conditions]
+    aux = torch.as_tensor(build_aux_field(stepper), device=device).contiguous()
+    aux_bytes = hybrid_aux_bytes(specs, bc_mask, vs)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1)
+    out = {"K3": {}, "K4": {}}
+    for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
+        f = ((f_0.float() - w) if shifted else f_0.float()).to(store).contiguous()
+        kw = dict(bc_specs=specs, store_dtype=store, shifted=shifted, has_solids=stepper.has_solids)
+        label = "f32" if store == torch.float32 else "bf16-shifted"
+        for name, kern, k in (("K3", CollideStream2DStep(vs, shape, **kw), 1),
+                              ("K4", CollideStream2DKStep(vs, shape, steps=8, **kw), 8)):
+            e, share = held(kern(f, mask, omega, aux), kern.plain(f, mask, omega, aux), store)
+            check(share <= 1.0, f"Schafer-Turek {label}: {name} disagrees with its plain version")
+            r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, aux), 50),
+                 "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, aux), 1)}
+            t_bytes = (2 * f.numel() * f.element_size() + mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
+            t_ops = k * FLOPS_PER_VOXEL["collide_stream_2d_step"][int(shifted)] * mask.numel() / F32_FLOPS_PER_S * 1e3
+            r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            out[name][label] = r
+        print(f"  Schafer-Turek {'x'.join(map(str, shape))} {label}: " + "; ".join(
+            f"{n} {out[n][label]['ms']:.4f} ms (plain {out[n][label]['plain_ms']:.3f}, bound {out[n][label]['bound_ms']:.4f} "
+            f"by {out[n][label]['bound_by']}, max|err| {out[n][label]['max_abs_err']:.2e})" for n in ("K3", "K4")))
+    return out
+
+
+def hybrid_aux_bytes(specs, bc_mask, vs):
+    """Bytes of the aux field the kernels read in one step: at each voxel of
+    a BC that reads it, its channels (a hybrid BC's q weights and, with a
+    per-voxel wall, d velocities; another BC's d velocities or density)."""
+    from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
+
+    total = 0
+    for s in specs:
+        if not spec_uses_aux(s):
+            continue
+        if s["kind"] == "hybrid":
+            ch = (vs.q if s["use_dist"] else 0) + (vs.d if s["mw"] == "aux" else 0)
+        else:
+            ch = 1 if s.get("value") == "aux_rho" else vs.d
+        total += int((bc_mask == s["id"]).sum()) * ch * 4
+    return total
+
+
+def hybrid_big(device):
+    """[18]: the sphere-drag tunnel at D = SPHERE_BIG_D (576x288x288) through
+    sphere_drag_validation.build under FP32FP32 and FP32BF16: the setup's
+    seconds (WINDING voxelization, wall distances, masks, aux field),
+    build_multi_step(SPHERE_BIG_WINDOW), one warm-up window, best of
+    SPHERE_BIG_REPS (MLUPS), launch counts (no plain call), physics
+    checks; then K1, K2 and K0 on the final state against the plain
+    version and timed (CUDA events) beside the bound (the aux bytes of the
+    hybrid voxels included). Returns {policy: record}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.cfd.sphere_drag_validation import build
+    from xlb_tpu_torch.examples.performance.mlups_2d import time_windows
+    from xlb_tpu_torch.kernels.fused_step import build_aux_field, pack_masks
+
+    out = {}
+    for policy in (xlb.PrecisionPolicy.FP32FP32, xlb.PrecisionPolicy.FP32BF16):
+        timings = {}
+        stepper, fields, omega, _ = build(d=SPHERE_BIG_D, backend="cuda", precision=policy.name, device=device,
+                                          timings=timings)
+        shape = tuple(stepper.grid.shape)
+        t0 = time.perf_counter()
+        build_aux_field(stepper)
+        timings["aux"] = time.perf_counter() - t0
+        run = stepper.build_multi_step(SPHERE_BIG_WINDOW)
+        zoo_counts(reset=True)
+        best, (f_0, f_1) = time_windows(run, fields, omega, 1, SPHERE_BIG_REPS)
+        counts = zoo_counts()
+        check(counts["CollideStreamKStep"][0] == (1 + SPHERE_BIG_REPS) * SPHERE_BIG_WINDOW // 2,
+              f"{policy.name}: {counts['CollideStreamKStep'][0]} K2 launches")
+        check(all(p == 0 for _, p in counts.values()), f"{policy.name}: a plain version ran in the windows")
+        mlups = float(np.prod(shape)) * SPHERE_BIG_WINDOW / best / 1e6
+        bc_mask, missing_mask = fields[2], fields[3]
+        fl = f_0.float()
+        rho = fl.sum(dim=0)
+        fluid = bc_mask[0] == 0
+        mean_rho = float(rho[fluid].mean())
+        finite = bool(torch.isfinite(fl).all())
+        del fl, rho, f_1, fields, run
+        torch.cuda.empty_cache()
+        print(f"  sphere-drag tunnel {'x'.join(map(str, shape))} {policy.name}: {mlups:.1f} MLUPS "
+              f"({best / SPHERE_BIG_WINDOW * 1e3:.4f} ms/step, best of {SPHERE_BIG_REPS} windows of {SPHERE_BIG_WINDOW}); "
+              f"setup s: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
+              + f"; launches {counts}; fluid mean rho {mean_rho:.6f}, finite {finite}")
+        check(finite and abs(mean_rho - 1.0) < 5e-2, f"{policy.name}: non-finite, or |mean rho - 1| >= 5e-2")
+
+        shifted = policy == xlb.PrecisionPolicy.FP32BF16
+        store = torch.bfloat16 if shifted else torch.float32
+        vs = stepper.velocity_set
+        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+        f = ((f_0.float() - w) if shifted else f_0.float()).to(store).contiguous()
+        del f_0
+        mask = pack_masks(bc_mask, missing_mask)
+        (one, two, blocked), aux, specs = open_kernels(stepper, store, shifted)
+        aux_bytes = hybrid_aux_bytes(specs, bc_mask, vs)
+        rec = {"mlups": mlups, "ms_per_step": best / SPHERE_BIG_WINDOW * 1e3, "launches": counts, "mean_rho": mean_rho,
+               "setup_s": timings, "aux_bytes": aux_bytes}
+        with torch.no_grad():
+            p1 = one.plain(f, mask, omega, *aux)
+            e1, s1 = held(one(f, mask, omega, *aux), p1, store)
+            e0, s0 = held(blocked(f, mask, omega, *aux), p1, store)
+            p2 = one.plain(p1, mask, omega, *aux)
+            del p1
+            e2, s2 = held(two(f, mask, omega, *aux), p2, store)
+            del p2
+            torch.cuda.empty_cache()
+            check(max(s1, s2, s0) <= 1.0, f"{policy.name}: a kernel disagrees with its plain version at {shape}")
+            for name, kern, steps, e in (("K1", one, 1, e1), ("K2", two, 2, e2), ("K0", blocked, 1, e0)):
+                r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, *aux), 10),
+                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1)}
+                r["bound_ms"], r["bound_by"] = open_bound(vs, "BGK", f, mask, aux_bytes, shifted, steps)
+                rec[name] = r
+                torch.cuda.empty_cache()
+        print("    " + "; ".join(f"{n} {rec[n]['ms']:.4f} ms (plain {rec[n]['plain_ms']:.2f}, bound {rec[n]['bound_ms']:.4f} "
+                                  f"by {rec[n]['bound_by']}, max|err| {rec[n]['max_abs_err']:.2e})" for n in ("K1", "K2", "K0"))
+              + f"; aux bytes per step {aux_bytes}")
+        out[policy.name] = rec
+        del stepper, f, mask, aux, bc_mask, missing_mask, one, two, blocked
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_summary(report):
     """One line per kernel family and (stencil, collision) of ptxas's
     report: the register range over the store forms and variants, the
@@ -2276,6 +2720,10 @@ def main():
     if "--ab" in sys.argv:
         _cuda.load_library()
         ab_line(device, sys.argv[sys.argv.index("--ab") + 1], "--quick" in sys.argv)
+        return 0
+    if "--ptxas" in sys.argv:  # this tree's ptxas report, entry by entry
+        _cuda.load_library()
+        print("PTXAS " + json.dumps({name: list(rest) for name, *rest in _cuda.ptxas_report()}))
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2393,6 +2841,21 @@ def main():
           + ", ".join(f"{k} {perf[k][0]:.1f} / {v} ({perf[k][0] / v - 1:+.2%})" for k, v in CAVITY_RECORDED_MLUPS.items()))
     print(f"  [17] in {time.perf_counter() - t_open:.1f} s")
 
+    print(f"[18] the curved-wall path (HybridBC: K1, K2, K0 with kExtHybrid; K3, K4 with the 2D aux form), {smi}")
+    t_hybrid = time.perf_counter()
+    hybrid_errs, hybrid_shares, n_hybrid = compare_hybrid(device)
+    hybrid_rec, hybrid_counts = hybrid_scripts(device, smi)
+    hybrid_2d = hybrid_2d_times(device)
+    hybrid_perf = hybrid_big(device)
+    print(f"  launches over the scripts' CUDA-tier runs: {hybrid_counts}")
+    for rec in hybrid_perf.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
+        for name in ("K1", "K2", "K0"):
+            rec[name]["roofline_share"] = rec[name]["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9) / rec[name]["ms"]
+    print(f"  the hybrid kernels at the D={SPHERE_BIG_D} tunnel against the measured copy roofline "
+          f"({roofline['GBps']:.1f} GB/s): " + "; ".join(f"{pol} {n} {rec[n]['roofline_share']:.3f}"
+                                                     for pol, rec in hybrid_perf.items() for n in ("K1", "K2", "K0")))
+    print(f"  [18] in {time.perf_counter() - t_hybrid:.1f} s ({n_hybrid} kernel comparisons)")
+
     kernels = []
     for name, cls, source, rep, launches in (
         ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
@@ -2460,6 +2923,23 @@ def main():
                            **{k: big_open[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")},
                            "ms_bf16": open_perf["FP32BF16"][short]["ms"],
                            "bound_ms_bf16": open_perf["FP32BF16"][short]["bound_ms"]}
+    for rec in kernels:  # the curved-wall path's kernels: K1, K2 at the D=48 sphere-drag tunnel, FP32FP32's f32 form
+        short = {"collide_stream_step": "K1", "collide_stream_kstep": "K2", "collide_stream_blocked": "K0",
+                 "collide_stream_2d_step": "K3", "collide_stream_2d_kstep": "K4"}.get(rec["name"])
+        if short:
+            cls = {"K1": "CollideStreamStep", "K2": "CollideStreamKStep", "K0": "CollideStreamBlocked",
+                   "K3": "CollideStream2DStep", "K4": "CollideStream2DKStep"}[short]
+            rec["hybrid"] = {"launches": hybrid_counts.get(cls, 0), "max_abs_err": hybrid_errs[short],
+                             "tolerance_share": hybrid_shares[short]}
+            if short in ("K1", "K2", "K0"):  # the D=48 sphere-drag tunnel, f32 and bf16-shifted
+                big_h = hybrid_perf["FP32FP32"][short]
+                rec["hybrid"].update({k: big_h[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")},
+                                     ms_bf16=hybrid_perf["FP32BF16"][short]["ms"],
+                                     bound_ms_bf16=hybrid_perf["FP32BF16"][short]["bound_ms"])
+            else:  # the Schafer-Turek scene, D=60
+                two_d = hybrid_2d[short]
+                rec["hybrid"].update({k: two_d["f32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                                     ms_bf16=two_d["bf16-shifted"]["ms"], bound_ms_bf16=two_d["bf16-shifted"]["bound_ms"])
     for rec in kernels:  # the byte bound at the measured copy roofline, and the kernel's share of it
         if rec["bound_by"] == "bytes":
             rec["roofline_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9)
@@ -2475,8 +2955,9 @@ def main():
                       "kernel_variants_zoo": big_zoo, "mlups_zoo": perf_zoo, "zoo_tier_err": parity_zoo,
                       "channel": channel, "many_bcs": many_bcs, "zoo_adjoint": zoo_adjoint, "zoo_gradients": zoo_grads,
                       "probes": probes,
-                      "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf}))
-    print(f"[18] all phases in {time.perf_counter() - t_start:.1f} s")
+                      "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf,
+                      "hybrid_scripts": hybrid_rec, "hybrid_2d": hybrid_2d, "hybrid_big": hybrid_perf}))
+    print(f"[19] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -656,3 +656,74 @@ def test_open_kernels_match_plain_versions_on_the_card(cuda_device, kind, store)
     for out, ref in ((k1, p1), (k0, p1), (k2, one.plain(p1, mask, OPEN_OMEGA, *aux))):
         assert held(out, ref, dtype)[1] <= 1.0
     assert torch.equal(k0, k1) and torch.equal(k2, one(k1, mask, OPEN_OMEGA, *aux))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bounceback", "bounceback_regularized", "bounceback_grads",
+                                    "nonequilibrium_regularized"])
+@pytest.mark.parametrize("pair,variant", [(("D3Q19", "BGK"), (True, "static", "closed")),
+                                          (("D3Q27", "KBC"), (False, "spin", "open"))])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_hybrid_kernels_match_plain_versions_on_the_card(cuda_device, method, pair, variant, store):
+    """K1, K2 (k = 2) and K0 with the kExtHybrid epilogues against their
+    plain versions on a hybrid_bcs tunnel at 40x20x24 (f32: rtol 1e-5, atol
+    1e-6; bf16-shifted: 8 bf16 ulps, as chip_smoke's ``held``), K0 == K1 and
+    K2 == two K1 launches bit for bit."""
+    import torch
+
+    from chip_smoke import HYBRID_OMEGA, held, hybrid_scene, open_kernels, perturbed
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    shape = (40, 20, 24)
+    stepper, (_, _, bc_mask, missing_mask) = hybrid_scene(pair, method, *variant, shape, cuda_device)
+    dtype, shifted = getattr(torch, store), store == "bfloat16"
+    f = perturbed(stepper.velocity_set, shape, dtype, shifted, 3, cuda_device)
+    mask = pack_masks(bc_mask, missing_mask)
+    (one, two, blocked), aux, _ = open_kernels(stepper, dtype, shifted)
+    om = HYBRID_OMEGA
+    k1, k2, k0 = one(f, mask, om, *aux), two(f, mask, om, *aux), blocked(f, mask, om, *aux)
+    p1 = one.plain(f, mask, om, *aux)
+    for out, ref in ((k1, p1), (k0, p1), (k2, one.plain(p1, mask, om, *aux))):
+        assert held(out, ref, dtype)[1] <= 1.0
+    assert torch.equal(k0, k1) and torch.equal(k2, one(k1, mask, om, *aux))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bounceback", "nonequilibrium_regularized"])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_hybrid_2d_kernels_match_plain_versions_on_the_card(cuda_device, method, store):
+    """K3 and K4 (k = 8) in their kExtHybrid form on the Schafer-Turek scene
+    at D = 8 (177x34: the parabolic inlet through the aux field, the hybrid
+    cylinder) against their plain versions, K4 == 8 K3 bit for bit; then 50
+    steps of stepper(...) (K3) against the TORCH tier on the card."""
+    import torch
+
+    from chip_smoke import held, perturbed
+    from xlb_tpu_torch.examples.cfd.cylinder_benchmark_schafer_turek import build
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    stepper, fields, omega, _ = build(d=8, hybrid_method=method, backend="cuda", device=cuda_device)
+    vs, shape = stepper.velocity_set, tuple(stepper.grid.shape)
+    dtype, shifted = getattr(torch, store), store == "bfloat16"
+    mask = pack_masks(fields[2], fields[3])
+    kw = dict(bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions], store_dtype=dtype, shifted=shifted,
+              has_solids=stepper.has_solids)
+    aux = torch.as_tensor(build_aux_field(stepper), device=cuda_device)
+    one, eight = CollideStream2DStep(vs, shape, **kw), CollideStream2DKStep(vs, shape, steps=8, **kw)
+    f = perturbed(vs, shape, dtype, shifted, 4, cuda_device)
+    assert held(one(f, mask, omega, aux), one.plain(f, mask, omega, aux), dtype)[1] <= 1.0
+    g = f
+    for _ in range(8):
+        g = one(g, mask, omega, aux)
+    assert torch.equal(eight(f, mask, omega, aux), g)
+    if store == "float32":
+        plain, pfields, _, _ = build(d=8, hybrid_method=method, backend="torch", device=cuda_device)
+        a0, a1, bm, mm = fields
+        b0, b1 = pfields[0], pfields[1]
+        for t in range(50):
+            a0, a1 = stepper(a0, a1, bm, mm, omega, t)
+            a0, a1 = a1, a0
+            b0, b1 = plain(b0, b1, bm, mm, omega, t)
+            b0, b1 = b1, b0
+        torch.testing.assert_close(a0, b0, rtol=1e-4, atol=1e-6)

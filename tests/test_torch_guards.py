@@ -322,22 +322,29 @@ def test_2d_kernel_params_layout():
 
 
 def test_spatial_prescriptions_raise():
-    """Prescriptions that vary in space ride the aux field, which only the
-    3D kernels (K0, K1, K2) read: the 2D kernels refuse them and say so. A
-    Zou-He profile takes no coordinates (as in xlb_tpu): it returns the
-    prescribed values."""
+    """What the 2D kernels (K3, K4) still refuse: the extrapolation
+    outflow, free-slip and do-nothing, naming the kind. Prescriptions that
+    vary in space ride the aux field, which the 2D kernels' kExtHybrid form
+    reads. A Zou-He profile takes no coordinates (as in xlb_tpu): it
+    returns the prescribed values."""
     import xlb_tpu_torch
-    from xlb_tpu_torch.boundary import HalfwayBounceBackBC, ZouHeBC
-    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DStep
+    from xlb_tpu_torch.boundary import (DoNothingBC, ExtrapolationOutflowBC, FreeSlipBC, HalfwayBounceBackBC,
+                                        ZouHeBC)
+    from xlb_tpu_torch.kernels.collide_stream_2d import EXT_2D_HYBRID, CollideStream2DKStep, CollideStream2DStep
     from xlb_tpu_torch.kernels.fused_step import bc_to_spec
     from xlb_tpu_torch.velocity_set import D2Q9
 
     xlb_tpu_torch.init(D2Q9())
     idx = [[0, 1], [3, 3]]
+    for bc in (ExtrapolationOutflowBC(indices=idx), FreeSlipBC(indices=idx, normal=(0, -1)), DoNothingBC(indices=idx)):
+        spec = bc_to_spec(bc, D2Q9())
+        for cls in (CollideStream2DStep, CollideStream2DKStep):
+            with pytest.raises(NotImplementedError, match=f"{spec['kind']}.*2D CUDA kernels"):
+                cls(D2Q9(), (8, 6), bc_specs=[spec])
     for bc in (HalfwayBounceBackBC(indices=idx, profile=lambda coords: np.zeros_like(coords)),
                ZouHeBC("velocity", profile=lambda: np.zeros((2, 5)), indices=idx)):
-        with pytest.raises(NotImplementedError, match="aux"):
-            CollideStream2DStep(D2Q9(), (8, 6), bc_specs=[bc_to_spec(bc, D2Q9())])
+        step = CollideStream2DStep(D2Q9(), (8, 6), bc_specs=[bc_to_spec(bc, D2Q9())])
+        assert step.ext == EXT_2D_HYBRID and step.aux_channels == 2
     with pytest.raises(ValueError, match="zero-argument"):
         ZouHeBC("pressure", profile=lambda coords: coords[0], indices=idx)
 

@@ -25,7 +25,8 @@ free-slip walls and a do-nothing piece.
 - (f) the torch forms of the three scripts at nx=32, nyz=16, 60 steps on
   the TORCH tier against xlb_tpu's ``run()`` (rtol 1e-4: 60 steps of
   float32 roundoff, and the drag a sum over the sphere);
-- (g) guards: HybridBC and mesh distances raise; the CUDA tier refuses
+- (g) guards: K8 refuses a hybrid BC and a mesh HybridBC gets its
+  distances at prepare_fields; the CUDA tier refuses
   autograd through an open-boundary BC naming K8 and refuses the pairs
   without a kExtOpen instantiation; the geometry modules stay under the
   no-JAX guard. (``tests/test_torch_gpu.py``, which imports no JAX, holds
@@ -227,28 +228,35 @@ def test_script_torch_forms_match_xlb_tpu(name, extra):
 
 
 def test_hybrid_and_mesh_distances_raise():
-    """(g) HybridBC is not ported: the name raises, as does any BC that asks
-    for per-link mesh distances; a BC with neither indices nor a mesh
-    raises; the windtunnel's hybrid object raises."""
+    """(g) What still refuses around the curved walls: the adjoint kernel K8
+    does not take a hybrid BC and autograd through a CUDA-tier step or
+    window with one raises naming K8; a BC with neither indices nor a mesh
+    raises. A mesh HybridBC gets its wall distances at prepare_fields."""
+    import torch
+
     import xlb_tpu_torch
     from xlb_tpu_torch import boundary
-    from xlb_tpu_torch.examples.cfd import windtunnel_3d
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_fused_step, build_fused_window
 
-    with pytest.raises(NotImplementedError, match="HybridBC"):
-        boundary.HybridBC
-    with pytest.raises(NotImplementedError, match="HybridBC"):
-        from xlb_tpu_torch.boundary import HybridBC  # noqa: F401
     st, _ = open_scene("xlb_tpu_torch", "sphere", perturb=False)
-    bc = boundary.HalfwayBounceBackBC(mesh_vertices=st.boundary_conditions[3].mesh_vertices)
-    bc.needs_mesh_distance = True
-    stepper = xlb_tpu_torch.models.IncompressibleNavierStokesStepper(st.grid, boundary_conditions=[bc])
-    with pytest.raises(NotImplementedError, match="mesh distances"):
-        stepper.prepare_fields()
+    bcs = list(st.boundary_conditions)
+    bcs[3] = boundary.HybridBC(bc_method="bounceback", mesh_vertices=bcs[3].mesh_vertices)
+    stepper = xlb_tpu_torch.models.IncompressibleNavierStokesStepper(st.grid, boundary_conditions=bcs)
+    f_0, f_1, bc_mask, missing_mask = stepper.prepare_fields()
+    assert bcs[3]._distances is not None and np.isfinite(bcs[3]._distances).any()
+    specs = [bc_to_spec(b, stepper.velocity_set) for b in bcs]
+    with pytest.raises(NotImplementedError, match="K8.*hybrid"):
+        CollideStreamAdjoint(stepper.velocity_set, SHAPE, bc_specs=specs)
+    f = f_0.clone().requires_grad_(True)
+    for run in (build_fused_step(stepper), build_fused_step(stepper, kernel="blocked")):
+        with pytest.raises(NotImplementedError, match="K8"):
+            run(f, f_1, bc_mask, missing_mask, OMEGA)
+    with pytest.raises(NotImplementedError, match="K8"):
+        build_fused_window(stepper, 2)(f_0, f_1, bc_mask, missing_mask, torch.tensor(OMEGA, requires_grad=True))
     bare = boundary.HalfwayBounceBackBC()
     with pytest.raises(ValueError, match="neither indices nor mesh_vertices"):
         xlb_tpu_torch.models.IncompressibleNavierStokesStepper(st.grid, boundary_conditions=[bare]).prepare_fields()
-    with pytest.raises(NotImplementedError, match="HybridBC"):
-        windtunnel_3d.run(nx=16, nyz=8, num_steps=1, object_bc="hybrid", backend="torch", device="cpu")
 
 
 def test_cuda_tier_refuses_what_it_lacks():
@@ -256,7 +264,8 @@ def test_cuda_tier_refuses_what_it_lacks():
     raises naming K8 (no TORCH-tier VJP in its place), for kernel="dma"
     and "blocked"; the adjoint kernel refuses the kinds; a (stencil,
     collision) pair without a kExtOpen instantiation raises at
-    construction; 2D kernels refuse per-voxel prescriptions."""
+    construction; a scene with a per-voxel prescription needs its aux
+    field."""
     import torch
 
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint

@@ -7,6 +7,7 @@ from xlb_tpu_torch.boundary.bc_free_slip import FreeSlipBC
 from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC
 from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
 from xlb_tpu_torch.boundary.bc_extrapolation_outflow import ExtrapolationOutflowBC
+from xlb_tpu_torch.boundary.bc_hybrid import HybridBC
 from xlb_tpu_torch.boundary.maskers import IndicesBoundaryMasker
 
 __all__ = [
@@ -22,13 +23,7 @@ __all__ = [
     "ZouHeBC",
     "RegularizedBC",
     "ExtrapolationOutflowBC",
+    "HybridBC",
     "IndicesBoundaryMasker",
 ]
 
-
-def __getattr__(name):
-    # xlb_tpu's curved-boundary BC needs per-link mesh distances
-    # (geometry/distances.py), the next slice of the port
-    if name == "HybridBC":
-        raise NotImplementedError("HybridBC is not ported yet (it needs xlb_tpu's geometry.distances; ROADMAP Queue A 2)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -48,8 +48,8 @@ class BoundaryCondition(Operator):
         # fluid-side BCs (halfway, Zou-He, regularized) dilate interior
         # geometry into the shell where their missing directions live
         self.needs_padding = False
-        # per-link wall distances of a mesh (xlb_tpu's HybridBC); no BC of
-        # the port sets it yet, and prepare_fields refuses one that does
+        # per-link wall distances of a mesh (HybridBC), computed by
+        # prepare_fields after voxelization
         self.needs_mesh_distance = False
         # stages data for the next step in assemble_auxiliary_data (the
         # extrapolation outflow)

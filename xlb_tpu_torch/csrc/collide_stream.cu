@@ -103,11 +103,11 @@ int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const
 }
 
 // 1 when the library holds the kernel of this configuration (kernel:
-// 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint; walled: 0, 1, or 2 for
-// the open-boundary epilogues).
+// 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint; walled: 0, 1, 2 for
+// the open-boundary epilogues, or 3 for those and the hybrid curved wall).
 int xlb_has_instantiation(int kernel, int q, int collision, int walled, int store_kind, int shifted) {
   return xlb::has_pair(q, collision) && xlb::has_form(kernel, walled, store_kind, shifted) &&
-         (walled != 2 || xlb::has_open(q, collision));
+         (walled < 2 || xlb::has_open(q, collision));
 }
 
 const char* xlb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

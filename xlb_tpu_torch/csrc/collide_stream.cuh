@@ -20,7 +20,11 @@
 //      "do_nothing" (f_s := the centred populations), "free_slip" (missing
 //      l takes the centred mirror of l across the wall) and
 //      "extrapolation_outflow" (missing l takes the centred opp(l): the
-//      value the previous step staged there)
+//      value the previous step staged there); with kExtHybrid (the 3D
+//      curved-wall scenes, and the 2D kernels' aux form) also "hybrid"
+//      (hybrid_epilogue: interpolated bounce-back with the wall distances of
+//      the aux field, then nothing, regularization or Grad's approximation;
+//      or Tao's one-point closure, then regularization)
 //   -> moments, pair-shared quadratic equilibrium, the collision
 //   -> with FORCE, the exact-difference body force
 //      f += feq(rho, u + F) - feq(rho, u) with the pre-collision rho, u
@@ -68,12 +72,21 @@ enum : int {
   XLB_BC_DO_NOTHING = 5,
   XLB_BC_FREE_SLIP = 6,
   XLB_BC_OUTFLOW = 7,  // extrapolation outflow
+  XLB_BC_HYBRID = 8,   // curved wall (HybridBC)
 };
 
 // XlbBc::flag of the kExtOpen epilogues: bit 0 a pressure (density) BC,
 // bit 1 a per-voxel prescription, read from the aux field's channels from
 // flag >> XLB_FLAG_AUX_SHIFT on (the velocity's first, or the density).
 enum : int { XLB_FLAG_PRESSURE = 1, XLB_FLAG_AUX = 2, XLB_FLAG_AUX_SHIFT = 8 };
+
+// XlbBc::flag of a "hybrid" BC: the method in bits 0-1 (XLB_HYB_*), the
+// wall distances in bit 2, the moving wall in bits 3-4 (0 none; 1 static:
+// vec holds 6 w_l (c_l . u); 2 per voxel: vec holds 6 w_l and the aux
+// field the velocity), the first weight channel in bits 8-19, the first
+// velocity channel in bits 20-30.
+enum : int { XLB_HYB_BOUNCEBACK = 0, XLB_HYB_REGULARIZED = 1, XLB_HYB_GRADS = 2, XLB_HYB_TAO = 3 };
+enum : int { XLB_HYB_DIST = 4, XLB_HYB_MW_SHIFT = 3, XLB_HYB_W_SHIFT = 8, XLB_HYB_U_SHIFT = 20 };
 
 enum : int {
   XLB_COLL_BGK = 0,
@@ -366,8 +379,14 @@ __device__ __forceinline__ bool missing_bit(int packed, int l) { return (packed 
 // instantiation compiles. kExtAll (= true) is the 2D kernels' set; the 3D
 // kernels of the collision zoo take halfway alone, and their kExtOpen
 // instantiations (D3Q19 BGK, D3Q27 KBC) every epilogue of the open
-// boundaries.
-enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2, kExtOpen = 3 };
+// boundaries; kExtHybrid is kExtOpen's set and the hybrid curved wall (in
+// 2D: halfway, Zou-He, regularized with the aux field's prescriptions, and
+// hybrid).
+enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2, kExtOpen = 3, kExtHybrid = 4 };
+
+// Whether an instantiation reads the aux field (and, in 3D, stages the
+// outflow).
+__host__ __device__ constexpr bool ext_reads_aux(int ext) { return ext == kExtOpen || ext == kExtHybrid; }
 
 // No aux field and no staging (the kernels that read neither).
 struct NoAux {
@@ -617,11 +636,195 @@ __device__ __forceinline__ void free_slip_epilogue(const Center& center, int pac
   }
 }
 
-// The kExtOpen streaming-step epilogues of BC b at one of its voxels.
-template <class S, bool SHIFTED, typename Center, typename Aux>
+// Packed upper-triangular second moment Pi_t = sum_l cc_l,t fneq_l, the
+// +-1 coefficients as adds in direction order (xlb_tpu's second_moment).
+template <class S, typename F>
+__device__ __forceinline__ void second_moment(const F fneq[S::q], F pi[n_moments<S>()]) {
+#pragma unroll
+  for (int t = 0; t < n_moments<S>(); ++t) {
+    F acc = 0.0f;
+    bool have = false;
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) {
+      const int k = cc<S>(l, t);
+      if (k == 0) continue;
+      const F term = k == 1 ? fneq[l] : -fneq[l];
+      acc = have ? acc + term : term;
+      have = true;
+    }
+    pi[t] = acc;
+  }
+}
+
+// c_l . v as a sum of +-v_a in axis order; have: c_l != 0.
+template <class S, typename F>
+__device__ __forceinline__ F c_dot(int l, const F v[S::d], bool& have) {
+  F cu = 0.0f;
+  have = false;
+#pragma unroll
+  for (int a = 0; a < S::d; ++a) {
+    const int ca = S::c(a, l);
+    if (ca == 0) continue;
+    const F t = ca == 1 ? v[a] : -v[a];
+    cu = have ? add_rn(cu, t) : t;
+    have = true;
+  }
+  return cu;
+}
+
+// Q_l : Pi with every nonzero coefficient as a product, in t order.
+template <class S, typename F>
+__device__ __forceinline__ F qi_contract(int l, const F pi[n_moments<S>()]) {
+  F acc = 0.0f;
+  bool have = false;
+#pragma unroll
+  for (int t = 0; t < n_moments<S>(); ++t) {
+    if (qi<S>(l, t) == 0.0f) continue;
+    const F term = mul_rn(pi[t], F(qi<S>(l, t)));
+    acc = have ? add_rn(acc, term) : term;
+    have = true;
+  }
+  return acc;
+}
+
+// Latt-Chopard regularization of f in place: feq(rho, u of f) + 4.5 w_l
+// Q_l : Pi_neq.
+template <class S, typename F>
+__device__ __forceinline__ void regularize_rn(F f[S::q], const XlbStepParams& p) {
+  F rho, inv_rho, u[S::d], feq[S::q], pi[n_moments<S>()];
+  moments_equilibrium<S, true>(f, p, rho, inv_rho, u, feq);
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) f[l] = sub_rn(f[l], feq[l]);
+  second_moment<S>(f, pi);
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) f[l] = add_rn(feq[l], mul_rn(F(p.w45[l]), qi_contract<S>(l, pi)));
+}
+
+// The "hybrid" curved-wall closure of BC b at one of its voxels (xlb_tpu's
+// _hybrid_epilogue, term by term as the plain body's): fs are the pulled
+// populations, fpre(l) the centred (pre-streaming) ones, unshifted. The
+// wall distances t_l ride the aux field's channels from the flag's weight
+// offset (t = 1/2 without them); a moving wall adds 6 w_l (c_l . u_w),
+// static (vec) or from the aux field's velocity (vec holds 6 w_l), and
+// Tao's closure takes u_w itself: the aux field's, or the static wall's
+// recovered from vec as u_a = (1/2) sum_l c_la vec_l (sum_l w_l c_la c_lb =
+// delta_ab / 3 on D2Q9, D3Q19 and D3Q27). Voxel-local: it reads no
+// neighbour. Products and sums nvcc never contracts; F is float, or the
+// adjoint's Dual.
+template <class S, typename F, typename Fpre, typename Aux>
+__device__ __forceinline__ void hybrid_epilogue(const Fpre& fpre, int packed, const XlbStepParams& p, int b,
+                                                F fs[S::q], const Aux& aux) {
+  constexpr int q = S::q, d = S::d, nt = n_moments<S>();
+  const int flag = p.bc[b].flag;
+  const int method = flag & 3;
+  const bool dist = flag & XLB_HYB_DIST;
+  const int mw = (flag >> XLB_HYB_MW_SHIFT) & 3;
+  const int w_off = (flag >> XLB_HYB_W_SHIFT) & 0xFFF;
+  const int u_off = (flag >> XLB_HYB_U_SHIFT) & 0x7FF;
+  auto t_w = [&](int l) { return dist ? F(aux(w_off + l)) : F(0.5f); };
+
+  if (method != XLB_HYB_TAO) {
+    // Yu-Mei-Shyy interpolated bounce-back; in place, since a missing l
+    // reads fs[opp(l)] only where opp(l) is not missing
+    F uw[d];
+    if (mw == 2) {
+#pragma unroll
+      for (int a = 0; a < d; ++a) uw[a] = F(aux(u_off + a));
+    }
+#pragma unroll
+    for (int l = 0; l < q; ++l) {
+      if (!missing_bit(packed, l)) continue;
+      const int o = S::opp(l);
+      F interp;
+      if (dist && !missing_bit(packed, o)) {
+        const F t = t_w(l);
+        interp = add_rn(mul_rn(sub_rn(F(1.0f), t), fs[o]), mul_rn(t, add_rn(fpre(l), fpre(o)))) / add_rn(F(1.0f), t);
+      } else {  // no distances, or the sandwich (both l and opp(l) missing): plain bounce-back
+        interp = fpre(o);
+      }
+      if (mw == 1) {
+        interp = add_rn(interp, F(p.bc[b].vec[l]));
+      } else if (mw == 2) {
+        bool have;
+        const F cu = c_dot<S>(l, uw, have);
+        if (have) interp = add_rn(interp, mul_rn(F(p.bc[b].vec[l]), cu));
+      }
+      fs[l] = interp;
+    }
+    if (method == XLB_HYB_REGULARIZED) {
+      regularize_rn<S>(fs, p);
+    } else if (method == XLB_HYB_GRADS) {
+      // Grad's approximation of the missing populations: rho w_l (1 + 3 c_l.u)
+      // + 4.5 w_l Q_l : (Pi - rho / 3 I), Pi the second moment of fs
+      F rho, inv_rho, u[d], feq[q], pi[nt];  // feq unused: the compiler drops it
+      moments_equilibrium<S, true>(fs, p, rho, inv_rho, u, feq);
+      second_moment<S>(fs, pi);
+      const F third = rho / F(3.0f);
+#pragma unroll
+      for (int t = 0; t < nt; ++t)
+        if (is_diagonal<S>(t)) pi[t] = sub_rn(pi[t], third);
+#pragma unroll
+      for (int l = 0; l < q; ++l) {
+        if (!missing_bit(packed, l)) continue;
+        bool have;
+        const F cu = c_dot<S>(l, u, have);
+        const F rw = mul_rn(rho, F(p.w[l]));
+        const F g = have ? mul_rn(rw, add_rn(F(1.0f), mul_rn(F(3.0f), cu))) : mul_rn(rw, F(1.0f));
+        fs[l] = add_rn(g, mul_rn(F(p.w45[l]), qi_contract<S>(l, pi)));
+      }
+    }
+    return;
+  }
+
+  // Tao et al.'s one-point closure from the centred populations, then regularization
+  F fp[q], rho_p, inv_rho_p, u_p[d], feq_p[q], feq_w[q];
+#pragma unroll
+  for (int l = 0; l < q; ++l) fp[l] = fpre(l);
+  moments_equilibrium<S, true>(fp, p, rho_p, inv_rho_p, u_p, feq_p);
+  if (mw) {
+    F uw[d];
+#pragma unroll
+    for (int a = 0; a < d; ++a) {
+      if (mw == 2) {
+        uw[a] = F(aux(u_off + a));
+        continue;
+      }
+      float acc = 0.0f;
+#pragma unroll
+      for (int l = 0; l < q; ++l) {
+        const int ca = S::c(a, l);
+        if (ca != 0) acc = ca == 1 ? __fadd_rn(acc, p.bc[b].vec[l]) : __fsub_rn(acc, p.bc[b].vec[l]);
+      }
+      uw[a] = F(__fmul_rn(0.5f, acc));
+    }
+    equilibrium_rn<S>(rho_p, uw, p, feq_w);
+  } else {
+#pragma unroll
+    for (int l = 0; l < q; ++l) feq_w[l] = mul_rn(F(p.w[l]), rho_p);
+  }
+#pragma unroll
+  for (int l = 0; l < q; ++l) {
+    if (!missing_bit(packed, l)) continue;
+    const int o = S::opp(l);
+    const F t = t_w(l);
+    const F f_wall = add_rn(feq_w[l], sub_rn(fp[o], feq_p[o]));
+    fs[l] = add_rn(f_wall, mul_rn(t, fp[l])) / add_rn(F(1.0f), t);
+  }
+  regularize_rn<S>(fs, p);
+}
+
+// The kExtOpen (and kExtHybrid) streaming-step epilogues of BC b at one of
+// its voxels; the free-slip and the outflow are 3D only.
+template <class S, bool SHIFTED, int EXT, typename Center, typename Aux>
 __device__ __forceinline__ void open_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
                                               float fs[S::q], const Aux& aux) {
   const int kind = p.bc_kind[b];
+  if constexpr (EXT == kExtHybrid) {
+    if (kind == XLB_BC_HYBRID) {
+      hybrid_epilogue<S>([&](int l) { return centred<SHIFTED>(center, p, l); }, packed, p, b, fs, aux);
+      return;
+    }
+  }
   if (kind == XLB_BC_HALFWAY) {
     open_halfway_epilogue<S, SHIFTED>(center, packed, p, b, fs, aux);
   } else if (kind == XLB_BC_ZOUHE || kind == XLB_BC_REGULARIZED) {
@@ -629,13 +832,15 @@ __device__ __forceinline__ void open_epilogue(const Center& center, int packed, 
   } else if (kind == XLB_BC_DO_NOTHING) {
 #pragma unroll
     for (int l = 0; l < S::q; ++l) fs[l] = centred<SHIFTED>(center, p, l);
-  } else if (kind == XLB_BC_FREE_SLIP) {
-    free_slip_epilogue<S, SHIFTED>(center, packed, p, b, fs);
-  } else if (kind == XLB_BC_OUTFLOW) {
-    // the values the previous step staged in the outgoing slots
+  } else if constexpr (S::d == 3) {
+    if (kind == XLB_BC_FREE_SLIP) {
+      free_slip_epilogue<S, SHIFTED>(center, packed, p, b, fs);
+    } else if (kind == XLB_BC_OUTFLOW) {
+      // the values the previous step staged in the outgoing slots
 #pragma unroll
-    for (int l = 0; l < S::q; ++l)
-      if (missing_bit(packed, l)) fs[l] = centred<SHIFTED>(center, p, S::opp(l));
+      for (int l = 0; l < S::q; ++l)
+        if (missing_bit(packed, l)) fs[l] = centred<SHIFTED>(center, p, S::opp(l));
+    }
   }
 }
 
@@ -666,8 +871,8 @@ __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Cen
         }
       }
     }
-    if constexpr (EXT == kExtOpen) {
-      if (bc == p.bc_id[b]) open_epilogue<S, SHIFTED>(center, packed, p, b, fs, aux);
+    if constexpr (ext_reads_aux(EXT)) {
+      if (bc == p.bc_id[b]) open_epilogue<S, SHIFTED, EXT>(center, packed, p, b, fs, aux);
     }
   }
   return fixed;
@@ -711,26 +916,6 @@ __device__ __forceinline__ bool has_bc_kind(int bc, const XlbStepParams& p, int 
 
 // Whether a collision-step "fullway" BC claims cell type bc.
 __device__ __forceinline__ bool is_fullway(int bc, const XlbStepParams& p) { return has_bc_kind(bc, p, XLB_BC_FULLWAY); }
-
-// Packed upper-triangular second moment Pi_t = sum_l cc_l,t fneq_l, the
-// +-1 coefficients as adds in direction order (xlb_tpu's second_moment).
-template <class S, typename F>
-__device__ __forceinline__ void second_moment(const F fneq[S::q], F pi[n_moments<S>()]) {
-#pragma unroll
-  for (int t = 0; t < n_moments<S>(); ++t) {
-    F acc = 0.0f;
-    bool have = false;
-#pragma unroll
-    for (int l = 0; l < S::q; ++l) {
-      const int k = cc<S>(l, t);
-      if (k == 0) continue;
-      const F term = k == 1 ? fneq[l] : -fneq[l];
-      acc = have ? acc + term : term;
-      have = true;
-    }
-    pi[t] = acc;
-  }
-}
 
 // Pi : Pi with the off-diagonal entries counted twice:
 // (sum of the diagonal squares) + 2 (sum of the off-diagonal squares).
@@ -955,9 +1140,9 @@ __device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const
 
 // One voxel of one step. pull(l) returns the raw (store-form, as f32)
 // population l pulled from x - c_l; center(l) the raw population l at x;
-// with kExtOpen, aux(channel) the voxel's aux field entry and
-// staged(m, tx, ty, tz) the raw population m at x - t (the outflow's
-// staging). Writes the post-collision populations in store form (shifted
+// with kExtOpen and kExtHybrid, aux(channel) the voxel's aux field entry
+// and (3D) staged(m, tx, ty, tz) the raw population m at x - t (the
+// outflow's staging). Writes the post-collision populations in store form (shifted
 // back when SHIFTED), still in f32, to out. C is the collision; FORCE
 // compiles the exact-difference body force (applied when p.has_force).
 template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, typename Pull, typename Center,
@@ -978,7 +1163,7 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
     for (int l = 0; l < S::q; ++l) out[l] = fs[S::opp(l)];
   }
 
-  if constexpr (EXT == kExtOpen) {
+  if constexpr (ext_reads_aux(EXT) && S::d == 3) {
     for (int b = 0; b < p.n_bc; ++b)
       if (p.bc_kind[b] == XLB_BC_OUTFLOW && bc == p.bc_id[b]) outflow_staging<S, SHIFTED>(staged, packed, p, b, fs, out);
   }

@@ -41,6 +41,15 @@
 // holding 5, and the 32x48 and 40x40 tiles faster than 32x32 and 24x32
 // (PERF.md). TMA staging, clusters and a ping-pong layout that would let
 // two blocks share an SM are left to later work.
+//
+// The kExtHybrid form (EXT == 4: the hybrid curved wall, and the halfway,
+// Zou-He and regularized BCs with the per-voxel prescriptions of the aux
+// field, D2Q9 BGK) reads the aux field (nchan, X, Y) f32 from device
+// memory, at the voxels of the BCs that use it: staging it in shared
+// memory beside the populations, as the TPU kernel stages it in VMEM,
+// would take 125 KB more at the Schafer-Turek scene's 11 channels and no
+// longer fit the block's 227 KB. The hybrid epilogue is voxel-local, so
+// K4 still equals K launches of K3 bit for bit.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -64,10 +73,10 @@ __host__ __device__ inline size_t kstep_2d_smem_bytes(int k, int tx, int ty, siz
   return align16(size_t(D2Q9::q) * (tx + 2 * k) * (ty + 2 * k) * tsize) + size_t(tx + 2 * k - 2) * (ty + 2 * k - 2) * 4;
 }
 
-template <typename T, bool SHIFTED, bool EXT>
+template <typename T, bool SHIFTED, int EXT>
 __global__ void __launch_bounds__(k2dStepThreads)
     step_2d_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y,
-                   float omega, const __grid_constant__ XlbStepParams p) {
+                   float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
   const unsigned n = unsigned(X) * unsigned(Y);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
@@ -83,7 +92,12 @@ __global__ void __launch_bounds__(k2dStepThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[D2Q9::q];
-  collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, mask[v], omega, p, o);
+  if constexpr (EXT == kExtHybrid) {
+    auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
+    collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, mask[v], omega, p, o, aux_at);
+  } else {
+    collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, mask[v], omega, p, o);
+  }
 #pragma unroll
   for (int l = 0; l < D2Q9::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
 }
@@ -101,10 +115,11 @@ __device__ __forceinline__ void stage_chunk(T* dst, const T* src, int W) {
   }
 }
 
-template <typename T, bool SHIFTED, bool EXT>
+template <typename T, bool SHIFTED, int EXT>
 __global__ void __launch_bounds__(k2dKstepThreads, 1)
     kstep_2d_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int TX,
-                    int TY, int K, int W, float omega, const __grid_constant__ XlbStepParams p) {
+                    int TY, int K, int W, float omega, const __grid_constant__ XlbStepParams p,
+                    const float* __restrict__ aux) {
   constexpr int Q = D2Q9::q, THREADS = k2dKstepThreads, V = k2dKstepVoxels;
   extern __shared__ __align__(16) unsigned char smem[];
   const int EX = TX + 2 * K, EY = TY + 2 * K;      // staged populations: depth K
@@ -145,7 +160,16 @@ __global__ void __launch_bounds__(k2dKstepThreads, 1)
       auto pull = [&](int l) { return to_f32(s_f[l * tile + b - D2Q9::c(0, l) * EY - D2Q9::c(1, l)]); };
       auto center = [&](int l) { return to_f32(s_f[l * tile + b]); };
       float o[Q];
-      collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, s_m[(ix + s - 1) * MY + iy + s - 1], omega, p, o);
+      const int packed = s_m[(ix + s - 1) * MY + iy + s - 1];
+      if constexpr (EXT == kExtHybrid) {
+        // the aux field from device memory (read at the voxels of the BCs that use it)
+        auto aux_at = [&](int ch) {
+          return aux[ch * plane + size_t(wrapmod(x0 - h + ix, X)) * Y + wrapmod(y0 - h + iy, Y)];
+        };
+        collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, packed, omega, p, o, aux_at);
+      } else {
+        collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, packed, omega, p, o);
+      }
       if (s < K) {
 #pragma unroll
         for (int l = 0; l < Q; ++l) res[j][l] = from_f32<T>(o[l]);  // store-dtype rounding
@@ -170,19 +194,19 @@ __global__ void __launch_bounds__(k2dKstepThreads, 1)
   }
 }
 
-template <typename T, bool SHIFTED, bool EXT>
+template <typename T, bool SHIFTED, int EXT>
 cudaError_t launch_step_2d(const void* f, const void* mask, void* out, int X, int Y, float omega,
-                           const XlbStepParams& p, cudaStream_t stream) {
+                           const XlbStepParams& p, const float* aux, cudaStream_t stream) {
   const unsigned n = unsigned(X) * unsigned(Y);
   const unsigned blocks = (n + k2dStepThreads - 1) / k2dStepThreads;
   step_2d_kernel<T, SHIFTED, EXT><<<blocks, k2dStepThreads, 0, stream>>>(
-      static_cast<const T*>(f), static_cast<const int*>(mask), static_cast<T*>(out), X, Y, omega, p);
+      static_cast<const T*>(f), static_cast<const int*>(mask), static_cast<T*>(out), X, Y, omega, p, aux);
   return cudaGetLastError();
 }
 
-template <typename T, bool SHIFTED, bool EXT>
+template <typename T, bool SHIFTED, int EXT>
 cudaError_t launch_kstep_2d(const void* f, const void* mask, void* out, int X, int Y, int TX, int TY, int K,
-                            float omega, const XlbStepParams& p, cudaStream_t stream) {
+                            float omega, const XlbStepParams& p, const float* aux, cudaStream_t stream) {
   if ((TX + 2 * K - 2) * (TY + 2 * K - 2) > k2dKstepVoxels * k2dKstepThreads) return cudaErrorInvalidValue;
   const size_t smem = kstep_2d_smem_bytes(K, TX, TY, sizeof(T));
   if (smem > k2dMaxSharedBytes) return cudaErrorInvalidValue;
@@ -196,16 +220,20 @@ cudaError_t launch_kstep_2d(const void* f, const void* mask, void* out, int X, i
   while (W > 1 && (Y % W || TY % W || K % W || reinterpret_cast<uintptr_t>(f) % (W * sizeof(T)))) W /= 2;
   const dim3 grid((Y + TY - 1) / TY, (X + TX - 1) / TX);
   kstep_2d_kernel<T, SHIFTED, EXT><<<grid, k2dKstepThreads, smem, stream>>>(
-      static_cast<const T*>(f), static_cast<const int*>(mask), static_cast<T*>(out), X, Y, TX, TY, K, W, omega, p);
+      static_cast<const T*>(f), static_cast<const int*>(mask), static_cast<T*>(out), X, Y, TX, TY, K, W, omega, p,
+      aux);
   return cudaGetLastError();
 }
 
 // Calls fn(T{}, shifted tag, ext tag) with the compile-time variant the
-// runtime codes select.
+// runtime codes select: ext kExtNone, kExtAll or kExtHybrid.
 template <typename F>
 cudaError_t dispatch_2d(int store_kind, int shifted, int ext, const F& fn) {
   auto by_ext = [&](auto t, auto sh) -> cudaError_t {
-    return ext ? fn(t, sh, std::true_type{}) : fn(t, sh, std::false_type{});
+    if (ext == kExtHybrid) return fn(t, sh, std::integral_constant<int, kExtHybrid>{});
+    if (ext == kExtAll) return fn(t, sh, std::integral_constant<int, kExtAll>{});
+    if (ext == kExtNone) return fn(t, sh, std::integral_constant<int, kExtNone>{});
+    return cudaErrorInvalidValue;
   };
   auto by_shift = [&](auto t) -> cudaError_t {
     return shifted ? by_ext(t, std::true_type{}) : by_ext(t, std::false_type{});
@@ -219,26 +247,32 @@ cudaError_t dispatch_2d(int store_kind, int shifted, int ext, const F& fn) {
 
 extern "C" {
 
-// store_kind: 0 = float32, 1 = bfloat16; ext: 1 when a halfway, zouhe or
-// regularized BC is present. Returns the cudaError_t of the launch.
+// store_kind: 0 = float32, 1 = bfloat16; ext: 0 (kExtNone), 1 (kExtAll: a
+// halfway, zouhe or regularized BC with constant prescriptions) or 4
+// (kExtHybrid: a hybrid BC or a per-voxel prescription); aux: the
+// (nchan, X, Y) float32 aux field of kExtHybrid, or null. Returns the
+// cudaError_t of the launch.
 int xlb_collide_stream_2d_step(int store_kind, int shifted, int ext, const void* f, const void* mask, void* out, int X,
-                               int Y, float omega, const XlbStepParams* params, void* stream) {
+                               int Y, float omega, const void* aux, const XlbStepParams* params, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const XlbStepParams& p = *params;
+  const float* a = static_cast<const float*>(aux);
   return xlb::dispatch_2d(store_kind, shifted, ext, [&](auto t, auto sh, auto ex) {
-    return xlb::launch_step_2d<decltype(t), decltype(sh)::value, decltype(ex)::value>(f, mask, out, X, Y, omega, p, s);
+    return xlb::launch_step_2d<decltype(t), decltype(sh)::value, decltype(ex)::value>(f, mask, out, X, Y, omega, p, a,
+                                                                                        s);
   });
 }
 
 int xlb_collide_stream_2d_kstep(int store_kind, int shifted, int ext, int steps, const void* f, const void* mask,
-                                void* out, int X, int Y, int TX, int TY, float omega, const XlbStepParams* params,
-                                void* stream) {
+                                void* out, int X, int Y, int TX, int TY, float omega, const void* aux,
+                                const XlbStepParams* params, void* stream) {
   if (steps < 2 || steps > 8 || TX < 1 || TY < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const XlbStepParams& p = *params;
+  const float* a = static_cast<const float*>(aux);
   return xlb::dispatch_2d(store_kind, shifted, ext, [&](auto t, auto sh, auto ex) {
     return xlb::launch_kstep_2d<decltype(t), decltype(sh)::value, decltype(ex)::value>(f, mask, out, X, Y, TX, TY,
-                                                                                         steps, omega, p, s);
+                                                                                         steps, omega, p, a, s);
   });
 }
 

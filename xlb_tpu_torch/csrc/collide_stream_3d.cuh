@@ -41,14 +41,19 @@
 // shared memory; the wrapper sizes the tile so that two 256-thread blocks
 // fit on an SM (D3Q19 bf16 4x8x32 at k=2: 78 KB; f32 4x4x32: 93 KB).
 //
-// With kExtOpen a kernel also takes the aux field (nchan, X, Y, Z) f32 of
-// the BCs' per-voxel prescriptions, read only at the voxels of those BCs,
+// With kExtOpen and kExtHybrid (kExtOpen's epilogues and the hybrid
+// curved wall, whose wall-distance weights ride the aux field too) a
+// kernel also takes the aux field (nchan, X, Y, Z) f32 of the BCs'
+// per-voxel prescriptions, read only at the voxels of those BCs,
 // and the outflow's staging reads one more population per staged slot at
 // x - t (|t_a| <= 1): step_kernel from device memory, kstep_kernel's first
 // sweep too and its later sweeps from the previous sweep in shared memory
 // (region-local index + 1 - t; the source region's depth h + 1 covers it),
 // blocked_kernel from device memory (its staged boxes hold only the pull
-// sources). So K2 still equals k K1 launches, and K0 K1, bit for bit.
+// sources). The hybrid epilogue is voxel-local (its pre-streaming
+// populations are the centre reads, in K2's later sweeps the previous
+// sweep's, rounded to the store dtype). So K2 still equals k K1 launches,
+// and K0 K1, bit for bit.
 //
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
 // the family, adjoint_kernel (K8, adjoint_step.cuh) the fourth.
@@ -104,7 +109,7 @@ __global__ void __launch_bounds__(kStepThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[S::q];
-  if constexpr (EXT == kExtOpen) {
+  if constexpr (ext_reads_aux(EXT)) {
     auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
     auto staged = [&](int m, int tx, int ty, int tz) {
       return to_f32(f[m * plane + (size_t(wrap1(x - tx, X)) * Y + wrap1(y - ty, Y)) * Z + wrap1(z - tz, Z)]);
@@ -143,7 +148,7 @@ __global__ void __launch_bounds__(kKstepThreads)
       const int gx = wrapmod(x0 - h + ix, X), gy = wrapmod(y0 - h + iy, Y), gz = wrapmod(z0 - h + iz, Z);
       const size_t g = (size_t(gx) * Y + gy) * Z + gz;
       const int packed = mask[g];
-      auto aux_at = [&](int ch) { return aux[ch * plane + g]; };  // read by kExtOpen only
+      auto aux_at = [&](int ch) { return aux[ch * plane + g]; };  // read by kExtOpen and kExtHybrid only
 
       float o[S::q];
       if (s == 1) {
@@ -155,7 +160,7 @@ __global__ void __launch_bounds__(kKstepThreads)
           return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
         };
         auto center = [&](int l) { return to_f32(f[l * plane + g]); };
-        if constexpr (EXT == kExtOpen) {
+        if constexpr (ext_reads_aux(EXT)) {
           auto staged = [&](int m, int tx, int ty, int tz) {
             return to_f32(f[m * plane + (size_t(wrap1(gx - tx, X)) * Y + wrap1(gy - ty, Y)) * Z + wrap1(gz - tz, Z)]);
           };
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(kKstepThreads)
                             (iz + 1 - S::c(2, l))]);
         };
         auto center = [&](int l) { return to_f32(src[l * svol + ((ix + 1) * sy + (iy + 1)) * sz + (iz + 1)]); };
-        if constexpr (EXT == kExtOpen) {
+        if constexpr (ext_reads_aux(EXT)) {
           auto staged = [&](int m, int tx, int ty, int tz) {
             return to_f32(src[m * svol + ((ix + 1 - tx) * sy + (iy + 1 - ty)) * sz + (iz + 1 - tz)]);
           };
@@ -207,7 +212,7 @@ struct XlbLaunch {
   cudaStream_t stream;
   const void* g;  // adjoint: the cotangent (f32, like f); out is df
   void* dom;      // adjoint: the per-voxel omega cotangent
-  const float* aux;  // kExtOpen: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null
+  const float* aux;  // kExtOpen, kExtHybrid: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null
 };
 
 }  // namespace xlb
@@ -223,18 +228,20 @@ namespace xlb {
 // for the single steps and the adjoint (stepper(...) under FP32BF16), each
 // unwalled and walled (halfway epilogue and body force); and for the pairs
 // of has_open, the forward kernels with kExtOpen (walled == 2: every
-// open-boundary epilogue, the halfway walls and the body force).
+// open-boundary epilogue, the halfway walls and the body force) and with
+// kExtHybrid (walled == 3: those and the hybrid curved wall).
 constexpr bool has_form(int kernel, int walled, int store_kind, int shifted) {
-  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 2) return false;
-  if (walled == 2 && kernel == XLB_KERNEL_ADJOINT) return false;
+  if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 3) return false;
+  if (walled >= 2 && kernel == XLB_KERNEL_ADJOINT) return false;
   if (store_kind == 0) return !shifted;
   if (store_kind == 1) return shifted || kernel != XLB_KERNEL_KSTEP;
   return false;
 }
 
-// The (stencil, collision) pairs with kExtOpen instantiations: the open-
-// boundary scenes' D3Q19 BGK (flow past a sphere) and D3Q27 KBC (wind
-// tunnel, rotating sphere).
+// The (stencil, collision) pairs with kExtOpen and kExtHybrid
+// instantiations: the open-boundary and curved-wall scenes' D3Q19 BGK
+// (flows past a sphere, the sphere drag) and D3Q27 KBC (wind tunnel,
+// rotating sphere).
 constexpr bool has_open(int q, int collision) {
   return (q == 19 && collision == XLB_COLL_BGK) || (q == 27 && collision == XLB_COLL_KBC);
 }
@@ -242,7 +249,7 @@ constexpr bool has_open(int q, int collision) {
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 cudaError_t launch_kernel(const XlbLaunch& a) {
   constexpr int store = std::is_same<T, float>::value ? 0 : 1;
-  constexpr int W = EXT == kExtOpen ? 2 : int(FORCE);  // the walled form of this instantiation
+  constexpr int W = EXT == kExtHybrid ? 3 : (EXT == kExtOpen ? 2 : int(FORCE));  // this instantiation's walled form
   const T* f = static_cast<const T*>(a.f);
   const int* mask = static_cast<const int*>(a.mask);
   T* out = static_cast<T*>(a.out);
@@ -302,23 +309,29 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
   return cudaErrorInvalidValue;  // outside the table
 }
 
-// The kExtOpen kernels of a pair of has_open, instantiated by
-// XLB_INSTANTIATE_OPEN in a source of their own (collide_stream_*_open.cu),
-// so that the build compiles them beside the pair's other kernels.
+// The kExtOpen and kExtHybrid kernels of a pair of has_open, instantiated
+// by XLB_INSTANTIATE_OPEN and XLB_INSTANTIATE_HYBRID in sources of their
+// own (collide_stream_*_open.cu, collide_stream_*_hybrid.cu), so that the
+// build compiles them beside the pair's other kernels.
 template <class S, class C>
 cudaError_t launch_open(const XlbLaunch& a);
-
 template <class S, class C>
+cudaError_t launch_hybrid(const XlbLaunch& a);
+
+template <class S, class C, int EXT>
 cudaError_t launch_open_impl(const XlbLaunch& a) {
   if (a.store_kind == 0)
-    return a.shifted ? launch_kernel<S, C, float, true, kExtOpen, true>(a)
-                     : launch_kernel<S, C, float, false, kExtOpen, true>(a);
-  return a.shifted ? launch_kernel<S, C, __nv_bfloat16, true, kExtOpen, true>(a)
-                   : launch_kernel<S, C, __nv_bfloat16, false, kExtOpen, true>(a);
+    return a.shifted ? launch_kernel<S, C, float, true, EXT, true>(a) : launch_kernel<S, C, float, false, EXT, true>(a);
+  return a.shifted ? launch_kernel<S, C, __nv_bfloat16, true, EXT, true>(a)
+                   : launch_kernel<S, C, __nv_bfloat16, false, EXT, true>(a);
 }
 
 template <class S, class C, typename T, bool SHIFTED>
 cudaError_t launch_walled(const XlbLaunch& a) {
+  if (a.p->walled == 3) {
+    if constexpr (has_open(S::q, C::id)) return launch_hybrid<S, C>(a);
+    return cudaErrorInvalidValue;
+  }
   if (a.p->walled == 2) {
     if constexpr (has_open(S::q, C::id)) return launch_open<S, C>(a);
     return cudaErrorInvalidValue;
@@ -346,6 +359,10 @@ cudaError_t launch_pair(const XlbLaunch& a);
 
 #define XLB_INSTANTIATE_OPEN(S, C) \
   template <>                      \
-  cudaError_t launch_open<S, C>(const XlbLaunch& a) { return launch_open_impl<S, C>(a); }
+  cudaError_t launch_open<S, C>(const XlbLaunch& a) { return launch_open_impl<S, C, kExtOpen>(a); }
+
+#define XLB_INSTANTIATE_HYBRID(S, C) \
+  template <>                        \
+  cudaError_t launch_hybrid<S, C>(const XlbLaunch& a) { return launch_open_impl<S, C, kExtHybrid>(a); }
 
 }  // namespace xlb

@@ -29,7 +29,7 @@
 // element, inside the caching allocator's 512-byte granule; the wrapper
 // checks that the tensor starts on a 4-byte boundary.
 //
-// With kExtOpen the aux field and the outflow's staged neighbours
+// With kExtOpen and kExtHybrid the aux field and the outflow's staged neighbours
 // (x - t, |t_a| <= 1, at outflow voxels only) are read from device memory,
 // as step_kernel reads them.
 //
@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kBlockedThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[S::q];
-  if constexpr (EXT == kExtOpen) {
+  if constexpr (ext_reads_aux(EXT)) {
     auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
     auto staged = [&](int m, int tx, int ty, int tz) {
       return to_f32(f[m * plane + (size_t(wrap1(x - tx, X)) * Y + wrap1(y - ty, Y)) * Z + wrap1(z - tz, Z)]);

@@ -5,12 +5,12 @@
 
 D3Q27 KBC; an EquilibriumBC inlet, an ExtrapolationOutflowBC outlet,
 fullway walls, halfway bounce-back on the voxelized object (a sphere, or
-an STL mesh scaled into the tunnel), and the drag and lift coefficients
-from ``MomentumTransfer`` after every ``print_every`` steps. The
-reference's ``--object-bc hybrid`` needs ``HybridBC``, which is not
-ported yet: it raises. ``--backend cuda`` (the default) runs
-``build_multi_step(print_every)`` windows on the CUDA tier; ``torch`` the
-TORCH tier.
+an STL mesh scaled into the tunnel) or, with ``--object-bc hybrid``, a
+HybridBC (Tao's closure with regularization, ``nonequilibrium_regularized``,
+and the mesh's wall distances), and the drag and lift coefficients from
+``MomentumTransfer`` after every ``print_every`` steps. ``--backend cuda``
+(the default) runs ``build_multi_step(print_every)`` windows on the CUDA
+tier; ``torch`` the TORCH tier.
 """
 
 import argparse
@@ -56,7 +56,7 @@ def run(nx=96, nyz=48, re=200.0, u_in=0.04, num_steps=1000, stl=None, print_ever
     bc_inlet = boundary.EquilibriumBC(rho=1.0, u=(u_in, 0.0, 0.0), indices=box_ne["left"])
     bc_outlet = boundary.ExtrapolationOutflowBC(indices=box_ne["right"])
     if object_bc == "hybrid":
-        bc_object = boundary.HybridBC(bc_method="nonequilibrium_regularized", mesh_vertices=tris)  # raises
+        bc_object = boundary.HybridBC(bc_method="nonequilibrium_regularized", mesh_vertices=tris)
     else:
         bc_object = boundary.HalfwayBounceBackBC(mesh_vertices=tris)
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=[bc_walls, bc_inlet, bc_outlet, bc_object],

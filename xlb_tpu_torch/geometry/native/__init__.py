@@ -6,8 +6,10 @@ At first use g++ (-O3 -march=native -fopenmp) compiles it into
 hash of the source, the flags and the host (``-march=native`` code runs
 only where it was built), under a file lock, never next to the source.
 Where g++ fails, ``voxelize`` warns and takes its pure-NumPy path, as
-``xlb_tpu``'s does; ``XLB_TPU_NO_NATIVE=1`` forces that path. This is
-host-side setup, not a device kernel.
+``xlb_tpu``'s does; ``XLB_TPU_NO_NATIVE=1`` forces that path. The same
+library holds the HybridBC wall distances' ray sweep
+(``directional_distances_native``). This is host-side setup, not a device
+kernel.
 """
 
 import ctypes
@@ -77,6 +79,7 @@ def _load():
         lib.voxelize_ray.argtypes = [c_double_p, i64, i64, i64, i64, c_double_p, ctypes.c_double, c_uint8_p]
         lib.winding_numbers.argtypes = [c_double_p, i64, c_double_p, i64, c_double_p]
         lib.triangle_shell.argtypes = [c_double_p, i64, i64, i64, i64, c_double_p, ctypes.c_double, c_uint8_p]
+        lib.directional_distances.argtypes = [c_double_p, i64, c_double_p, i64, c_double_p, i64, c_double_p]
         _lib = lib
     return _lib
 
@@ -123,6 +126,22 @@ def winding(tris, points):
     return out
 
 
+def directional_distances_native(tris, voxels, directions):
+    """The native Moller-Trumbore sweep of ``geometry.distances``; None: take
+    the NumPy one. tris (m, 3, 3); voxels (3, n) centres; directions (3, q).
+    Returns (q, n) hit fractions along each unnormalized direction."""
+    lib = _load()
+    if lib is None:
+        return None
+    tris = np.ascontiguousarray(tris, dtype=np.float64)
+    origins = np.ascontiguousarray(np.asarray(voxels, dtype=np.float64).T)  # (n, 3)
+    dirs = np.ascontiguousarray(np.asarray(directions, dtype=np.float64).T)  # (q, 3)
+    n, q = origins.shape[0], dirs.shape[0]
+    out = np.empty((q, n), dtype=np.float64)
+    lib.directional_distances(_dptr(tris), tris.shape[0], _dptr(origins), n, _dptr(dirs), q, _dptr(out))
+    return out
+
+
 def voxelize_native(tris, shape, origin, spacing, method_name, close_voxels):
     """The native path of ``geometry.voxelize``; None: take the NumPy one."""
     lib = _load()
@@ -138,7 +157,11 @@ def voxelize_native(tris, shape, origin, spacing, method_name, close_voxels):
         closed = _erode(_dilate(shell(tris, shape, origin, spacing), close_voxels), close_voxels)
         return closed | ray_fill(tris, shape, origin, spacing)
     if method_name == "WINDING":
-        grid = np.stack(np.meshgrid(*[np.arange(s) + 0.5 for s in shape], indexing="ij"), axis=-1)
-        points = np.asarray(origin) + grid.reshape(-1, 3) * spacing
-        return (winding(tris, points) > 0.5).reshape(shape)
+        from xlb_tpu_torch.geometry.voxelize import winding_candidates
+
+        cand = winding_candidates(tris, shape, origin, spacing)
+        points = np.asarray(origin) + (np.stack(np.nonzero(cand), axis=-1) + 0.5) * spacing
+        solid = np.zeros(shape, dtype=bool)
+        solid[cand] = winding(tris, points) > 0.5
+        return solid
     return None

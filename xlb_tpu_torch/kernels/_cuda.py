@@ -29,7 +29,7 @@ MAX_BC = 256  # the packed id field's reach (XLB_MAX_BC)
 STORE_KIND = {torch.float32: 0, torch.bfloat16: 1}  # the launchers' store_kind codes
 # the XlbStepParams::bc_kind codes (enum in csrc/collide_stream.cuh)
 BC_KIND = {"equilibrium": 0, "fullway": 1, "halfway": 2, "zouhe": 3, "regularized": 4, "do_nothing": 5,
-           "free_slip": 6, "extrapolation_outflow": 7}
+           "free_slip": 6, "extrapolation_outflow": 7, "hybrid": 8}
 # the collision codes of XlbStepParams::collision (enum in csrc/collide_stream.cuh)
 COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "PowerLawBGK": 5}
 
@@ -37,10 +37,12 @@ COLLISION = {"BGK": 0, "KBC": 1, "SmagorinskyLESBGK": 2, "TRT": 3, "MRT": 4, "Po
 class XlbBc(ctypes.Structure):
     """Mirror of ``struct XlbBc`` in ``csrc/collide_stream.cuh``: the
     constant prescription of one BC (``vec``: the equilibrium's feq, the
-    halfway moving-wall term -- or 6 w_l for a per-voxel wall velocity --,
-    the Zou-He / regularized velocity or density, the free-slip or outflow
-    normal and the outflow's sound speed; ``flag``: a moving wall, a
-    pressure BC, a per-voxel prescription and its aux channel)."""
+    halfway or hybrid moving-wall term -- or 6 w_l for a per-voxel wall
+    velocity --, the Zou-He / regularized velocity or density, the
+    free-slip or outflow normal and the outflow's sound speed; ``flag``: a
+    moving wall, a pressure BC, a per-voxel prescription and its aux
+    channel, or a hybrid BC's method, distances, moving wall and aux
+    channels, ``collide_stream_dma.hybrid_flag``)."""
 
     _fields_ = [
         ("flag", ctypes.c_int),
@@ -210,9 +212,11 @@ def load_library():
     lib.xlb_has_instantiation.restype = i32
     lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
     lib.xlb_collide_stream_adjoint.restype = i32
-    lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, params, ptr]
+    # ... omega, aux (or null), params, stream
+    lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, ptr, params, ptr]
     lib.xlb_collide_stream_2d_step.restype = i32
-    lib.xlb_collide_stream_2d_kstep.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_2d_kstep.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr, params,
+                                                ptr]
     lib.xlb_collide_stream_2d_kstep.restype = i32
     lib.xlb_collide_only.argtypes = [ptr, ptr, ptr, i32, f32, params, ptr]
     lib.xlb_collide_only.restype = i32

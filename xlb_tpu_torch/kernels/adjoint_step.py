@@ -31,10 +31,10 @@ from xlb_tpu_torch.kernels import _cuda
 from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
 from xlb_tpu_torch.kernels.collide_stream_dma import OPEN_KINDS, FusedKernel, plain_collide
 
-# BC kinds the adjoint kernel does not take yet: the open-boundary
-# epilogues of the forward (xlb_tpu's fused adjoint takes them; ROADMAP
-# Queue A 4), and any per-voxel (aux) prescription.
-ADJOINT_UNSUPPORTED_KINDS = tuple(sorted(OPEN_KINDS))
+# BC kinds the adjoint kernel does not take yet: the open-boundary and
+# curved-wall epilogues of the forward (xlb_tpu's fused adjoint takes them;
+# ROADMAP Queue A 4), and any per-voxel (aux) prescription.
+ADJOINT_UNSUPPORTED_KINDS = tuple(sorted(OPEN_KINDS | {"hybrid"}))
 
 
 def adjoint_supported(bc_specs):
@@ -71,7 +71,7 @@ class CollideStreamAdjoint(FusedKernel):
                             if not adjoint_supported([s])})
             raise NotImplementedError(
                 f"the adjoint kernel K8 does not take the BC kinds {kinds} yet (ROADMAP Queue A 4): no gradient "
-                "through a fused step with open boundaries")
+                "through a fused step with open boundaries or curved walls")
         super().__init__(velocity_set, shape, collision, bc_specs, compute_dtype, store_dtype, shifted, has_solids,
                          force_vector)
 

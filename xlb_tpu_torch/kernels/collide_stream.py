@@ -5,8 +5,9 @@
 kinds this port supports: the streaming-step ``equilibrium``,
 ``do_nothing``, ``halfway`` (constant or per-voxel moving wall),
 ``free_slip``, ``zouhe`` and ``regularized`` (constant or per-voxel
-velocity or density) and ``extrapolation_outflow`` BCs, the
-collision-step ``fullway`` BC, the outflow's post-collision staging, the
+velocity or density), ``extrapolation_outflow`` and ``hybrid`` (the
+curved walls: four methods, wall distances, static or per-voxel moving
+wall) BCs, the collision-step ``fullway`` BC, the outflow's post-collision staging, the
 solid keep-out and shifted (g = f - w) load and store, around moments, the
 pair-shared quadratic equilibrium, the collision (BGK, KBC, Smagorinsky,
 PowerLaw, TRT, MRT, in the kernel body's form: TRT per opposite pair, MRT
@@ -16,7 +17,7 @@ CUDA kernels (``csrc/collide_stream.cuh``) compute the same terms in the
 same order; this version is what the CPU tests run and what
 ``chip_smoke.py`` holds the kernels against. Per-voxel prescriptions ride
 the aux field of ``fused_step.build_aux_field``, in the channel layout of
-``aux_layout``.
+``aux_layout``, with the hybrid BCs' wall-distance weights.
 """
 
 import numpy as np
@@ -70,10 +71,10 @@ def kernel_sfv_id(q):
 
 def spec_uses_aux(spec):
     """True when a BC spec reads a per-voxel aux channel (a prescribed
-    velocity or density, or a moving-wall velocity) -- as
-    ``xlb_tpu.kernels.collide_stream.spec_uses_aux`` for the kinds the port
-    takes."""
-    return _names(spec.get("mw"), "aux") or _names(spec.get("value"), "aux", "aux_rho")
+    velocity or density, a moving-wall velocity, or a hybrid BC's wall
+    distances) -- as ``xlb_tpu.kernels.collide_stream.spec_uses_aux``."""
+    return (_names(spec.get("mw"), "aux") or _names(spec.get("value"), "aux", "aux_rho")
+            or (spec["kind"] == "hybrid" and spec["use_dist"]))
 
 
 def _names(x, *names):
@@ -84,16 +85,24 @@ def _names(x, *names):
 
 def aux_layout(bc_specs, vs):
     """The channel layout of the aux field shared by the kernel body and
-    ``fused_step.build_aux_field``: d velocity channels first (spatial
-    prescribed-velocity and moving-wall BCs), then one prescribed-density
-    channel (spatial pressure BCs), as ``xlb_tpu``'s ``aux_layout`` lays
-    them out before its hybrid wall-distance blocks. Returns (u_off,
-    rho_off, nchan), an offset None when no BC needs that channel."""
+    ``fused_step.build_aux_field``, as ``xlb_tpu``'s ``aux_layout``: d
+    velocity channels first (spatial prescribed-velocity and moving-wall
+    BCs), then one prescribed-density channel (spatial pressure BCs), then
+    one block of q wall-distance weights per hybrid BC with distances,
+    keyed by BC id. Returns (u_off, rho_off, w_offs, nchan), an offset None
+    when no BC needs that channel."""
     has_u = any(_names(s.get("mw"), "aux") or _names(s.get("value"), "aux") for s in bc_specs)
     has_rho = any(_names(s.get("value"), "aux_rho") for s in bc_specs)
     u_off = 0 if has_u else None
-    rho_off = (vs.d if has_u else 0) if has_rho else None
-    return u_off, rho_off, (vs.d if has_u else 0) + (1 if has_rho else 0)
+    off = vs.d if has_u else 0
+    rho_off = off if has_rho else None
+    off += 1 if has_rho else 0
+    w_offs = {}
+    for s in bc_specs:
+        if s["kind"] == "hybrid" and s["use_dist"]:
+            w_offs[s["id"]] = off
+            off += vs.q
+    return u_off, rho_off, w_offs, off
 
 
 def outflow_cs():
@@ -303,6 +312,114 @@ def _zouhe_epilogue(vs, spec, on, missing, f_s, w, aux=None, u_off=None, rho_off
     return [torch.where(on, f_bd[l], f_s[l]) for l in range(q)]
 
 
+def _cu_list(c, l, d, u):
+    """c_l . u as a sum of +-u_a in axis order, or None when c_l = 0."""
+    cu = None
+    for a in range(d):
+        if c[a, l] == 0:
+            continue
+        t = u[a] if c[a, l] == 1 else -u[a]
+        cu = t if cu is None else cu + t
+    return cu
+
+
+def _qi_contract(vs, pi):
+    """Q_l : Pi per direction l, every coefficient as a product (a list of
+    q slabs), as ``xlb_tpu``'s body contracts it."""
+    qi = vs._qi
+    out = []
+    for l in range(vs.q):
+        acc = None
+        for t in range(qi.shape[1]):
+            if qi[l, t] == 0:
+                continue
+            term = pi[t] * _f32(qi[l, t])
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
+
+def _regularize_list(vs, f_bd, feq):
+    """Latt-Chopard: feq_l + 4.5 w_l Q_l : Pi_neq."""
+    qipi = _qi_contract(vs, second_moment(vs, [f_bd[l] - feq[l] for l in range(vs.q)]))
+    return [feq[l] + _f32(4.5 * vs._w[l]) * qipi[l] if qipi[l] is not None else feq[l] for l in range(vs.q)]
+
+
+def _hybrid_epilogue(vs, spec, on, missing, f_s, f_pre, w, aux=None, u_off=None, w_offs=None):
+    """The hybrid curved-boundary closure, term by term as ``xlb_tpu``'s
+    kernel body (``_hybrid_epilogue``): Yu-Mei-Shyy interpolated
+    bounce-back (plain bounce-back where both l and opp(l) are missing),
+    then nothing, Latt-Chopard regularization or Grad's approximation of
+    the missing populations; or Tao's one-point closure, then
+    regularization. The weights t_l ride the aux field's block
+    ``w_offs[id]`` when the BC has distances, else t = 1/2; a moving wall
+    is a static 6 w_l (c_l . u) or the aux field's velocity."""
+    q, d, c, opp = vs.q, vs.d, vs._c, vs._opp_indices
+    method, use_dist, mw = spec["method"], spec["use_dist"], spec["mw"]
+    miss = [missing(l) for l in range(q)]
+    u_aux = [aux[u_off + a] for a in range(d)] if _names(mw, "aux") else None
+
+    def mw_term(l):
+        if mw is None:
+            return None
+        if u_aux is not None:
+            cu = _cu_list(c, l, d, u_aux)
+            return None if cu is None else _f32(6.0 * vs._w[l]) * cu
+        return _f32(mw[l])
+
+    if use_dist:
+        t_w = [aux[w_offs[spec["id"]] + l] for l in range(q)]
+    else:
+        t_w = [0.5] * q  # only the Tao closure reads these
+
+    if method != "nonequilibrium_regularized":
+        f_bd = []
+        for l in range(q):
+            o = int(opp[l])
+            if use_dist:
+                interp = ((1.0 - t_w[l]) * f_s[o] + t_w[l] * (f_pre(l) + f_pre(o))) / (1.0 + t_w[l])
+                interp = torch.where(miss[l] & miss[o], f_pre(o), interp)  # sandwich: plain bounce-back
+            else:
+                interp = f_pre(o)
+            mwl = mw_term(l)
+            if mwl is not None:
+                interp = interp + mwl
+            f_bd.append(torch.where(miss[l], interp, f_s[l]))
+        if method == "bounceback":
+            return [torch.where(on, f_bd[l], f_s[l]) for l in range(q)]
+        rho, u = _moments(f_bd, c, q, d)
+        if method == "bounceback_regularized":
+            f_bd = _regularize_list(vs, f_bd, _equilibrium(rho, u, c, w, opp, q, d))
+        else:  # Grad's approximation for the missing populations
+            pi = second_moment(vs, f_bd)
+            diag = vs.diagonal_moment_indices
+            qipi = _qi_contract(vs, [pi[t] - rho / 3.0 if t in diag else pi[t] for t in range(len(pi))])
+            for l in range(q):
+                cu = _cu_list(c, l, d, u)
+                grads = rho * w[l] * (1.0 if cu is None else 1.0 + 3.0 * cu)
+                if qipi[l] is not None:
+                    grads = grads + _f32(4.5 * vs._w[l]) * qipi[l]
+                f_bd[l] = torch.where(miss[l], grads, f_bd[l])
+    else:  # Tao et al.'s one-point closure
+        fp = [f_pre(l) for l in range(q)]
+        rho_p, u_p = _moments(fp, c, q, d)
+        feq_p = _equilibrium(rho_p, u_p, c, w, opp, q, d)
+        if u_aux is not None:
+            feq_w = _equilibrium(rho_p, u_aux, c, w, opp, q, d)
+        elif mw is not None:
+            feq_w = _equilibrium(rho_p, [torch.full_like(rho_p, _f32(x)) for x in spec["u_wall"]], c, w, opp, q, d)
+        else:
+            feq_w = [w[l] * rho_p for l in range(q)]
+        f_bd = []
+        for l in range(q):
+            o = int(opp[l])
+            f_wall = feq_w[l] + (fp[o] - feq_p[o])
+            f_bd.append(torch.where(miss[l], (f_wall + t_w[l] * fp[l]) / (1.0 + t_w[l]), f_s[l]))
+        rho2, u2 = _moments(f_bd, c, q, d)
+        f_bd = _regularize_list(vs, f_bd, _equilibrium(rho2, u2, c, w, opp, q, d))
+    return [torch.where(on, f_bd[l], f_s[l]) for l in range(q)]
+
+
 def _scalar_f32(x, like):
     """A float or tensor as float32 on ``like``'s device (the kernels hold
     omega and the per-voxel rates in float32)."""
@@ -431,7 +548,7 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
     w = f32_weights(vs)
     if not isinstance(omega, torch.Tensor):
         omega = float(np.float32(omega))
-    u_off, rho_off, _ = aux_layout(bc_specs, vs)
+    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs)
     bc = unpack_bc_id(packed, q)
     f_s = [fs_raw[l] + w[l] if shifted else fs_raw[l] for l in range(q)]
 
@@ -473,6 +590,8 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
                     f_s[l] = torch.where(on & missing(l), f_pre(int(spec["spec_indices"][l])), f_s[l])
         elif kind in ("zouhe", "regularized"):
             f_s = _zouhe_epilogue(vs, spec, on, missing, f_s, w, aux, u_off, rho_off)
+        elif kind == "hybrid":
+            f_s = _hybrid_epilogue(vs, spec, on, missing, f_s, f_pre, w, aux, u_off, w_offs)
         elif kind == "extrapolation_outflow":
             # missing directions take the values staged in the outgoing
             # slots by the previous step

@@ -6,13 +6,18 @@ and k-step kernels and their plain versions.
 ``CollideStream2DKStep`` (K4) of ``build_fused_collide_stream_2d_kstep``.
 Their CUDA kernels (``csrc/collide_stream_2d.cu``) replace those TPU
 kernels in their plain mode, with and without shifted storage, for the
-epilogue kinds equilibrium, fullway, halfway (constant moving wall),
-zouhe and regularized (constant prescriptions). The TPU tiling does not
-carry over: there the y pulls are lane rolls over a lane-resident Y and
-the x halos come as 8-row blocks, which is why xlb_tpu needs
-8 | tile_x | X. Here the single step is one thread per voxel pulling
-through L1/L2, and the k-step stages a (32, 48) tile with a depth-k halo
-in x and y in shared memory, so any (X, Y) goes.
+epilogue kinds equilibrium, fullway, halfway, zouhe and regularized
+(constant prescriptions: the kExtAll form) and, in the kExtHybrid form,
+the hybrid curved wall (four methods, wall distances, static or per-voxel
+moving wall) and the per-voxel prescriptions of the aux field (a halfway
+wall's velocity, a Zou-He / regularized velocity or density). The 2D
+outflow, free-slip and do-nothing are not ported: they raise. The TPU
+tiling does not carry over: there the y pulls are lane rolls over a
+lane-resident Y and the x halos come as 8-row blocks, which is why
+xlb_tpu needs 8 | tile_x | X. Here the single step is one thread per voxel
+pulling through L1/L2, and the k-step stages a (32, 48) tile with a
+depth-k halo in x and y in shared memory, so any (X, Y) goes. Both read
+the aux field from device memory, at the voxels of the BCs that use it.
 
 The k-step's plain version is k single plain steps, each rounded to the
 store dtype, which is what the kernel computes.
@@ -24,6 +29,7 @@ import torch
 
 from xlb_tpu_torch.kernels import _cuda
 from xlb_tpu_torch.kernels.collide_stream_2step import _align16
+from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
 from xlb_tpu_torch.kernels.collide_stream_dma import EXT_KINDS, FusedKernel
 
 MAX_STEPS = 8  # 2 <= k <= 8, as in xlb_tpu
@@ -33,6 +39,17 @@ TILE = (32, 48)
 # mirrors k2dKstepThreads and k2dKstepVoxels of csrc/collide_stream_2d.cu: a
 # sweep's region must fit the voxels the block's threads hold in registers
 KSTEP_THREADS, KSTEP_VOXELS = 1024, 3
+# the 2D kernels' EXT codes (csrc/collide_stream.cuh): kExtNone, kExtAll
+# (constant halfway / Zou-He / regularized), kExtHybrid (those with the aux
+# field's prescriptions, and hybrid)
+EXT_2D_NONE, EXT_2D_ALL, EXT_2D_HYBRID = 0, 1, 4
+
+
+def ext_2d(bc_specs):
+    """The EXT form a 2D scene's BCs need."""
+    if any(s["kind"] == "hybrid" or spec_uses_aux(s) for s in bc_specs):
+        return EXT_2D_HYBRID
+    return EXT_2D_ALL if any(s["kind"] in EXT_KINDS for s in bc_specs) else EXT_2D_NONE
 
 
 def kstep_2d_smem_bytes(steps, tile, itemsize, q=9):
@@ -48,7 +65,7 @@ class _Fused2D(FusedKernel):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.ext = any(spec["kind"] in EXT_KINDS for spec in self.bc_specs)
+        self.ext = ext_2d(self.bc_specs)
 
 
 class CollideStream2DStep(_Fused2D):
@@ -57,15 +74,15 @@ class CollideStream2DStep(_Fused2D):
     launches = 0
     plain_calls = 0
 
-    def plain(self, f, mask_i32, omega):
+    def plain(self, f, mask_i32, omega, aux=None):
         CollideStream2DStep.plain_calls += 1
-        return self._plain_step(f, mask_i32, omega)
+        return self._plain_step(f, mask_i32, omega, aux)
 
-    def _launch(self, lib, f, mask_i32, out, omega, stream):
+    def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y = self.shape
         return lib.xlb_collide_stream_2d_step(
-            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), int(self.ext), f.data_ptr(), mask_i32.data_ptr(),
-            out.data_ptr(), X, Y, omega, ctypes.byref(self.params), stream,
+            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), self.ext, f.data_ptr(), mask_i32.data_ptr(),
+            out.data_ptr(), X, Y, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,
         )
 
 
@@ -84,17 +101,18 @@ class CollideStream2DKStep(_Fused2D):
             raise ValueError(f"2D temporal blocking takes 2 <= steps <= {MAX_STEPS}, got {steps}")
         self.steps = int(steps)
 
-    def plain(self, f, mask_i32, omega):
+    def plain(self, f, mask_i32, omega, aux=None):
         """k single plain steps, each rounded to the store dtype."""
         CollideStream2DKStep.plain_calls += 1
         for _ in range(self.steps):
-            f = self._plain_step(f, mask_i32, omega)
+            f = self._plain_step(f, mask_i32, omega, aux)
         return f
 
-    def _launch(self, lib, f, mask_i32, out, omega, stream):
+    def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y = self.shape
         TX, TY = TILE
         return lib.xlb_collide_stream_2d_kstep(
-            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), int(self.ext), self.steps, f.data_ptr(),
-            mask_i32.data_ptr(), out.data_ptr(), X, Y, TX, TY, omega, ctypes.byref(self.params), stream,
+            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), self.ext, self.steps, f.data_ptr(),
+            mask_i32.data_ptr(), out.data_ptr(), X, Y, TX, TY, omega, _cuda.data_ptr(aux), ctypes.byref(self.params),
+            stream,
         )

@@ -9,7 +9,7 @@ D3Q19 and D3Q27, every collision, the exact-difference force and halfway
 walls, and -- on D3Q19 BGK and D3Q27 KBC -- the open-boundary epilogues
 (``OPEN_KINDS``: do-nothing, free-slip, Zou-He and regularized in 3D,
 extrapolation outflow with its staging, per-voxel prescriptions from the
-aux field). The TPU kernel's double-buffered halo DMAs have no counterpart: on
+aux field) and the hybrid curved wall (the kExtHybrid form). The TPU kernel's double-buffered halo DMAs have no counterpart: on
 Hopper each thread pulls its q neighbours straight from device memory, and
 L1/L2 serve the reuse.
 
@@ -58,24 +58,56 @@ def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shi
 # them in the 2D kernels (K3, K4); halfway alone in the 3D kernels of the
 # collision zoo (K0, K1, K2) and their adjoint (K8)
 EXT_KINDS = ("halfway", "zouhe", "regularized")
-KINDS_2D = frozenset({"equilibrium", "fullway"} | set(EXT_KINDS))
+# the 2D kernels' kinds: with a hybrid BC or a per-voxel prescription they
+# run their kExtHybrid form (EXT_2D_HYBRID)
+KINDS_2D = frozenset({"equilibrium", "fullway", "hybrid"} | set(EXT_KINDS))
 # the kinds of the 3D kernels that take no EXT epilogue (K5, K7, K8) and of
 # those that take halfway
 BASE_KINDS_3D = frozenset({"equilibrium", "fullway"})
 ZOO_KINDS_3D = BASE_KINDS_3D | {"halfway"}
 # the open-boundary epilogues (EXT == kExtOpen), in K0, K1 and K2 only, and
-# only for OPEN_PAIRS; a halfway wall with a per-voxel velocity is one too
+# only for OPEN_PAIRS; a halfway wall with a per-voxel velocity is one too.
+# The hybrid curved wall (EXT == kExtHybrid: kExtOpen's epilogues and
+# hybrid) likewise.
 OPEN_KINDS = frozenset({"do_nothing", "free_slip", "zouhe", "regularized", "extrapolation_outflow"})
-OPEN_KINDS_3D = ZOO_KINDS_3D | OPEN_KINDS
+OPEN_KINDS_3D = ZOO_KINDS_3D | OPEN_KINDS | {"hybrid"}
 OPEN_PAIRS = ((19, "BGK"), (27, "KBC"))
 # XlbBc.flag bits of the open epilogues; the aux channel offset sits above them
 FLAG_PRESSURE, FLAG_AUX, FLAG_AUX_SHIFT = 1, 2, 8
+# XlbBc.flag of a hybrid BC: the method in bits 0-1 (HYBRID_METHODS'
+# order), the wall distances in bit 2, the moving wall's form in bits 3-4
+# (0 none, 1 static: vec holds 6 w_l (c_l . u); 2 per voxel: vec holds
+# 6 w_l, the aux field the velocity), the weights' first aux channel in bits
+# 8-19 and the velocity's in bits 20-30
+HYBRID_METHODS = ("bounceback", "bounceback_regularized", "bounceback_grads", "nonequilibrium_regularized")
+FLAG_HYB_DIST, FLAG_HYB_MW_SHIFT, FLAG_HYB_W_SHIFT, FLAG_HYB_U_SHIFT = 4, 3, 8, 20
+
+
+def has_hybrid(bc_specs):
+    """True when a scene has a hybrid (curved-wall) BC."""
+    return any(s["kind"] == "hybrid" for s in bc_specs)
 
 
 def needs_open(bc_specs, dims=3):
-    """True when a 3D scene's BCs need the open-boundary instantiation
-    (kExtOpen): an open kind, or a per-voxel prescription."""
-    return dims == 3 and any(s["kind"] in OPEN_KINDS or spec_uses_aux(s) for s in bc_specs)
+    """True when a 3D scene's BCs need the open-boundary (kExtOpen) or the
+    curved-wall (kExtHybrid) instantiation: an open kind, a hybrid BC, or a
+    per-voxel prescription."""
+    return dims == 3 and (has_hybrid(bc_specs) or any(s["kind"] in OPEN_KINDS or spec_uses_aux(s) for s in bc_specs))
+
+
+def hybrid_flag(spec, u_off, w_offs):
+    """The ``XlbBc.flag`` of a hybrid BC's spec."""
+    flag = HYBRID_METHODS.index(spec["method"])
+    if spec["use_dist"]:
+        w_off = w_offs[spec["id"]]
+        if w_off >= 1 << 12:
+            raise NotImplementedError(f"the hybrid BC's weights at aux channel {w_off} exceed the flag's 12 bits")
+        flag |= FLAG_HYB_DIST | (w_off << FLAG_HYB_W_SHIFT)
+    if isinstance(spec["mw"], str):
+        flag |= (2 << FLAG_HYB_MW_SHIFT) | (u_off << FLAG_HYB_U_SHIFT)
+    elif spec["mw"] is not None:
+        flag |= 1 << FLAG_HYB_MW_SHIFT
+    return flag
 
 
 def _f32_list(values):
@@ -105,15 +137,15 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     if len(bc_specs) > _cuda.MAX_BC:
         raise ValueError(f"{len(bc_specs)} BCs exceed the packed id field's {_cuda.MAX_BC} ids")
     allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else KINDS_2D)
-    u_off, rho_off, _ = aux_layout(bc_specs, vs)
+    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs)
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
         if kind not in allowed:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the {vs.d}D CUDA kernels")
-        if spec_uses_aux(spec) and not (vs.d == 3 and OPEN_KINDS <= set(allowed)):
+        if spec_uses_aux(spec) and "hybrid" not in allowed:
             raise NotImplementedError(
-                f"a per-voxel {kind!r} prescription needs the aux channels, which only the 3D kernels K0, K1 and K2 "
-                "read")
+                f"a per-voxel {kind!r} prescription needs the aux channels, which only the kernels K0, K1, K2, K3 "
+                "and K4 read")
         p.bc_kind[b] = _cuda.BC_KIND[kind]
         p.bc_id[b] = kernel_bc_id(int(spec["id"]), q)
         bc = p.bc[b]
@@ -133,6 +165,12 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
             else:
                 value = _f32_list(spec["value"])
                 bc.vec[: len(value)] = value
+        elif kind == "hybrid":
+            bc.flag = hybrid_flag(spec, u_off, w_offs)
+            if isinstance(spec["mw"], str):
+                bc.vec[:q] = _f32_list(6.0 * vs._w)
+            elif spec["mw"] is not None:
+                bc.vec[:q] = _f32_list(spec["mw"])
         elif kind in ("free_slip", "extrapolation_outflow"):
             # the outward normal; the outflow's sound speed after it
             bc.vec[:3] = [float(x) for x in spec["normal"]]
@@ -150,9 +188,9 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     if needs_open(bc_specs, vs.d):
         if (q, name) not in OPEN_PAIRS:
             raise NotImplementedError(
-                f"the open-boundary epilogues ({sorted({s['kind'] for s in bc_specs})}) are instantiated for "
-                f"D3Q19 BGK and D3Q27 KBC only, got D3Q{q} {name}")
-        p.walled = 2  # the kExtOpen instantiation
+                f"the open-boundary and curved-wall epilogues ({sorted({s['kind'] for s in bc_specs})}) are "
+                f"instantiated for D3Q19 BGK and D3Q27 KBC only, got D3Q{q} {name}")
+        p.walled = 3 if has_hybrid(bc_specs) else 2  # the kExtHybrid or kExtOpen instantiation
     if force_vector is not None:
         p.has_force = 1
         p.force[: vs.d] = _f32_list(force_vector)
@@ -225,7 +263,7 @@ class FusedKernel:
         self.has_solids = bool(has_solids)
         kinds = self.bc_kinds if self.bc_kinds is not None else (ZOO_KINDS_3D if self.zoo else None)
         self.params = kernel_params(velocity_set, self.bc_specs, has_solids, kinds, collision, self.force_vector)
-        self.aux_channels = aux_layout(self.bc_specs, velocity_set)[2]
+        self.aux_channels = aux_layout(self.bc_specs, velocity_set)[3]
 
     def _plain_step(self, f, mask_i32, omega, aux=None):
         """One plain step of this configuration, stored in the store dtype."""
@@ -253,7 +291,8 @@ class FusedKernel:
         if not lib.xlb_has_instantiation(self.kernel_kind, p.q, p.collision, p.walled,
                                          _cuda.STORE_KIND[self.store_dtype], int(self.shifted)):
             name, _ = split_collision(self.collision)
-            form = ("unwalled", "walled (halfway / force)", "open boundaries (kExtOpen)")[p.walled]
+            form = ("unwalled", "walled (halfway / force)", "open boundaries (kExtOpen)",
+                    "curved walls (kExtHybrid)")[p.walled]
             raise NotImplementedError(
                 f"{type(self).__name__}: no CUDA instantiation for D3Q{p.q} {name}, {form}, store {self.store_dtype}, "
                 f"shifted={self.shifted} (the table of csrc/collide_stream_3d.cuh)")

@@ -5,12 +5,12 @@ Translates BC objects into static kernel epilogue specs, packs
 aux field of per-voxel prescriptions (``build_aux_field``), and builds the
 CUDA-tier step and window, in 3D (D3Q19, D3Q27) and 2D (D2Q9). BCs
 supported in the fused step: EquilibriumBC, FullwayBounceBackBC and
-HalfwayBounceBackBC with a constant wall everywhere; ZouHeBC and
-RegularizedBC with constant prescriptions in 2D; and in 3D on D3Q19 BGK
-and D3Q27 KBC (the open-boundary kernels) ZouHeBC and RegularizedBC,
-DoNothingBC, FreeSlipBC, ExtrapolationOutflowBC and per-voxel
-prescriptions (a halfway wall's velocity, a Zou-He / regularized velocity
-or density); any other kind or pair raises. In 3D every collision of
+HalfwayBounceBackBC with a constant wall everywhere; in 2D ZouHeBC,
+RegularizedBC, HybridBC and per-voxel prescriptions (a halfway wall's
+velocity, a Zou-He / regularized velocity or density); and in 3D on D3Q19
+BGK and D3Q27 KBC (the open-boundary and curved-wall kernels) ZouHeBC and
+RegularizedBC, DoNothingBC, FreeSlipBC, ExtrapolationOutflowBC, HybridBC
+and the per-voxel prescriptions; any other kind or pair raises. In 3D every collision of
 the TORCH tier and the exact-difference body force run in the kernels,
 through the single-step kernel (``kernel="dma"``, the default, with the
 k-step kernel in windows) or the block-tiled one (``kernel="blocked"``).
@@ -29,6 +29,7 @@ from xlb_tpu_torch.boundary.bc_do_nothing import DoNothingBC
 from xlb_tpu_torch.boundary.bc_equilibrium import EquilibriumBC
 from xlb_tpu_torch.boundary.bc_extrapolation_outflow import ExtrapolationOutflowBC
 from xlb_tpu_torch.boundary.bc_free_slip import FreeSlipBC
+from xlb_tpu_torch.boundary.bc_hybrid import HybridBC
 from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
 from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC, _broadcast_prescribed
 from xlb_tpu_torch.kernels.collide_stream import aux_layout, bc_id_shift, kernel_collision_spec, packed_cell
@@ -61,6 +62,20 @@ def bc_to_spec(bc, velocity_set):
     if isinstance(bc, ExtrapolationOutflowBC):
         return {"kind": "extrapolation_outflow", "id": bc.id, "step": step,
                 "normal": np.asarray(bc.normal, dtype=np.int64)}
+    if isinstance(bc, HybridBC):
+        # as xlb_tpu's: the method, whether the wall distances ride the aux
+        # field, and a static moving-wall term 6 w_l (c_l . u) with its u,
+        # "aux" (the velocity in the aux field) or None
+        spec = {"kind": "hybrid", "id": bc.id, "step": step, "method": bc.bc_method,
+                "use_dist": bool(bc.needs_mesh_distance), "mw": None}
+        if bc.needs_moving_wall_treatment:
+            if bc.spatial:
+                spec["mw"] = "aux"
+            else:
+                u_wall = bc.wall_velocity_np()
+                spec["mw"] = 6.0 * velocity_set._w * (velocity_set._c.T.astype(np.float64) @ u_wall)
+                spec["u_wall"] = u_wall
+        return spec
     if isinstance(bc, (ZouHeBC, RegularizedBC)):
         kind = "regularized" if isinstance(bc, RegularizedBC) else "zouhe"
         value = np.asarray(bc.prescribed_values, dtype=np.float64)
@@ -77,18 +92,20 @@ def bc_to_spec(bc, velocity_set):
 def build_aux_field(stepper):
     """The aux field of the BCs' per-voxel prescriptions, as a host NumPy
     (nchan, *shape) float32 array, or None when no BC has one -- the port
-    of ``xlb_tpu.kernels.fused_step.build_aux_field`` (without its hybrid
-    wall-distance channels), channel for channel: d velocity channels
-    (spatial Zou-He / regularized velocities, moving-wall velocities), then
-    a density channel (spatial pressures; 1 off the BC), in the layout of
-    ``collide_stream.aux_layout``. A moving wall is evaluated on its BC's
-    dilated voxel set, a Zou-He / regularized prescription sampled at its
-    voxels; indices outside the domain are dropped. Build it after
-    ``prepare_fields`` (mesh BCs get their indices there)."""
+    of ``xlb_tpu.kernels.fused_step.build_aux_field``, channel for channel:
+    d velocity channels (spatial Zou-He / regularized velocities,
+    moving-wall velocities), then a density channel (spatial pressures; 1
+    off the BC), then q wall-distance weights per hybrid BC with distances
+    (1/2 off its voxels; its distances clipped to [0, 1], 1/2 where not
+    finite), in the layout of ``collide_stream.aux_layout``. A moving wall
+    is evaluated on its BC's dilated voxel set, a Zou-He / regularized
+    prescription sampled at its voxels; indices outside the domain are
+    dropped. Build it after ``prepare_fields`` (mesh BCs get their indices
+    and distances there)."""
     vs = stepper.velocity_set
     shape = tuple(stepper.grid.shape)
     specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
-    u_off, rho_off, nchan = aux_layout(specs, vs)
+    u_off, rho_off, w_offs, nchan = aux_layout(specs, vs)
     if nchan == 0:
         return None
     aux = np.zeros((nchan,) + shape, np.float32)
@@ -99,6 +116,15 @@ def build_aux_field(stepper):
         return np.all((idx >= 0) & (idx < np.asarray(shape)[:, None]), axis=0)
 
     for bc, spec in zip(stepper.boundary_conditions, specs):
+        if spec["kind"] == "hybrid" and spec["use_dist"]:
+            if bc._distances is None:
+                raise NotImplementedError("HybridBC wall distances are computed by prepare_fields; build the aux "
+                                          "field after it")
+            w_off = w_offs[bc.id]
+            aux[w_off:w_off + vs.q] = 0.5
+            idx = np.asarray(bc._distance_voxels, dtype=np.int64)
+            keep = inside(idx)
+            aux[(slice(w_off, w_off + vs.q),) + tuple(idx[:, keep])] = bc.weights_np()[:, keep]
         if isinstance(spec.get("mw"), str):
             idx, u_wall = bc.spatial_wall_velocity()
             keep = inside(idx)

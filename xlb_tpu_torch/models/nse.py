@@ -14,17 +14,19 @@ Two tiers:
   every collision of the TORCH tier runs in the kernels, with the
   exact-difference body force and halfway walls, and on D3Q19 BGK and
   D3Q27 KBC the open boundaries (Zou-He, regularized, do-nothing,
-  free-slip, extrapolation outflow, per-voxel prescriptions); in 2D, BGK.
+  free-slip, extrapolation outflow, per-voxel prescriptions) and HybridBC;
+  in 2D, BGK with halfway, Zou-He, regularized and HybridBC.
 
 BCs take voxel ``indices`` or a triangle mesh (``mesh_vertices``), which
-``prepare_fields`` voxelizes on the host (``geometry``).
+``prepare_fields`` voxelizes on the host (``geometry``), and then gives a
+mesh HybridBC its per-link wall distances.
 
 Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
 and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
 per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
 ``build_multi_step`` is the fused adjoint kernel
-(``kernels/adjoint_step.py``); a scene with an open-boundary BC has none
-yet and raises under autograd. In 2D, as in ``xlb_tpu``, the backward of
+(``kernels/adjoint_step.py``); a 3D scene with an open-boundary BC or a
+HybridBC has none yet and raises under autograd. In 2D, as in ``xlb_tpu``, the backward of
 ``stepper(...)`` is the TORCH tier's VJP and the window has none (it
 raises under autograd). The masks and BC prescriptions get no gradient.
 """
@@ -130,10 +132,6 @@ class IncompressibleNavierStokesStepper(Stepper):
     def _process_boundary_conditions(self, boundary_conditions, bc_mask, missing_mask):
         check_bc_overlaps(boundary_conditions, self.velocity_set.d)
         for bc in boundary_conditions:
-            if bc.needs_mesh_distance:
-                raise NotImplementedError(
-                    f"{type(bc).__name__} needs per-link mesh distances (xlb_tpu's HybridBC and "
-                    "geometry.distances), which are not ported yet")
             if bc.indices is None and bc.mesh_vertices is None:
                 raise ValueError(f"{type(bc).__name__} has neither indices nor mesh_vertices")
         with_indices = [bc for bc in boundary_conditions if bc.indices is not None]
@@ -144,6 +142,8 @@ class IncompressibleNavierStokesStepper(Stepper):
             from xlb_tpu_torch.geometry.mesh_masker import assign_mesh_indices
 
             assign_mesh_indices(bc, self.grid)
+            if bc.needs_mesh_distance:
+                bc.compute_mesh_distances()
         boundary_conditions = with_indices + with_mesh
         if boundary_conditions:
             masker = IndicesBoundaryMasker(

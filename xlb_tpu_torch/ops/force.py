@@ -73,6 +73,7 @@ class MomentumTransfer(Operator):
         self.operation_sequence = operation_sequence
         self.fetcher = FetchPopulations(no_slip_bc_instance, operation_sequence, velocity_set=self.velocity_set,
                                         precision_policy=self.precision_policy, compute_backend=self.compute_backend)
+        self._opp = None
 
     def __call__(self, f_0, f_1, bc_mask, missing_mask):
         vs = self.velocity_set
@@ -80,8 +81,9 @@ class MomentumTransfer(Operator):
         boundary = (bc_mask == self.no_slip_bc_instance.id)[0]
         # fluid-side edge voxels: tagged, with their rest direction present
         is_edge = boundary[None] & ~missing_mask[0][None]
-        opp = torch.as_tensor(vs._opp_indices, dtype=torch.long, device=f_0.device)
-        phi = f_post_collision[opp] + f_post_stream
+        if self._opp is None or self._opp.device != f_0.device:  # made once: a copy per call would stall the host
+            self._opp = torch.as_tensor(vs._opp_indices, dtype=torch.long, device=f_0.device)
+        phi = f_post_collision[self._opp] + f_post_stream
         phi = torch.where(missing_mask & is_edge, phi, 0.0)
         force = stencil_contract(vs._c[:, vs._opp_indices], phi)
         return torch.sum(force, dim=tuple(range(1, force.ndim)))
