@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab LABEL [--quick]   # one tree's kernel times (ab_line)
     python3 chip_smoke.py --ptxas                # one tree's ptxas report: PTXAS {kernel: [registers,
                                                  # spill stores, spill loads, static smem]}
+    python3 chip_smoke.py --k8                   # K8's launches by scene (k8_launches)
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from xlb_tpu_torch/csrc with nvcc (sm_90a) and
@@ -125,13 +126,18 @@
    kExtOpen epilogues: outflow and its staging, 3D Zou-He / regularized,
    free-slip, do-nothing, the aux field of per-voxel prescriptions). K1,
    K2 (k = 2) and K0 against their plain versions at a ragged 100x52x44,
-   f32 and bf16-shifted, on three BC sets of open_bcs: flow_past_sphere_3d.py's
+   f32 and bf16-shifted, on four BC sets of open_bcs: flow_past_sphere_3d.py's
    (parabolic regularized inlet through aux, outflow, halfway walls,
    halfway mesh sphere; D3Q19 BGK), rotating_sphere_3d.py's (equilibrium
    inlet, outflow, fullway walls, halfway sphere with a spatial wall
-   velocity through aux; D3Q27 KBC) and a D3Q19 scene of Zou-He velocity
-   and spatial pressure faces, free-slip walls and a do-nothing piece;
-   K0 == K1 and K2 == two K1 launches bit for bit. Then the torch forms of
+   velocity through aux; D3Q27 KBC), a D3Q19 scene of Zou-He velocity
+   and spatial pressure faces, free-slip walls and a do-nothing piece,
+   and xlb_tpu's two-outflow scene (outflows at +x and +y); K0 == K1 and
+   K2 == two K1 launches bit for bit; and on each the adjoint K8 in its
+   kExtOpen form (check_adjoint: against its plain version, D3Q27 KBC
+   against float64 TORCH-tier autograd, a limit that must also fail a
+   planted fault, the centred reads' cotangent dropped; two calls bit for
+   bit). Then the torch forms of
    flow_past_sphere_3d.py (both inlets), windtunnel_3d.py and
    rotating_sphere_3d.py at their defaults on the CUDA tier against the
    TORCH tier on the card (velocity field rtol 1e-4; the Cd history 1e-3
@@ -152,7 +158,8 @@
    and a static moving wall (fullway walls, equilibrium inlet), with t = 1/2
    and a spinning wall (per-voxel, through the aux field; free-slip walls,
    regularized inlet and outlet), and with distances and the spinning
-   wall; K0 == K1 and K2 == two K1 launches bit for bit. K3 and K4 (k = 2,
+   wall; K0 == K1 and K2 == two K1 launches bit for bit; K8 in its
+   kExtHybrid form as in [17]. K3 and K4 (k = 2,
    8) on the Schafer-Turek scene at D = 20 (441x84: the parabolic inlet
    through aux, the pressure outlet, halfway walls, the hybrid cylinder
    with its circle distances) for each method, K4 == k K3 bit for bit;
@@ -171,11 +178,28 @@
    window, best of 3 (MLUPS), and K1, K2, K0 on its final state against
    the plain version and timed beside the bound (the hybrid voxels' aux bytes
    included) and [16]'s measured copy roofline.
-19. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+19. Gradients through the open boundaries and curved walls (K8's kExtOpen
+   and kExtHybrid forms; its checks against the plain version ran on
+   every scene of [17] and [18]): build_multi_step(4) gradients (K2
+   forward, K1 replay and K8) against TORCH-tier autograd on a small flow
+   past a sphere and a small open hybrid tunnel; then the training path
+   of [6] (5 Adam iterations on omega through build_multi_step(8)) on the
+   flow past a sphere at 512x256x256 under FP32FP32 and FP32BF16, on the
+   sphere-drag tunnel at D = 48 under FP32BF16 (and FP32FP32 when it
+   fits in the card's memory) and on windtunnel_3d.py --object-bc hybrid
+   at its defaults (D3Q27 KBC): loss and omega per iteration, forward and
+   backward ms per window, ms per step, peak device memory, launch counts
+   reset before and read after each run (K8 once per step); K8 on each
+   final state against its plain version (float64 TORCH-tier autograd
+   on the KBC tunnel; at D = 48, where the plain version's graph over the
+   whole tunnel does not fit beside it, over x-slabs with a halo), timed
+   beside its bound and [16]'s measured copy roofline.
+20. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
    training times and each kernel's per-dtype errors and times, then the
    kernels' JSON line (K0-K12; K0, K1 and K2 with an "open" entry for the
    open-boundary path; K0-K4 with a "hybrid" entry for the curved-wall
-   path), then the result line {"ok": true, "device": {...}} last.
+   path; K8 with both: the training runs of [19]), then the result line
+   {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -624,6 +648,73 @@ def gradient_parity(device):
     check(ok1 and ok2, "CUDA-tier gradients disagree with TORCH-tier autograd")
 
 
+def train_omega(run, f0, bc_mask, missing_mask, label, window):
+    """TRAIN_ITERS Adam iterations (lr 0.05) on omega from OMEGA_START
+    through the differentiable window ``run`` of ``window`` steps, fitting
+    its output from ``f0`` (which requires grad) at OMEGA_TARGET with the
+    loss mean((out - target)^2): checks that the adjoint kernel ran once per
+    step in each backward, that f_0's and omega's gradients are finite, that
+    the loss falls and omega approaches its target. Returns {loss, omega
+    per iteration, best forward and backward ms of a window, ms per step
+    forward + backward, peak device memory in GiB}."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+
+    device = f0.device
+    with torch.no_grad():
+        target, _ = run(f0, f0, bc_mask, missing_mask, OMEGA_TARGET)
+    omega = torch.tensor(OMEGA_START, device=device, requires_grad=True)
+    opt = torch.optim.Adam([omega], lr=0.05)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, omegas, fwd, bwd = [], [omega.item()], [], []
+    for _ in range(TRAIN_ITERS):
+        opt.zero_grad()
+        f0.grad = None
+        adj0 = CollideStreamAdjoint.launches
+        t0 = time.perf_counter()
+        out, _ = run(f0, f0, bc_mask, missing_mask, omega)
+        loss = torch.mean((out.float() - target.float()) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del out
+        check(CollideStreamAdjoint.launches - adj0 == window, f"{label}: the adjoint kernel ran other than once per step")
+        check(f0.grad is not None and f0.grad.dtype == f0.dtype and bool(torch.isfinite(f0.grad).all()),
+              f"{label}: no finite f_0 gradient in f_0's dtype")
+        check(bool(torch.isfinite(omega.grad)), f"{label}: non-finite omega gradient")
+        opt.step()
+        losses.append(loss.item())
+        omegas.append(omega.item())
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((t2 - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = {"loss": losses, "omega": omegas, "forward_ms": min(fwd), "backward_ms": min(bwd),
+           "ms_per_step": (min(fwd) + min(bwd)) / window, "peak_gib": peak}
+    print(f"  {label}: loss {' -> '.join(f'{x:.4e}' for x in losses)}; "
+          f"omega {' -> '.join(f'{x:.4f}' for x in omegas)}")
+    print(f"  {label}: window of {window} forward {rec['forward_ms']:.3f} ms, backward "
+          f"{rec['backward_ms']:.3f} ms, {rec['ms_per_step']:.4f} ms per step forward + backward "
+          f"(best of {TRAIN_ITERS}); peak device memory {peak:.2f} GiB")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall")
+    check(abs(omegas[-1] - OMEGA_TARGET) < abs(omegas[0] - OMEGA_TARGET), f"{label}: omega did not approach its target")
+    del target
+    return rec
+
+
+def perturbed_start(f_0, seed):
+    """A seeded 5% perturbation of f_0 in its dtype, requiring grad."""
+    import torch
+
+    gen = torch.Generator(device=f_0.device).manual_seed(seed)
+    noise = torch.randn(f_0.shape, generator=gen, device=f_0.device)
+    return (f_0.float() * (1.0 + 0.05 * noise)).to(f_0.dtype).requires_grad_(True)
+
+
 def training_path(device):
     """5 Adam iterations on omega through the CUDA-tier window at 256^3,
     under both policies. Returns ({policy: record}, launch counts)."""
@@ -641,51 +732,10 @@ def training_path(device):
     records = {}
     for policy in (xlb.PrecisionPolicy.FP32BF16, xlb.PrecisionPolicy.FP32FP32):
         stepper, (f_0, _, bc_mask, missing_mask) = cavity(shape, policy, xlb.ComputeBackend.CUDA, device)
-        gen = torch.Generator(device=device).manual_seed(7)
-        noise = torch.randn(f_0.shape, generator=gen, device=device)
-        f0 = (f_0.float() * (1.0 + 0.05 * noise)).to(f_0.dtype).requires_grad_(True)
-        del noise
+        f0 = perturbed_start(f_0, 7)
         run = stepper.build_multi_step(TRAIN_WINDOW)
-        with torch.no_grad():
-            target, _ = run(f0, f0, bc_mask, missing_mask, OMEGA_TARGET)
-        omega = torch.tensor(OMEGA_START, device=device, requires_grad=True)
-        opt = torch.optim.Adam([omega], lr=0.05)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, omegas, fwd, bwd = [], [omega.item()], [], []
-        for _ in range(TRAIN_ITERS):
-            opt.zero_grad()
-            f0.grad = None
-            adj0 = CollideStreamAdjoint.launches
-            t0 = time.perf_counter()
-            out, _ = run(f0, f0, bc_mask, missing_mask, omega)
-            loss = torch.mean((out.float() - target.float()) ** 2)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            loss.backward()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            check(CollideStreamAdjoint.launches - adj0 == TRAIN_WINDOW, "the adjoint kernel ran other than once per step")
-            check(f0.grad is not None and f0.grad.dtype == f0.dtype, f"{policy.name}: no f_0 gradient in f_0's dtype")
-            check(bool(torch.isfinite(omega.grad)), f"{policy.name}: non-finite omega gradient")
-            opt.step()
-            losses.append(loss.item())
-            omegas.append(omega.item())
-            fwd.append((t1 - t0) * 1e3)
-            bwd.append((t2 - t1) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        rec = {"loss": losses, "omega": omegas, "forward_ms": min(fwd), "backward_ms": min(bwd),
-               "ms_per_step": (min(fwd) + min(bwd)) / TRAIN_WINDOW, "peak_gib": peak}
-        print(f"  {policy.name}: loss {' -> '.join(f'{x:.4e}' for x in losses)}; "
-              f"omega {' -> '.join(f'{x:.4f}' for x in omegas)}")
-        print(f"  {policy.name}: window of {TRAIN_WINDOW} forward {rec['forward_ms']:.3f} ms, backward "
-              f"{rec['backward_ms']:.3f} ms, {rec['ms_per_step']:.4f} ms per step forward + backward "
-              f"(best of {TRAIN_ITERS}); peak device memory {peak:.2f} GiB")
-        check(all(np.isfinite(losses)), f"{policy.name}: non-finite loss")
-        check(losses[-1] < losses[0], f"{policy.name}: the loss did not fall")
-        check(abs(omegas[-1] - OMEGA_TARGET) < abs(omegas[0] - OMEGA_TARGET), f"{policy.name}: omega did not approach its target")
-        records[policy.name] = rec
-        del stepper, f_0, f0, target, out, loss, run, bc_mask, missing_mask
+        records[policy.name] = train_omega(run, f0, bc_mask, missing_mask, policy.name, TRAIN_WINDOW)
+        del stepper, f_0, f0, run, bc_mask, missing_mask
         torch.cuda.empty_cache()
     counts = {k.__name__: (k.launches, k.plain_calls) for k in kernels}
     return records, counts
@@ -1891,7 +1941,8 @@ def probe_records(runs, counts, plain_ms, n_cmp, errs):
 
 
 # [17]: the open-boundary scenes -- (velocity set, collision) of each BC set of open_bcs
-OPEN_SCENES = {"sphere": ("D3Q19", "BGK"), "rotating": ("D3Q27", "KBC"), "zouhe": ("D3Q19", "BGK")}
+OPEN_SCENES = {"sphere": ("D3Q19", "BGK"), "rotating": ("D3Q27", "KBC"), "zouhe": ("D3Q19", "BGK"),
+               "outflow2": ("D3Q19", "BGK")}
 OPEN_U = 0.04
 
 
@@ -1907,7 +1958,11 @@ def open_bcs(kind, grid, bnd, geo):
       wall velocity, profile(coords));
     - "zouhe": a Zou-He velocity inlet and a Zou-He pressure outlet whose
       density varies over the face (per voxel), free-slip walls on four
-      sides, half of the top a do-nothing piece."""
+      sides, half of the top a do-nothing piece;
+    - "outflow2": xlb_tpu's tests/kernels/test_fused_kernel.py scene of two
+      outflow faces -- halfway walls at the bottom, top and front, an
+      equilibrium inlet, extrapolation outflows at +x and +y (their staged
+      reads reach across both faces' edge)."""
     nx, ny, nz = grid.shape
     box, box_ne = grid.bounding_box_indices(), grid.bounding_box_indices(remove_edges=True)
     center, radius = np.array([nx / 4, ny / 2, nz / 2]), ny / 8
@@ -1925,6 +1980,12 @@ def open_bcs(kind, grid, bnd, geo):
                 bnd.ExtrapolationOutflowBC(indices=box_ne["right"]),
                 bnd.HalfwayBounceBackBC(mesh_vertices=geo.sphere_triangles(center=center, radius=radius,
                                                                            subdivisions=3))]
+    if kind == "outflow2":
+        walls = faces("bottom", "top", "front")
+        return [bnd.HalfwayBounceBackBC(indices=walls),
+                bnd.EquilibriumBC(rho=1.0, u=(0.02, 0.01, 0.0), indices=box_ne["left"]),
+                bnd.ExtrapolationOutflowBC(indices=box_ne["right"]),
+                bnd.ExtrapolationOutflowBC(indices=box_ne["back"])]
     if kind == "rotating":
         sphere = geo.solid_voxel_indices(geo.voxelize(geo.sphere_triangles(center=center, radius=radius,
                                                                            subdivisions=3), grid.shape))
@@ -2062,22 +2123,142 @@ def open_bound(vs, collision, f, mask, aux_bytes, shifted, steps=1):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K8 against its plain version, as [5]: df and dom_field
+ADJ_DF_TOL, ADJ_DOM_TOL = dict(rtol=1e-4, atol=1e-6), dict(rtol=1e-4, atol=1e-7)
+
+
+def torch_tier_vjp64(scene64, f, g, omega, shifted):
+    """(df, dom_field) of float64 autograd through the TORCH tier's step of
+    ``scene64`` = (FP64FP64 stepper, its fields) with a per-voxel omega
+    field, at the store-form state ``f`` (plus the kernels' float32 weights
+    when ``shifted``) with the cotangent ``g``."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream import f32_weights
+
+    stepper, (_, _, bc_mask, missing_mask) = scene64
+    fp = f.double()
+    if shifted:
+        fp = fp + torch.tensor(f32_weights(stepper.velocity_set), dtype=torch.float64, device=f.device).reshape(
+            (-1,) + (1,) * (f.ndim - 1))
+    om = torch.full(tuple(f.shape[1:]), float(omega), dtype=torch.float64, device=f.device)
+    _, vjp = torch.func.vjp(lambda x, o: stepper._step_pull(x, x, bc_mask, missing_mask, o, 0)[1], fp, om)
+    return vjp(g.double())
+
+
+def k8_held(df, dom, pdf, pdom, ref64=None):
+    """K8's (df, dom_field) against its plain version's (pdf, pdom)
+    (ADJ_DF_TOL, ADJ_DOM_TOL) or, given ``ref64`` (float64 TORCH-tier
+    autograd's), against that, no farther from it than twice the plain
+    version plus the same atol. Returns (max |err|, largest tolerance
+    share, the readings: the plain version's distance p1 / p2 from float64
+    and the largest and the mean |df| / |dom_field| of the reference)."""
+    if ref64 is None:
+        e1, s1 = tolerance_share(df, pdf, **ADJ_DF_TOL)
+        e2, s2 = tolerance_share(dom, pdom, **ADJ_DOM_TOL)
+        return max(e1, e2), max(s1, s2), {}
+    rdf, rdom = ref64
+    e1, p1 = float((df.double() - rdf).abs().max()), float((pdf.double() - rdf).abs().max())
+    e2, p2 = float((dom.double() - rdom).abs().max()), float((pdom.double() - rdom).abs().max())
+    s1, s2 = e1 / (2 * p1 + ADJ_DF_TOL["atol"]), e2 / (2 * p2 + ADJ_DOM_TOL["atol"])
+    readings = {"plain_df": p1, "plain_dom": p2, "df_max": float(rdf.abs().max()), "df_mean": float(rdf.abs().mean()),
+                "dom_max": float(rdom.abs().max()), "dom_mean": float(rdom.abs().mean())}
+    return max(e1, e2), max(s1, s2), readings
+
+
+def k8_without_centred(adj, f, g, mask, omega, aux):
+    """A planted fault for the float64 limit: K8's plain version with the
+    epilogues' centred reads held constant outside the solid voxels, so
+    that their cotangent is dropped, as a K8 that skipped its second launch
+    (adjoint_centred_kernel) would drop it. Returns (df, dom_field)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, pointwise_core
+
+    vs, fc = adj.vs, f.detach().float()
+    solid = (mask >> bc_id_shift(vs.q)) & (31 if vs.q == 27 else 0xFF) == (31 if vs.q == 27 else 255)
+    held = fc.clone()
+    om = torch.full(tuple(mask.shape), float(np.float32(omega)), dtype=torch.float32, device=f.device)
+    dims = tuple(range(vs.d))
+
+    def step(x, o):
+        def pulled(l, t):
+            return torch.roll(x[l], shifts=tuple(int(c) for c in t), dims=dims)
+
+        fs = [pulled(l, vs._c[:, l]) for l in range(vs.q)]
+        return torch.stack(pointwise_core(vs, adj.bc_specs, fs, lambda l: torch.where(solid, x[l], held[l]), mask, o,
+                                          adj.shifted, adj.has_solids, adj.collision, adj.force_vector, aux,
+                                          pulled))
+
+    _, vjp = torch.func.vjp(step, fc, om)
+    return vjp(g)
+
+
+def check_adjoint(stepper, f, mask, omega, aux, store, shifted, label, scene64=None):
+    """K8 in the scene's kExtOpen or kExtHybrid form on the store-form state
+    ``f`` with a seeded cotangent g = w N(0, 1), aux field included: against
+    its plain version or, for D3Q27 KBC (``scene64``: its FP64FP64
+    TORCH-tier scene), against float64 TORCH-tier autograd (k8_held) --
+    KBC's float32 gradient is ill-conditioned, so the float32 plain version
+    is no sharper a reference. For KBC the limit must also fail a planted
+    fault (k8_without_centred). Two calls must agree bit for bit. Returns
+    (max |err|, largest tolerance share)."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec
+
+    vs = stepper.velocity_set
+    adj = CollideStreamAdjoint(vs, tuple(mask.shape), collision=kernel_collision_spec(stepper), store_dtype=store,
+                               bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions], shifted=shifted,
+                               has_solids=stepper.has_solids)
+    check(adj.params.walled >= 2, f"{label}: K8 did not select the kExtOpen / kExtHybrid form")
+    gen = torch.Generator(device=f.device).manual_seed(20)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=f.device).reshape(-1, 1, 1, 1)
+    g = (w * torch.randn(f.shape, generator=gen, device=f.device)).contiguous()
+    df, dom = adj(f, g, mask, omega, *aux)
+    df2, dom2 = adj(f, g, mask, omega, *aux)
+    same = torch.equal(df, df2) and torch.equal(dom, dom2)
+    pdf, pdom = adj.plain(f, g, mask, omega, *aux)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(df).all() and torch.isfinite(dom).all()), f"{label}: non-finite K8 output")
+    ref64 = None if scene64 is None else torch_tier_vjp64(scene64, f, g, omega, shifted)
+    err, share, r = k8_held(df, dom, pdf, pdom, ref64)
+    how = "vs plain"
+    if ref64 is not None:
+        _, fault, _ = k8_held(*k8_without_centred(adj, f, g, mask, omega, aux[0] if aux else None), pdf, pdom,
+                               ref64)
+        how = (f"vs float64 (plain {r['plain_df']:.2e} / {r['plain_dom']:.2e}; |df| max {r['df_max']:.2e} mean "
+               f"{r['df_mean']:.2e}, |dom| max {r['dom_max']:.2e} mean {r['dom_mean']:.2e}; the planted fault "
+               f"{fault:.1f} of tol)")
+        check(fault > 1.0, f"{label}: the float64 limit passes K8 without its centred term")
+    print(f"    K8 {how}: max|err| {err:.2e} ({share:.3f} of tol); two calls bit-equal {same}")
+    check(share <= 1.0, f"{label}: K8 disagrees with its reference")
+    check(same, f"{label}: two K8 calls differ")
+    return err, share
+
+
 def compare_open(device):
     """[17]: K1, K2 (k = 2) and K0 against their plain versions on each
     open-boundary scene of OPEN_SCENES at the ragged OPEN_RAGGED (tile edges,
     and the periodic wrap at the open faces), f32 and bf16-shifted, from a
     seeded perturbed state (the scene's aux field passed to every call); K0
-    == K1 and K2 == two K1 launches bit for bit. Returns {kernel: largest
-    max |err|} and {kernel: largest tolerance share}."""
+    == K1 and K2 == two K1 launches bit for bit; and K8 (check_adjoint).
+    Returns {kernel: largest max |err|} and {kernel: largest tolerance
+    share}."""
     import torch
 
     import xlb_tpu_torch as xlb
     from xlb_tpu_torch.kernels.fused_step import pack_masks
 
-    errs, shares = {"K1": 0.0, "K2": 0.0, "K0": 0.0}, {"K1": 0.0, "K2": 0.0, "K0": 0.0}
+    errs, shares = {"K1": 0.0, "K2": 0.0, "K0": 0.0, "K8": 0.0}, {"K1": 0.0, "K2": 0.0, "K0": 0.0, "K8": 0.0}
     for kind in OPEN_SCENES:
         stepper, (_, _, bc_mask, missing_mask) = open_scene(kind, OPEN_RAGGED, xlb.PrecisionPolicy.FP32FP32,
                                                             xlb.ComputeBackend.TORCH, device)
+        scene64 = None
+        if OPEN_SCENES[kind][1] == "KBC":
+            scene64 = open_scene(kind, OPEN_RAGGED, xlb.PrecisionPolicy.FP64FP64, xlb.ComputeBackend.TORCH, device)
         vs = stepper.velocity_set
         mask = pack_masks(bc_mask, missing_mask)
         gen = torch.Generator(device=device).manual_seed(17)
@@ -2100,10 +2281,12 @@ def compare_open(device):
                   + f"; K0 == K1 {same01}, K2 == 2 K1 {same2}")
             check(max(sh for _, sh in found.values()) <= 1.0, f"{label}: a kernel disagrees with its plain version")
             check(same01 and same2, f"{label}: K0 differs from K1, or K2 from two K1 launches")
+            del k1, k2, k0, k11, p1, p2
+            found["K8"] = check_adjoint(stepper, f, mask, OPEN_OMEGA, aux, store, shifted, label, scene64)
             for n, (e, sh) in found.items():
                 errs[n], shares[n] = max(errs[n], e), max(shares[n], sh)
-            del k1, k2, k0, k11, p1, p2, f
-        del stepper, bc_mask, missing_mask, mask, noise
+            del f
+        del stepper, scene64, bc_mask, missing_mask, mask, noise
         torch.cuda.empty_cache()
     return errs, shares
 
@@ -2297,7 +2480,7 @@ SPHERE_BIG_D = 48  # the sphere-drag tunnel at 576x288x288 (47.8 M voxels)
 SPHERE_BIG_WINDOW, SPHERE_BIG_REPS = 200, 3
 
 
-def hybrid_scene(pair, method, use_dist, wall, tunnel, shape, device):
+def hybrid_scene(pair, method, use_dist, wall, tunnel, shape, device, policy="FP32FP32"):
     """(stepper, prepare_fields()) of a hybrid_bcs tunnel on the TORCH tier."""
     import xlb_tpu_torch as xlb
     from xlb_tpu_torch import boundary, geometry
@@ -2309,7 +2492,7 @@ def hybrid_scene(pair, method, use_dist, wall, tunnel, shape, device):
     xlb.DefaultConfig.reset()
     boundary_condition_registry.reset()
     xlb.init(velocity_set=getattr(vsets, vs_name)(), default_backend=xlb.ComputeBackend.TORCH,
-             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+             default_precision_policy=xlb.PrecisionPolicy[policy])
     grid = xlb.grid_factory(shape, device=device)
     bcs = hybrid_bcs(grid, boundary, geometry, method, use_dist, wall, tunnel)
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs, collision_type=collision)
@@ -2331,7 +2514,7 @@ def compare_hybrid(device):
     """[18]: K1, K2 (k = 2) and K0 (kExtHybrid) against their plain versions
     on the hybrid_bcs tunnels at HYBRID_RAGGED for each pair, method and
     variant, f32 and bf16-shifted, K0 == K1 and K2 == two K1 launches bit
-    for bit; then K3 and K4 (k = 2, 8; the kExtHybrid 2D form) on the
+    for bit, and K8 (check_adjoint); then K3 and K4 (k = 2, 8; the kExtHybrid 2D form) on the
     Schafer-Turek scene at D = HYBRID_2D_D for each method, K4 == k K3 bit
     for bit. Returns ({kernel: largest max |err|}, {kernel: largest
     tolerance share}, comparisons)."""
@@ -2341,7 +2524,7 @@ def compare_hybrid(device):
     from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
     from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
 
-    errs = {k: 0.0 for k in ("K1", "K2", "K0", "K3", "K4")}
+    errs = {k: 0.0 for k in ("K1", "K2", "K0", "K3", "K4", "K8")}
     shares = dict(errs)
     n = 0
 
@@ -2354,6 +2537,9 @@ def compare_hybrid(device):
             for use_dist, wall, tunnel in HYBRID_VARIANTS:
                 stepper, (_, _, bc_mask, missing_mask) = hybrid_scene(pair, method, use_dist, wall, tunnel,
                                                                       HYBRID_RAGGED, device)
+                scene64 = None
+                if pair[1] == "KBC":
+                    scene64 = hybrid_scene(pair, method, use_dist, wall, tunnel, HYBRID_RAGGED, device, "FP64FP64")
                 vs = stepper.velocity_set
                 mask = pack_masks(bc_mask, missing_mask)
                 for store, shifted in ((torch.float32, False), (torch.bfloat16, True)):
@@ -2375,9 +2561,11 @@ def compare_hybrid(device):
                     check(all(bool(torch.isfinite(t.float()).all()) for t in (k1, k2, k0)), f"{label}: non-finite")
                     check(max(sh for _, sh in found.values()) <= 1.0, f"{label}: a kernel disagrees with its plain version")
                     check(same, f"{label}: K0 differs from K1, or K2 from two K1 launches")
+                    del k1, k2, k0, k11, p1, p2
+                    found["K8"] = check_adjoint(stepper, f, mask, om, aux, store, shifted, label, scene64)
                     note(found)
                     n += 1
-                del stepper, bc_mask, missing_mask, mask
+                del stepper, scene64, bc_mask, missing_mask, mask
         torch.cuda.empty_cache()
     for method in HYBRID_METHODS:
         stepper, (_, _, bc_mask, missing_mask), omega, _ = build(d=HYBRID_2D_D, hybrid_method=method, backend="torch",
@@ -2660,6 +2848,275 @@ def hybrid_big(device):
     return out
 
 
+# [19]: gradients through the open boundaries and curved walls
+GRAD_SMALL, GRAD_STEPS = (64, 32, 32), 4
+TRAIN_OPEN_WINDOW = 8
+
+
+def open_window_gradients(device):
+    """[19]: gradients of sum(out^2) through build_multi_step(GRAD_STEPS) on
+    the CUDA tier (K2 forward; K1 replay and K8, once per step) against
+    TORCH-tier autograd on the card, FP32FP32, from a seeded 5%
+    perturbation, at GRAD_SMALL: the flow past a sphere (open_bcs "sphere":
+    the regularized inlet through aux, the outflow, halfway walls and
+    sphere) and the open hybrid tunnel (bounceback_regularized with wall
+    distances and a spinning wall, free-slip walls, regularized inlet and
+    outlet). d f_0 rtol 2e-4, atol 1e-6; d omega rtol 2e-3 (xlb_tpu's
+    tolerances for its window). Returns {scene: (d f_0 max |err|, d omega
+    relative error)}."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.fused_step import build_fused_window
+
+    out = {}
+    for label, make in (
+        ("sphere", lambda: open_scene("sphere", GRAD_SMALL, xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.TORCH,
+                                      device)),
+        ("hybrid", lambda: hybrid_scene(("D3Q19", "BGK"), "bounceback_regularized", True, "spin", "open", GRAD_SMALL,
+                                        device)),
+    ):
+        stepper, (f_0, _, bc_mask, missing_mask) = make()
+        grads = {}
+        for tier, run in (("cuda", build_fused_window(stepper, GRAD_STEPS)),
+                          ("torch", stepper.build_multi_step(GRAD_STEPS))):
+            f = perturbed_start(f_0, 21)
+            om = torch.tensor(ADJ_OMEGA, device=device, requires_grad=True)
+            k8 = CollideStreamAdjoint.launches
+            (run(f, f, bc_mask, missing_mask, om)[0].float() ** 2).sum().backward()
+            check(CollideStreamAdjoint.launches - k8 == (GRAD_STEPS if tier == "cuda" else 0),
+                  f"{label}: K8 did not run once per step")
+            grads[tier] = (f.grad, float(om.grad))
+        (df_c, dw_c), (df_t, dw_t) = grads["cuda"], grads["torch"]
+        e1, ok1 = within(df_c, df_t, rtol=2e-4, atol=1e-6)
+        e2 = abs(dw_c - dw_t) / abs(dw_t)
+        print(f"  {label} {'x'.join(map(str, GRAD_SMALL))}, {GRAD_STEPS} FP32FP32 steps, CUDA tier vs TORCH tier "
+              f"autograd: d f_0 max|err| {e1:.3e} ok={ok1}; d omega {dw_c:.6e} vs {dw_t:.6e} ({e2:.2e})")
+        check(ok1 and e2 <= 2e-3, f"{label}: CUDA-tier window gradients disagree with TORCH-tier autograd")
+        out[label] = (e1, e2)
+        del stepper, f_0, f, grads, df_c, df_t
+        torch.cuda.empty_cache()
+    return out
+
+
+def adjoint_plain_in_slabs(adj, f, g, mask, omega, aux, rows):
+    """K8's plain version over x-slabs of ``rows`` rows, for a scene whose
+    whole autograd graph does not fit in the card's memory: the step reads
+    no farther than one voxel, so each slab is taken with two rows of halo
+    on each side (periodic), the cotangent zeroed on the outermost row of
+    each side (whose outputs wrap inside the slab), and the inner rows kept.
+    Returns (df, dom_field), as the plain version's."""
+    import torch
+
+    X = f.shape[1]
+    df, dom = torch.empty_like(g), torch.empty(tuple(mask.shape), dtype=torch.float32, device=g.device)
+    for x0 in range(0, X, rows):
+        x1 = min(x0 + rows, X)
+        idx = torch.arange(x0 - 2, x1 + 2, device=f.device) % X
+        gs = g[:, idx].contiguous()
+        gs[:, 0] = 0.0
+        gs[:, -1] = 0.0
+        pdf, pdom = adj.plain(f[:, idx].contiguous(), gs, mask[idx].contiguous(), omega,
+                              *(() if aux is None else (aux[:, idx].contiguous(),)))
+        df[:, x0:x1], dom[x0:x1] = pdf[:, 2:-2], pdom[2:-2]
+        del gs, pdf, pdom
+    return df, dom
+
+
+def adjoint_timing(stepper, bc_mask, missing_mask, f, omega, shifted, label, scene64=None):
+    """K8 (and its plain version) on the store-form state ``f`` of a scene
+    with a seeded cotangent: K8 held to its plain version on these inputs
+    (k8_held; ``scene64``, the FP64FP64 TORCH-tier scene of a D3Q27 KBC
+    one: against float64 autograd) and timed (CUDA events) beside its
+    bound: f, g and the mask read once, df and dom written once, the aux
+    bytes of the BCs that read them (hybrid_aux_bytes); the operations of
+    the hand-derived BGK transpose (FLOPS_PER_VOXEL, the epilogues' passes
+    at BC voxels not counted). Where the plain version's autograd graph
+    over the whole scene does not fit in the card's memory beside the
+    scene, it is taken in slabs (adjoint_plain_in_slabs), and its time is
+    that of the slabs, as the record says. Returns a record."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    vs = stepper.velocity_set
+    mask = pack_masks(bc_mask, missing_mask)
+    specs = [bc_to_spec(b, vs) for b in stepper.boundary_conditions]
+    adj = CollideStreamAdjoint(vs, tuple(mask.shape), collision=kernel_collision_spec(stepper), bc_specs=specs,
+                               store_dtype=f.dtype, shifted=shifted, has_solids=stepper.has_solids)
+    aux = build_aux_field(stepper)
+    aux = () if aux is None else (torch.as_tensor(aux, device=f.device),)
+    gen = torch.Generator(device=f.device).manual_seed(23)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=f.device).reshape(-1, 1, 1, 1)
+    g = (w * torch.randn(f.shape, generator=gen, device=f.device)).contiguous()
+    aux_bytes = hybrid_aux_bytes(specs, bc_mask, vs)
+    t_bytes = (f.numel() * f.element_size() + 2 * g.numel() * 4 + 2 * mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_VOXEL["collide_stream_adjoint"][int(shifted)] * mask.numel() / F32_FLOPS_PER_S * 1e3
+    rec = {"ms": cuda_ms(lambda: adj(f, g, mask, omega, *aux), 10), "aux_bytes": aux_bytes}
+    rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    df, dom = adj(f, g, mask, omega, *aux)
+    check(bool(torch.isfinite(df).all() and torch.isfinite(dom).all()), f"{label}: non-finite K8 output")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pdf = pdom = None
+    try:  # its outputs for the check, then its time (as cuda_ms's, warm)
+        pdf, pdom = adj.plain(f, g, mask, omega, *aux)
+        start.record()
+        adj.plain(f, g, mask, omega, *aux)
+        end.record()
+        torch.cuda.synchronize()
+        plain = "plain"
+    except torch.cuda.OutOfMemoryError:
+        pass  # the failed graph is freed once the handler has ended
+    if pdf is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the slabs' peak, not the failed whole graph's
+        rows = 64
+        rec["plain_slabs"] = f"out of device memory over the whole scene: in x-slabs of {rows} rows"
+        start.record()
+        pdf, pdom = adjoint_plain_in_slabs(adj, f, g, mask, omega, aux[0] if aux else None, rows)
+        end.record()
+        torch.cuda.synchronize()
+        plain = f"plain (out of memory whole) in x-slabs of {rows} rows"
+    rec["plain_ms"] = start.elapsed_time(end)
+    plain += f" {rec['plain_ms']:.2f} ms"
+    plain += f", peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
+    ref64 = None if scene64 is None else torch_tier_vjp64(scene64, f, g, omega, shifted)
+    rec["max_abs_err"], rec["tolerance_share"], readings = k8_held(df, dom, pdf, pdom, ref64)
+    rec.update(readings)
+    del df, dom, pdf, pdom, ref64
+    torch.cuda.empty_cache()
+    print(f"    {label}: K8 {rec['ms']:.4f} ms per call ({plain}; bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']}; aux bytes {aux_bytes}); vs {'float64' if scene64 else 'plain'} max|err| "
+          f"{rec['max_abs_err']:.2e} ({rec['tolerance_share']:.3f} of tol)"
+          + (f"; plain {readings['plain_df']:.2e} / {readings['plain_dom']:.2e} from float64" if readings else ""))
+    check(rec["tolerance_share"] <= 1.0, f"{label}: K8 disagrees with its reference on the final state")
+    return rec
+
+
+def train_open(device):
+    """[19]: training through the open boundaries and curved walls on the
+    CUDA tier, as [6] trains the cavity (train_omega: 5 Adam iterations on
+    omega through build_multi_step(TRAIN_OPEN_WINDOW), K2 forward, K1
+    replay and K8 once per step): the flow past a sphere at OPEN_BIG
+    (flow_past_sphere_3d.build) under FP32FP32 and FP32BF16; the
+    sphere-drag tunnel at D = SPHERE_BIG_D (sphere_drag_validation.build)
+    under FP32BF16, and FP32FP32 when its fifteen float32 fields fit in
+    the card's memory; windtunnel_3d.py --object-bc hybrid at its defaults
+    (D3Q27 KBC, Tao's closure; K8 in forward mode). Launch counts reset
+    before and read after each run (K8 once per step, no plain call); then
+    K8 on the window's final state against its plain version (float64
+    autograd on the KBC tunnel) and its bound (adjoint_timing).
+    Returns {run: record}."""
+    import torch
+
+    from xlb_tpu_torch.examples.cfd import flow_past_sphere_3d, sphere_drag_validation, windtunnel_3d
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+
+    nx, nyz, _ = OPEN_BIG
+    d48 = (12 * SPHERE_BIG_D, 6 * SPHERE_BIG_D, 6 * SPHERE_BIG_D)
+    free, total = torch.cuda.mem_get_info()
+    runs = [(f"sphere {'x'.join(map(str, OPEN_BIG))} {p}", p,
+             lambda p=p: flow_past_sphere_3d.build(nx=nx, nyz=nyz, backend="cuda", precision=p, device=device)[:2])
+            for p in ("FP32FP32", "FP32BF16")]
+    runs += [(f"sphere-drag D={SPHERE_BIG_D} {p}", p,
+              lambda p=p: sphere_drag_validation.build(d=SPHERE_BIG_D, backend="cuda", precision=p, device=device)[:2])
+             for p in ("FP32BF16", "FP32FP32") if p == "FP32BF16" or 15 * 19 * 4 * np.prod(d48) < 0.9 * total]
+    runs.append(("windtunnel --object-bc hybrid FP32FP32", "FP32FP32",
+                 lambda: windtunnel_3d.build(object_bc="hybrid", backend="cuda", device=device)[:2]))
+    # D3Q27 KBC's K8 is held to float64 TORCH-tier autograd (check_adjoint)
+    scenes64 = {runs[-1][0]: lambda: windtunnel_3d.build(object_bc="hybrid", backend="torch", precision="FP64FP64",
+                                                         device=device)[:2]}
+    out = {}
+    for label, policy, make in runs:
+        t0 = time.perf_counter()
+        stepper, fields = make()
+        setup_s = time.perf_counter() - t0
+        f_0, _, bc_mask, missing_mask = fields
+        f0 = perturbed_start(f_0, 22)
+        del f_0, fields
+        run = stepper.build_multi_step(TRAIN_OPEN_WINDOW)
+        zoo_counts(reset=True)
+        CollideStreamAdjoint.launches = CollideStreamAdjoint.plain_calls = 0
+        rec = train_omega(run, f0, bc_mask, missing_mask, label, TRAIN_OPEN_WINDOW)
+        counts = dict(zoo_counts(), CollideStreamAdjoint=(CollideStreamAdjoint.launches, CollideStreamAdjoint.plain_calls))
+        print(f"  {label}: setup {setup_s:.1f} s; launches (launches, plain calls) {counts}")
+        check(counts["CollideStreamAdjoint"] == (TRAIN_ITERS * TRAIN_OPEN_WINDOW, 0), f"{label}: K8 launches")
+        check(counts["CollideStreamKStep"][0] > 0 and counts["CollideStreamStep"][0] > 0
+              and all(p == 0 for _, p in counts.values()), f"{label}: the window did not run through K2 and K1 alone")
+        rec.update(setup_s=setup_s, launches=counts, shape=list(stepper.grid.shape), policy=policy)
+        shifted = policy == "FP32BF16"
+        with torch.no_grad():
+            f, _ = run(f0.detach(), f0.detach(), bc_mask, missing_mask, rec["omega"][-1])
+            w = torch.as_tensor(stepper.velocity_set._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+            f = ((f.float() - w) if shifted else f.float()).to(torch.bfloat16 if shifted else torch.float32).contiguous()
+        del f0, run
+        torch.cuda.empty_cache()
+        scene64 = scenes64[label]() if label in scenes64 else None
+        rec["K8"] = adjoint_timing(stepper, bc_mask, missing_mask, f, rec["omega"][-1], shifted, label, scene64)
+        del scene64
+        out[label] = rec
+        del stepper, f, bc_mask, missing_mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def k8_launches(device):
+    """``--k8``: K8 (f32) at 512x256x256 on the 256^3 cavity's BC set (its
+    zoo form), the same with one do-nothing voxel (the kExtOpen form with
+    almost no BC voxel: its base cost), and open_bcs' "outflow2", "zouhe"
+    and "sphere" scenes: ms per call (cuda_ms) and each launch's device ms
+    from one torch.profiler trace of three calls, one line per scene."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import DoNothingBC
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
+
+    P, B = xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.TORCH
+
+    def with_do_nothing():
+        stepper, _ = cavity(OPEN_BIG, P, B, device)
+        bcs = list(stepper.boundary_conditions) + [DoNothingBC(indices=[[5], [5], [5]])]
+        stepper = IncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=bcs)
+        return stepper, stepper.prepare_fields()
+
+    scenes = [("cavity", lambda: cavity(OPEN_BIG, P, B, device)), ("cavity + one do-nothing voxel", with_do_nothing)]
+    scenes += [(kind, lambda kind=kind: open_scene(kind, OPEN_BIG, P, B, device)) for kind in ("outflow2", "zouhe", "sphere")]
+    for label, make in scenes:
+        stepper, (_, _, bc_mask, missing_mask) = make()
+        vs = stepper.velocity_set
+        mask = pack_masks(bc_mask, missing_mask)
+        adj = CollideStreamAdjoint(vs, OPEN_BIG, collision=kernel_collision_spec(stepper), has_solids=stepper.has_solids,
+                                   bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions])
+        aux = build_aux_field(stepper)
+        aux = () if aux is None else (torch.as_tensor(aux, device=device),)
+        f = perturbed(vs, OPEN_BIG, torch.float32, False, 3, device)
+        gen = torch.Generator(device=device).manual_seed(20)
+        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+        g = (w * torch.randn(f.shape, generator=gen, device=device)).contiguous()
+        ms = cuda_ms(lambda: adj(f, g, mask, ADJ_OMEGA, *aux), 10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                adj(f, g, mask, ADJ_OMEGA, *aux)
+            torch.cuda.synchronize()
+        launches = "; ".join(f"{e.key.split('<')[0].split('::')[-1]} {e.device_time_total / 1e3 / e.count:.3f}"
+                             for e in prof.key_averages() if e.device_time_total > 0)
+        print(f"K8 {label} {'x'.join(map(str, OPEN_BIG))} f32 (walled {adj.params.walled}): {ms:.3f} ms ({launches})",
+              flush=True)
+        del stepper, bc_mask, missing_mask, mask, adj, aux, f, g
+        torch.cuda.empty_cache()
+
+
 def ptxas_summary(report):
     """One line per kernel family and (stencil, collision) of ptxas's
     report: the register range over the store forms and variants, the
@@ -2724,6 +3181,10 @@ def main():
     if "--ptxas" in sys.argv:  # this tree's ptxas report, entry by entry
         _cuda.load_library()
         print("PTXAS " + json.dumps({name: list(rest) for name, *rest in _cuda.ptxas_report()}))
+        return 0
+    if "--k8" in sys.argv:
+        _cuda.load_library()
+        k8_launches(device)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2856,6 +3317,20 @@ def main():
                                                      for pol, rec in hybrid_perf.items() for n in ("K1", "K2", "K0")))
     print(f"  [18] in {time.perf_counter() - t_hybrid:.1f} s ({n_hybrid} kernel comparisons)")
 
+    print(f"[19] gradients through the open boundaries and curved walls (K8's kExtOpen and kExtHybrid forms), {smi}")
+    t_grad = time.perf_counter()
+    print(f"  K8 against its plain version (float64 TORCH-tier autograd for D3Q27 KBC), in [17] and [18]: open "
+          f"max|err| {open_errs['K8']:.3e} ({open_shares['K8']:.3f} of tol), hybrid {hybrid_errs['K8']:.3e} "
+          f"({hybrid_shares['K8']:.3f} of tol); two calls bit-equal on each")
+    window_grads = open_window_gradients(device)
+    open_train = train_open(device)
+    for rec in open_train.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
+        k8 = rec["K8"]
+        k8["roofline_share"] = k8["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9) / k8["ms"]
+    print(f"  K8 on the final states against the measured copy roofline ({roofline['GBps']:.1f} GB/s): "
+          + "; ".join(f"{label} {rec['K8']['roofline_share']:.3f}" for label, rec in open_train.items()))
+    print(f"  [19] in {time.perf_counter() - t_grad:.1f} s")
+
     kernels = []
     for name, cls, source, rep, launches in (
         ("collide_stream_step", "CollideStreamStep", "xlb_tpu_torch/csrc/collide_stream_3d.cuh",
@@ -2940,6 +3415,23 @@ def main():
                 two_d = hybrid_2d[short]
                 rec["hybrid"].update({k: two_d["f32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                                      ms_bf16=two_d["bf16-shifted"]["ms"], bound_ms_bf16=two_d["bf16-shifted"]["bound_ms"])
+    k8 = next(rec for rec in kernels if rec["name"] == "collide_stream_adjoint")
+    for form, errs, shares, prefixes in (("open", open_errs, open_shares, ("sphere ",)),
+                                         ("hybrid", hybrid_errs, hybrid_shares, ("sphere-drag ", "windtunnel "))):
+        # launches over the form's training runs; errors and tolerance shares over [17] / [18] and the runs'
+        # final states; times on the largest scene's final state, f32 where it ran
+        recs = {label: rec for label, rec in open_train.items() if label.startswith(prefixes)}
+        f32 = next((r for label, r in recs.items() if label.startswith(prefixes[0]) and label.endswith("FP32FP32")),
+                   None)
+        bf16 = next(r for label, r in recs.items() if label.startswith(prefixes[0]) and label.endswith("FP32BF16"))
+        timed = (f32 or bf16)["K8"]
+        k8[form] = {"launches": sum(r["launches"]["CollideStreamAdjoint"][0] for r in recs.values()),
+                    "max_abs_err": max([errs["K8"]] + [r["K8"]["max_abs_err"] for r in recs.values()]),
+                    "tolerance_share": max([shares["K8"]] + [r["K8"]["tolerance_share"] for r in recs.values()]),
+                    "store": "float32" if f32 else "bf16-shifted",
+                    **{key: timed[key] for key in ("ms", "plain_ms", "plain_slabs", "bound_ms", "bound_by",
+                                                   "roofline_share") if key in timed},
+                    "ms_bf16": bf16["K8"]["ms"], "bound_ms_bf16": bf16["K8"]["bound_ms"]}
     for rec in kernels:  # the byte bound at the measured copy roofline, and the kernel's share of it
         if rec["bound_by"] == "bytes":
             rec["roofline_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9)
@@ -2956,8 +3448,9 @@ def main():
                       "channel": channel, "many_bcs": many_bcs, "zoo_adjoint": zoo_adjoint, "zoo_gradients": zoo_grads,
                       "probes": probes,
                       "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf,
-                      "hybrid_scripts": hybrid_rec, "hybrid_2d": hybrid_2d, "hybrid_big": hybrid_perf}))
-    print(f"[19] all phases in {time.perf_counter() - t_start:.1f} s")
+                      "hybrid_scripts": hybrid_rec, "hybrid_2d": hybrid_2d, "hybrid_big": hybrid_perf,
+                      "open_window_gradients": window_grads, "open_training": open_train}))
+    print(f"[20] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

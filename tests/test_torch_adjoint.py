@@ -17,6 +17,8 @@ All inputs are made from a seed with NumPy. (torch is imported inside the
 tests; test_torch_setup.py says why.)
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,11 +53,13 @@ def _perturbed(f0, seed):
     return (f * (1.0 + 0.05 * np.random.default_rng(seed).standard_normal(f.shape))).astype(np.float32)
 
 
+@functools.cache
 def _adjoint_scene(store_key, seed, package="both", solid=True):
     """The cavity at SHAPE with a solid block, a seeded perturbed primal in
     store form and a seeded float32 cotangent of magnitude ~w. Returns
     {package: (velocity set, bc specs, primal, g, packed mask)} and the
-    store dtype key's entry of STORES."""
+    store dtype key's entry of STORES; built once per test process (the
+    tests only read it)."""
     import torch
 
     from xlb_tpu_torch.kernels.fused_step import bc_to_spec, pack_masks
@@ -213,8 +217,12 @@ def test_hand_derivation_matches_plain_adjoint(store, solid):
     assert float(dom_ref.abs().max()) > 0 and float(df_ref.abs().max()) > 0
 
 
-def _grads_jax(loss, f, omega):
-    gf, go = jax.grad(loss, argnums=(0, 1))(f, jnp.float32(omega))
+def _grads_jax(loss, f, omega, jit=False):
+    """jax.grad of loss(f, omega); ``jit``: compiled whole, which pays on
+    the BGK cavity (the zoo's forced and entropic steps compile for longer
+    than they run op by op)."""
+    grad = jax.grad(loss, argnums=(0, 1))
+    gf, go = (jax.jit(grad) if jit else grad)(f, jnp.float32(omega))
     return np.asarray(jnp.asarray(gf).astype(jnp.float32)), float(go)
 
 
@@ -257,7 +265,7 @@ def test_fused_step_autograd_matches_jnp_tier():
     sj, (f0j, _, bmj, mmj) = build_cavity("xlb_tpu", shape)
     st, (_, _, bmt, mmt) = build_cavity("xlb_tpu_torch", shape)
     f = jnp.asarray(_perturbed(f0j, seed=3))
-    gf_j, go_j = _grads_jax(lambda f, om: jnp.sum(sj(f, f, bmj, mmj, om, 0)[1] ** 2), f, OMEGA)
+    gf_j, go_j = _grads_jax(lambda f, om: jnp.sum(sj(f, f, bmj, mmj, om, 0)[1] ** 2), f, OMEGA, jit=True)
 
     step = build_fused_step(st)
     calls = CollideStreamAdjoint.plain_calls
@@ -280,7 +288,7 @@ def test_fused_window_fp32_autograd_matches_jnp_rollout():
     st, (_, _, bmt, mmt) = build_cavity("xlb_tpu_torch", shape)
     f = jnp.asarray(_perturbed(f0j, seed=4))
 
-    gf_j, go_j = _grads_jax(lambda f, om: _jnp_rollout_sum_sq(sj, f, bmj, mmj, om, steps), f, OMEGA)
+    gf_j, go_j = _grads_jax(lambda f, om: _jnp_rollout_sum_sq(sj, f, bmj, mmj, om, steps), f, OMEGA, jit=True)
     run = build_fused_window(st, steps)
     calls = CollideStreamAdjoint.plain_calls
     gf_t, go_t = _grads_torch(lambda f, om: _sum_sq(run(f, f, bmt, mmt, om)[0]), f, OMEGA)
@@ -325,7 +333,7 @@ def test_torch_tier_autograd_matches_jnp_tier():
     sj, (f0j, _, bmj, mmj) = build_cavity("xlb_tpu", shape)
     st, (_, _, bmt, mmt) = build_cavity("xlb_tpu_torch", shape)
     f = jnp.asarray(_perturbed(f0j, seed=6))
-    gf_j, go_j = _grads_jax(lambda f, om: _jnp_rollout_sum_sq(sj, f, bmj, mmj, om, steps), f, OMEGA)
+    gf_j, go_j = _grads_jax(lambda f, om: _jnp_rollout_sum_sq(sj, f, bmj, mmj, om, steps), f, OMEGA, jit=True)
     run = st.build_multi_step(steps)
     gf_t, go_t = _grads_torch(lambda f, om: _sum_sq(run(f, f, bmt, mmt, om)[0]), f, OMEGA)
     np.testing.assert_allclose(gf_t, gf_j, rtol=1e-5, atol=2e-7)

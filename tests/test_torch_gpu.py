@@ -727,3 +727,65 @@ def test_hybrid_2d_kernels_match_plain_versions_on_the_card(cuda_device, method,
             b0, b1 = plain(b0, b1, bm, mm, omega, t)
             b0, b1 = b1, b0
         torch.testing.assert_close(a0, b0, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sphere", "rotating", "zouhe", "outflow2"])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_open_adjoint_matches_plain_version_on_the_card(cuda_device, kind, store):
+    """K8 in its kExtOpen form on the open scenes at 40x20x24 (f32, and
+    bf16-shifted): against its plain version (rtol 1e-4, atol 1e-6 / 1e-7),
+    D3Q27 KBC against float64 TORCH-tier autograd (no farther than twice
+    the plain version), two calls bit for bit (chip_smoke's
+    ``check_adjoint``)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from chip_smoke import OPEN_OMEGA, OPEN_SCENES, check_adjoint, open_kernels, perturbed
+    from chip_smoke import open_scene as port_scene
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    shape = (40, 20, 24)
+    P, B = xlb.PrecisionPolicy, xlb.ComputeBackend
+    stepper, (_, _, bc_mask, missing_mask) = port_scene(kind, shape, P.FP32FP32, B.TORCH, cuda_device)
+    scene64 = port_scene(kind, shape, P.FP64FP64, B.TORCH, cuda_device) if OPEN_SCENES[kind][1] == "KBC" else None
+    dtype, shifted = getattr(torch, store), store == "bfloat16"
+    f = perturbed(stepper.velocity_set, shape, dtype, shifted, 3, cuda_device)
+    _, aux, _ = open_kernels(stepper, dtype, shifted)
+    check_adjoint(stepper, f, pack_masks(bc_mask, missing_mask), OPEN_OMEGA, aux, dtype, shifted, kind, scene64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["bounceback", "bounceback_regularized", "bounceback_grads",
+                                    "nonequilibrium_regularized"])
+@pytest.mark.parametrize("pair,variant", [(("D3Q19", "BGK"), (True, "static", "closed")),
+                                          (("D3Q19", "BGK"), (False, "spin", "open")),
+                                          (("D3Q27", "KBC"), (True, "spin", "open"))])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_hybrid_adjoint_matches_plain_version_on_the_card(cuda_device, method, pair, variant, store):
+    """K8 in its kExtHybrid form on hybrid_bcs tunnels at 40x20x24, as the
+    open scenes' test: every method, with and without wall distances,
+    static and spinning walls, both pairs (D3Q27 KBC against float64)."""
+    import torch
+
+    from chip_smoke import HYBRID_OMEGA, check_adjoint, hybrid_scene, open_kernels, perturbed
+    from xlb_tpu_torch.kernels.fused_step import pack_masks
+
+    shape = (40, 20, 24)
+    stepper, (_, _, bc_mask, missing_mask) = hybrid_scene(pair, method, *variant, shape, cuda_device)
+    scene64 = hybrid_scene(pair, method, *variant, shape, cuda_device, "FP64FP64") if pair[1] == "KBC" else None
+    dtype, shifted = getattr(torch, store), store == "bfloat16"
+    f = perturbed(stepper.velocity_set, shape, dtype, shifted, 3, cuda_device)
+    _, aux, _ = open_kernels(stepper, dtype, shifted)
+    check_adjoint(stepper, f, pack_masks(bc_mask, missing_mask), HYBRID_OMEGA, aux, dtype, shifted, method, scene64)
+
+
+@pytest.mark.gpu
+def test_open_window_gradients_match_torch_tier(cuda_device):
+    """build_multi_step(4) on the CUDA tier (K2 forward; K1 replay and K8
+    once per step) against TORCH-tier autograd on a flow past a sphere and
+    an open hybrid tunnel at 64x32x32: d f_0 rtol 2e-4, atol 1e-6; d omega
+    rtol 2e-3 (chip_smoke's ``open_window_gradients``)."""
+    from chip_smoke import open_window_gradients
+
+    assert set(open_window_gradients(cuda_device)) == {"sphere", "hybrid"}

@@ -19,10 +19,11 @@ D = 8 (177x34, D2Q9 BGK, the parabolic inlet through the aux field).
   (``test_torch_open_bcs.py``'s bound); the bf16-shifted window within 8
   bf16 ulps; the Schafer-Turek scene's plain K3 steps and K4 window, 50
   steps, the same way;
-- (d) guards: K8 refuses hybrid naming it; a hybrid BC on a (stencil,
-  collision) pair without the kExtHybrid instantiation raises; the 2D
-  kernels refuse the outflow, free-slip and do-nothing; autograd through a
-  3D hybrid step raises naming K8.
+- (d) guards: K8 takes hybrid (its kExtHybrid form) and the 3D hybrid
+  step and window differentiate on the CUDA tier (test_torch_open_adjoint.py
+  holds their gradients against xlb_tpu's); a hybrid BC on a (stencil,
+  collision) pair without the kExtHybrid instantiation raises, in K1 and
+  K8; the 2D kernels refuse the outflow, free-slip and do-nothing.
 
 (torch is imported inside the tests; test_torch_setup.py says why.)
 """
@@ -68,6 +69,23 @@ def hybrid_scene(pkg_name, method, use_dist=True, wall=None, tunnel="closed", q=
     rho, u = _macroscopic_fields(SHAPE, seed)
     f_0 = init_mac(grid, stepper.velocity_set, stepper.precision_policy, rho, 0.5 * u)
     return stepper, (f_0, f_1, bc_mask, missing_mask)
+
+
+@functools.cache
+def cached_scene(pkg_name, method, use_dist=True, wall=None, tunnel="closed", q=19, policy="FP32FP32",
+                 collision="BGK"):
+    """``hybrid_scene``, built once per test process for the tests that
+    only read it."""
+    return hybrid_scene(pkg_name, method, use_dist, wall, tunnel, q, policy, collision)
+
+
+@functools.cache
+def jnp_reference(scene, n):
+    """n steps of xlb_tpu's jnp tier on a SCENES tunnel from its state (one
+    jitted window), built once per test process."""
+    method, use_dist, wall, tunnel, q, collision = scene
+    sj, fj = cached_scene("xlb_tpu", method, use_dist, wall, tunnel, q, collision=collision)
+    return sj.build_multi_step(n, donate=False)(*fj, OMEGA)[0]
 
 
 def _steps(step, fields, n, omega=OMEGA):
@@ -176,10 +194,8 @@ def test_torch_tier_and_plain_kernels_match_jnp_tier(scene):
     from xlb_tpu_torch.kernels.fused_step import build_fused_step, build_fused_window
 
     method, use_dist, wall, tunnel, q, collision = scene
-    kw = dict(use_dist=use_dist, wall=wall, tunnel=tunnel, q=q, collision=collision)
-    sj, fj = hybrid_scene("xlb_tpu", method, **kw)
-    ref = as_f32(sj.build_multi_step(3, donate=False)(*fj, OMEGA)[0])
-    st, ft = hybrid_scene("xlb_tpu_torch", method, **kw)
+    ref = as_f32(jnp_reference(scene, 3))
+    st, ft = cached_scene("xlb_tpu_torch", method, use_dist, wall, tunnel, q, collision=collision)
     assert (st.boundary_conditions[-1]._distances is not None) == use_dist
     steps = (st, build_fused_step(st)) + ((build_fused_step(st, kernel="blocked"),) if tunnel == "closed" else ())
     for step in steps:  # K0's plain version is K1's: its wrapper on the closed tunnels
@@ -274,10 +290,11 @@ def test_force_history_of_the_torch_form():
 
 
 def test_guards():
-    """(d) K8 refuses hybrid naming it; a hybrid BC on a pair without the
-    kExtHybrid instantiation raises at construction; the 2D kernels refuse
-    the outflow, free-slip and do-nothing; autograd through a 3D hybrid
-    step or window on the CUDA tier raises naming K8."""
+    """(d) K8 takes hybrid (the kExtHybrid form); a hybrid BC on a pair
+    without the kExtHybrid instantiation raises at construction, in K1 and
+    K8; the 2D kernels refuse the outflow, free-slip and do-nothing;
+    autograd through a 3D hybrid step or window on the CUDA tier has its
+    backward: K8 for "dma", the TORCH tier's VJP for "blocked"."""
     import torch
 
     from xlb_tpu_torch import boundary
@@ -290,16 +307,16 @@ def test_guards():
     st, ft = hybrid_scene("xlb_tpu_torch", "bounceback")
     vs = st.velocity_set
     specs = [bc_to_spec(b, vs) for b in st.boundary_conditions]
-    with pytest.raises(NotImplementedError, match="K8.*hybrid"):
-        CollideStreamAdjoint(vs, SHAPE, bc_specs=specs)
-    with pytest.raises(NotImplementedError, match="D3Q19 BGK and D3Q27 KBC only, got D3Q19 TRT"):
-        CollideStreamStep(vs, SHAPE, collision=("TRT", {"magic": 0.25}), bc_specs=specs)
-    for sweeps in (_FusedSweeps(st, 1, shifted=False), _FusedSweeps(st, 4, shifted=False),
-                   _FusedSweeps(st, 1, shifted=False, kernel="blocked")):
+    assert CollideStreamAdjoint(vs, SHAPE, bc_specs=specs).params.walled == 3
+    for cls in (CollideStreamStep, CollideStreamAdjoint):
+        with pytest.raises(NotImplementedError, match="D3Q19 BGK and D3Q27 KBC only, got D3Q19 TRT"):
+            cls(vs, SHAPE, collision=("TRT", {"magic": 0.25}), bc_specs=specs)
+    for sweeps, backward in ((_FusedSweeps(st, 1, shifted=False), "adjoint"),
+                             (_FusedSweeps(st, 4, shifted=False), "adjoint"),
+                             (_FusedSweeps(st, 1, shifted=False, kernel="blocked"), "torch")):
         f = ft[0].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="K8"):
-            sweeps.check_backward(f, OMEGA)
-        assert "hybrid" in sweeps.no_backward
+        sweeps.check_backward(f, OMEGA)
+        assert sweeps.backward == backward and sweeps.no_backward is None
     reset_port_state()
     _init("xlb_tpu_torch", 9)
     idx = [[0, 1], [3, 3]]

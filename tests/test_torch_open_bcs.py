@@ -25,17 +25,19 @@ free-slip walls and a do-nothing piece.
 - (f) the torch forms of the three scripts at nx=32, nyz=16, 60 steps on
   the TORCH tier against xlb_tpu's ``run()`` (rtol 1e-4: 60 steps of
   float32 roundoff, and the drag a sum over the sphere);
-- (g) guards: K8 refuses a hybrid BC and a mesh HybridBC gets its
-  distances at prepare_fields; the CUDA tier refuses
-  autograd through an open-boundary BC naming K8 and refuses the pairs
-  without a kExtOpen instantiation; the geometry modules stay under the
-  no-JAX guard. (``tests/test_torch_gpu.py``, which imports no JAX, holds
-  K1, K2 and K0 against their plain versions on the open scenes on the
-  card.)
+- (g) guards: a mesh HybridBC gets its distances at prepare_fields, and
+  autograd through the CUDA tier's step and window differentiates it and
+  the open-boundary BCs (test_torch_open_adjoint.py holds the gradients
+  against xlb_tpu's); the pairs without a kExtOpen instantiation raise, in
+  K1 and K8, and a scene with per-voxel prescriptions needs its aux field;
+  the geometry modules stay under the no-JAX guard.
+  (``tests/test_torch_gpu.py``, which imports no JAX, holds K1, K2, K0
+  and K8 against their plain versions on the open scenes on the card.)
 
 (torch is imported inside the tests; test_torch_setup.py says why.)
 """
 
+import functools
 import importlib
 import pathlib
 
@@ -84,6 +86,21 @@ def open_scene(pkg_name, kind, shape=SHAPE, policy="FP32FP32", seed=0, perturb=T
         rho, u = _macroscopic_fields(shape, seed)
         f_0 = init_mac(grid, stepper.velocity_set, stepper.precision_policy, rho, u)
     return stepper, (f_0, f_1, bc_mask, missing_mask)
+
+
+@functools.cache
+def cached_scene(pkg_name, kind, shape=SHAPE, policy="FP32FP32"):
+    """``open_scene``, built once per test process for the tests that only
+    read it."""
+    return open_scene(pkg_name, kind, shape, policy)
+
+
+@functools.cache
+def jnp_reference(kind, n, policy="FP32FP32"):
+    """n steps of xlb_tpu's jnp tier from the scene's state (one jitted
+    window), built once per test process."""
+    sj, fj = cached_scene("xlb_tpu", kind, SHAPE, policy)
+    return _jnp_window(sj, fj, n)
 
 
 def _steps(step, fields, n):
@@ -135,8 +152,8 @@ def test_aux_field_matches_xlb_tpu(kind):
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
     from xlb_tpu_torch.utils import aux_from_numpy, fields_from_numpy
 
-    sj, fj = open_scene("xlb_tpu", kind)
-    st, ft = open_scene("xlb_tpu_torch", kind)
+    sj, fj = cached_scene("xlb_tpu", kind)
+    st, ft = cached_scene("xlb_tpu_torch", kind)
     ours, ref = build_aux_field(st), jax_build_aux_field(sj)
     assert ours.shape == ref.shape == ((1 if kind == "zouhe" else 3),) + SHAPE
     np.testing.assert_array_equal(ours, ref)
@@ -152,9 +169,8 @@ def test_aux_field_matches_xlb_tpu(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_torch_tier_matches_jnp_tier(kind):
     """(c) 20 TORCH-tier steps of stepper(...) against xlb_tpu's jnp tier."""
-    sj, fj = open_scene("xlb_tpu", kind)
-    ref = as_f32(_jnp_window(sj, fj, 20))
-    st, ft = open_scene("xlb_tpu_torch", kind)
+    ref = as_f32(jnp_reference(kind, 20))
+    st, ft = cached_scene("xlb_tpu_torch", kind)
     np.testing.assert_allclose(as_f32(_steps(st, ft, 20)), ref, rtol=1e-5, atol=1e-6)
 
 
@@ -167,9 +183,8 @@ def test_plain_kernels_match_jnp_tier(kind):
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
     from xlb_tpu_torch.kernels.fused_step import build_fused_step, build_fused_window
 
-    sj, fj = open_scene("xlb_tpu", kind)
-    ref = as_f32(_jnp_window(sj, fj, 3))
-    st, ft = open_scene("xlb_tpu_torch", kind)
+    ref = as_f32(jnp_reference(kind, 3))
+    st, ft = cached_scene("xlb_tpu_torch", kind)
     for step in (build_fused_step(st), build_fused_step(st, kernel="blocked")):
         np.testing.assert_allclose(as_f32(_steps(step, ft, 3)), ref, rtol=1e-5, atol=5e-6)
     calls = (CollideStreamKStep.plain_calls, CollideStreamStep.plain_calls)
@@ -187,9 +202,8 @@ def test_bf16_shifted_window_matches_jnp_tier(kind):
 
     from xlb_tpu_torch.kernels.fused_step import build_fused_window
 
-    sj, fj = open_scene("xlb_tpu", kind, policy="FP32BF16")
-    ref = _jnp_window(sj, fj, 2)
-    st, ft = open_scene("xlb_tpu_torch", kind, policy="FP32BF16")
+    ref = jnp_reference(kind, 2, "FP32BF16")
+    st, ft = cached_scene("xlb_tpu_torch", kind, SHAPE, "FP32BF16")
     out, _ = build_fused_window(st, 2)(*ft, OMEGA)
     eps = float(jnp.finfo(jnp.bfloat16).eps)
     np.testing.assert_allclose(as_f32(out), as_f32(ref), rtol=8 * eps, atol=8 * eps * 0.05)
@@ -228,16 +242,15 @@ def test_script_torch_forms_match_xlb_tpu(name, extra):
 
 
 def test_hybrid_and_mesh_distances_raise():
-    """(g) What still refuses around the curved walls: the adjoint kernel K8
-    does not take a hybrid BC and autograd through a CUDA-tier step or
-    window with one raises naming K8; a BC with neither indices nor a mesh
-    raises. A mesh HybridBC gets its wall distances at prepare_fields."""
-    import torch
-
+    """(g) Around the curved walls: the adjoint kernel K8 takes a hybrid BC
+    and autograd through a CUDA-tier step (kernel="dma" and "blocked") or
+    window with one gives finite gradients, K8 once per step; a BC with
+    neither indices nor a mesh raises. A mesh HybridBC gets its wall
+    distances at prepare_fields."""
     import xlb_tpu_torch
     from xlb_tpu_torch import boundary
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
-    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_fused_step, build_fused_window
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec
 
     st, _ = open_scene("xlb_tpu_torch", "sphere", perturb=False)
     bcs = list(st.boundary_conditions)
@@ -246,47 +259,62 @@ def test_hybrid_and_mesh_distances_raise():
     f_0, f_1, bc_mask, missing_mask = stepper.prepare_fields()
     assert bcs[3]._distances is not None and np.isfinite(bcs[3]._distances).any()
     specs = [bc_to_spec(b, stepper.velocity_set) for b in bcs]
-    with pytest.raises(NotImplementedError, match="K8.*hybrid"):
-        CollideStreamAdjoint(stepper.velocity_set, SHAPE, bc_specs=specs)
-    f = f_0.clone().requires_grad_(True)
-    for run in (build_fused_step(stepper), build_fused_step(stepper, kernel="blocked")):
-        with pytest.raises(NotImplementedError, match="K8"):
-            run(f, f_1, bc_mask, missing_mask, OMEGA)
-    with pytest.raises(NotImplementedError, match="K8"):
-        build_fused_window(stepper, 2)(f_0, f_1, bc_mask, missing_mask, torch.tensor(OMEGA, requires_grad=True))
+    assert CollideStreamAdjoint(stepper.velocity_set, SHAPE, bc_specs=specs).params.walled == 3
+    _differentiates(stepper, (f_0, f_1, bc_mask, missing_mask))
     bare = boundary.HalfwayBounceBackBC()
     with pytest.raises(ValueError, match="neither indices nor mesh_vertices"):
         xlb_tpu_torch.models.IncompressibleNavierStokesStepper(st.grid, boundary_conditions=[bare]).prepare_fields()
 
 
+def _differentiates(stepper, fields):
+    """Autograd through the CUDA tier's step (kernel="dma": K8 once;
+    "blocked": the TORCH tier's VJP) and its 2-step window (K8 twice) of an
+    open or hybrid scene (plain versions here): finite gradients of f_0 and
+    omega, nothing raises."""
+    import torch
+
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+    from xlb_tpu_torch.kernels.fused_step import build_fused_step, build_fused_window
+
+    f_0, f_1, bc_mask, missing_mask = fields
+    window = build_fused_window(stepper, 2)
+    for run, k8 in ((build_fused_step(stepper), 1), (build_fused_step(stepper, kernel="blocked"), 0),
+                    (lambda f, f_1, bm, mm, om: (None, window(f, f_1, bm, mm, om)[0]), 2)):
+        f = f_0.clone().requires_grad_(True)
+        om = torch.tensor(OMEGA, requires_grad=True)
+        calls = CollideStreamAdjoint.plain_calls
+        (run(f, f_1, bc_mask, missing_mask, om)[1].float() ** 2).sum().backward()
+        assert CollideStreamAdjoint.plain_calls == calls + k8
+        assert bool(torch.isfinite(f.grad).all()) and f.grad.abs().max() > 0 and bool(torch.isfinite(om.grad))
+
+
 def test_cuda_tier_refuses_what_it_lacks():
-    """(g) Autograd through a fused step or window with an open-boundary BC
-    raises naming K8 (no TORCH-tier VJP in its place), for kernel="dma"
-    and "blocked"; the adjoint kernel refuses the kinds; a (stencil,
-    collision) pair without a kExtOpen instantiation raises at
-    construction; a scene with a per-voxel prescription needs its aux
-    field."""
+    """(g) Autograd through a fused step or window with open-boundary BCs
+    differentiates, for kernel="dma" (K8) and "blocked" (the TORCH tier's
+    VJP); what still refuses: a (stencil, collision) pair without a
+    kExtOpen instantiation raises at construction, in K1 and K8, and a
+    scene with a per-voxel prescription needs its aux field, in K1 and
+    K8."""
     import torch
 
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
-    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_fused_step, build_fused_window
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec
 
-    st, (f_0, f_1, bc_mask, missing_mask) = open_scene("xlb_tpu_torch", "sphere")
-    f = f_0.clone().requires_grad_(True)
-    for run in (build_fused_step(st), build_fused_step(st, kernel="blocked")):
-        with pytest.raises(NotImplementedError, match="K8"):
-            run(f, f_1, bc_mask, missing_mask, OMEGA)
-    with pytest.raises(NotImplementedError, match="K8"):
-        build_fused_window(st, 2)(f_0, f_1, bc_mask, missing_mask, torch.tensor(OMEGA, requires_grad=True))
+    st, fields = cached_scene("xlb_tpu_torch", "sphere")
+    _differentiates(st, fields)
+    f_0 = fields[0]
     specs = [bc_to_spec(b, st.velocity_set) for b in st.boundary_conditions]
-    with pytest.raises(NotImplementedError, match="K8"):
-        CollideStreamAdjoint(st.velocity_set, SHAPE, bc_specs=specs)
-    for collision in ("TRT", ("MRT", {"fixed": [], "bulk_rate": None, "ghost_rate": None})):
-        with pytest.raises(NotImplementedError, match="D3Q19 BGK and D3Q27 KBC"):
-            CollideStreamStep(st.velocity_set, SHAPE, collision=collision, bc_specs=specs)
+    assert CollideStreamAdjoint(st.velocity_set, SHAPE, bc_specs=specs).params.walled == 2
+    for cls in (CollideStreamStep, CollideStreamAdjoint):
+        for collision in ("TRT", ("MRT", {"fixed": [], "bulk_rate": None, "ghost_rate": None})):
+            with pytest.raises(NotImplementedError, match="D3Q19 BGK and D3Q27 KBC"):
+                cls(st.velocity_set, SHAPE, collision=collision, bc_specs=specs)
+    mask = torch.zeros(SHAPE, dtype=torch.int32)
     with pytest.raises(ValueError, match="aux field"):
-        CollideStreamStep(st.velocity_set, SHAPE, bc_specs=specs)(f_0, torch.zeros(SHAPE, dtype=torch.int32), OMEGA)
+        CollideStreamStep(st.velocity_set, SHAPE, bc_specs=specs)(f_0, mask, OMEGA)
+    with pytest.raises(ValueError, match="aux field"):
+        CollideStreamAdjoint(st.velocity_set, SHAPE, bc_specs=specs)(f_0, torch.zeros_like(f_0), mask, OMEGA)
 
 
 def test_no_jax_guard_covers_the_open_boundary_modules():

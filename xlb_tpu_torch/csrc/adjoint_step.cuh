@@ -2,15 +2,22 @@
 // (sm_90a): a member of the kernel family of collide_stream_3d.cuh, as a
 // template over the stencil S (D3Q19, D3Q27), the collision C, the store
 // dtype T of the primal, shifted storage, the EXT switch (kExtHalfway: the
-// halfway epilogue) and FORCE (the exact-difference body force).
-// Instantiated per (stencil, collision) pair with the forward kernels and
-// launched through collide_stream.cu's xlb_collide_stream_adjoint.
+// halfway epilogue; kExtOpen, kExtHybrid: the open boundaries and curved
+// walls, below) and FORCE (the exact-difference body force). Instantiated
+// per (stencil, collision) pair with the forward kernels -- the kExtOpen and
+// kExtHybrid forms in sources of their own,
+// collide_stream_*_{open,hybrid}_adjoint.cu -- and launched through
+// collide_stream.cu's xlb_collide_stream_adjoint.
 //
-// adjoint_kernel replaces the TPU kernel
-// xlb_tpu/kernels/adjoint_step.py::build_fused_adjoint_3d for every
-// configuration the forward K1 takes: every collision, D3Q27, the body
-// force, the streaming-step "equilibrium" and "halfway" BCs, the
-// collision-step "fullway" BC, the solid keep-out, plain or shifted storage.
+// adjoint_kernel, with adjoint_centred_kernel and adjoint_staging_kernel
+// after it where the scene needs them, replaces the TPU kernel xlb_tpu/kernels/adjoint_step.py::
+// build_fused_adjoint_3d for every configuration the forward K1 takes:
+// every collision, D3Q27, the body force, the streaming-step "equilibrium"
+// and "halfway" BCs, the collision-step "fullway" BC, the solid keep-out,
+// plain or shifted storage; and on D3Q19 BGK and D3Q27 KBC the open
+// boundaries (3D Zou-He and regularized, do-nothing, free-slip, the
+// extrapolation outflow and its staging, per-voxel prescriptions from the
+// aux field) and the hybrid curved wall.
 //
 // With the forward written per voxel y as out_l(y) = Phi_l(fs(y), fp(y), w)
 // for the pulled populations fs_m(y) = f_m[y - c_m] and the centred ones
@@ -46,15 +53,42 @@
 // - "halfway" voxel: a missing direction l took fs_l := fp_opp(l) (+ the
 //   constant wall term), so its h_l belongs to h_fp_opp(l), not h_fs_l.
 //
+// kExtOpen and kExtHybrid (the branches of adjoint_kernel and
+// adjoint_centred_kernel under ext_reads_aux(EXT), adjoint_staging_kernel).
+// The forward is out = Phi(fs, fp, st, w) with a third input, the outflow's staged reads st_m = f_m[y - t] (t = n
+// + c_m tangential), and epilogues that mix fs and fp (Zou-He, the
+// regularized closure, Tao's and Grad's hybrid closures). Per voxel y:
+// - the collision's VJP (as above) gives h_post, the cotangent of the
+//   post-epilogue populations; at an outflow voxel the staged slots l =
+//   opp(m) are overwritten after the collision (out_l := cs st_m + (1 - cs)
+//   fs_m), so their g_l leaves the collision's cotangent and adds
+//   (1 - cs) g_l to h_post_m (open_post_vjp); unforced BGK still takes the
+//   hand-derived transpose (the open forms compile the force, and apply it
+//   only when the scene has one);
+// - the epilogues' transpose takes h_post back to the pulled fs and the
+//   centred fp in forward mode: streamed_populations, the forward's own
+//   template, on Dual numbers, one pass per input (epilogue_vjp) -- q passes
+//   at BC voxels for fs, q more for fp, and none at the other voxels. The
+//   aux field enters as a constant (prescriptions carry no gradient);
+// - ownership: the h_fs terms are pushed by y's thread as above; the h_fp
+//   and staged terms belong to entries of other threads, so the second
+//   launch (adjoint_centred_kernel) adds h_fp(x) at every voxel x of an
+//   fp-reading epilogue, and a third
+//   (adjoint_staging_kernel, for scenes with an outflow) gather the staged
+//   cotangents cs g_opp(m)(x + t) from the outflow voxels that read f_m[x]
+//   -- two outflow faces may stage from one x with different t, and a
+//   gather adds both without atomics, so two calls agree bit for bit.
+//
 // Push side: df_m[x] gathers h_fs_m from y = x + c_m, so the thread of
 // voxel y writes h_fs_m(y) to df_m[y - c_m] (periodic wrap). Each (m, x)
 // has exactly one writer and no atomics are needed. The solid term
 // h_fp_m[x] = g_m[x] is folded into that write: when has_solids, the
 // writing thread reads the mask of x (a cache hit mostly) and adds g_m[x]
 // where x is solid. The halfway term h_fp_opp(l)[x] += h_l(x) has another
-// owner, so a second launch (adjoint_halfway_kernel, only for scenes with a
-// halfway BC) recomputes h at the halfway voxels with missing directions
-// and adds it in place; its threads touch only their own voxel's entries.
+// owner, so a second launch (adjoint_centred_kernel, only for scenes with
+// an epilogue that reads centred populations) recomputes h at those
+// voxels and adds it in place; its threads touch only their own voxel's
+// entries.
 //
 // One thread per voxel, threads along z, so for each m a warp's q pulls of
 // the primal, its q cotangent loads and its q pushed stores are coalesced.
@@ -154,11 +188,196 @@ __device__ __forceinline__ void voxel_vjp(const float fs[S::q], const float g[S:
   }
 }
 
+// ---- the kExtOpen and kExtHybrid epilogues' transpose ----------------------
+
+// The aux field's entries of one voxel (kExtOpen, kExtHybrid).
+struct AuxAt {
+  const float* aux;
+  size_t plane, v;
+  __device__ __forceinline__ float operator()(int ch) const { return aux[ch * plane + v]; }
+};
+
+// The BC whose streaming-step epilogue runs at cell type bc (halfway,
+// zouhe, regularized, do-nothing, free-slip, outflow, hybrid), or -1.
+__device__ __forceinline__ int epilogue_bc(int bc, const XlbStepParams& p) {
+  for (int b = 0; b < p.n_bc; ++b)
+    if (bc == p.bc_id[b] && p.bc_kind[b] >= XLB_BC_HALFWAY) return b;
+  return -1;
+}
+
+// Whether the streaming-step epilogue of BC b reads centred populations
+// (every one but Zou-He's and the regularized closure's; the outflow's
+// also stages). The host asks it too, to launch the second kernel.
+__host__ __device__ __forceinline__ bool reads_centred(const XlbStepParams& p, int b) {
+  return p.bc_kind[b] >= XLB_BC_HALFWAY && p.bc_kind[b] != XLB_BC_ZOUHE && p.bc_kind[b] != XLB_BC_REGULARIZED;
+}
+
+// The offset t = n + c_m of outflow BC b's staged read of direction m, and
+// whether it is within reach (|t_a| <= 1), as outflow_staging tests it.
+template <class S>
+__device__ __forceinline__ bool staging_offset(const XlbStepParams& p, int b, int m, int& tx, int& ty, int& tz) {
+  tx = int(p.bc[b].vec[0]) + S::c(0, m);
+  ty = int(p.bc[b].vec[1]) + S::c(1, m);
+  tz = int(p.bc[b].vec[2]) + S::c(2, m);
+  return tx >= -1 && tx <= 1 && ty >= -1 && ty <= 1 && tz >= -1 && tz <= 1;
+}
+
+// Whether outflow BC b stages missing direction m into the outgoing slot
+// opp(m) at a voxel of mask word packed.
+template <class S>
+__device__ __forceinline__ bool staged_slot(int packed, const XlbStepParams& p, int b, int m) {
+  int tx, ty, tz;
+  return missing_bit(packed, m) && staging_offset<S>(p, b, m, tx, ty, tz);
+}
+
+// At a voxel that is neither solid nor fullway, of epilogue BC b (or -1):
+// h = the cotangent of the post-epilogue populations fs, and dom. An
+// outflow voxel's staged slots l = opp(m) leave the collision's output
+// (out[l] := cs f_m[x - t] + (1 - cs) fs[m]), so their g goes to fs[m] with
+// (1 - cs) and not through the collision. BGK without a force in the
+// scene by the hand-derived transpose, every other case in forward mode.
+template <class S, class C, bool FORCE>
+__device__ __forceinline__ void open_post_vjp(const float fs[S::q], const float g[S::q], int packed, int b, float omega,
+                                              const XlbStepParams& p, float h[S::q], float& dom) {
+  const bool outflow = b >= 0 && p.bc_kind[b] == XLB_BC_OUTFLOW;
+  float gc[S::q];
+#pragma unroll
+  for (int m = 0; m < S::q; ++m) gc[S::opp(m)] = outflow && staged_slot<S>(packed, p, b, m) ? 0.0f : g[S::opp(m)];
+  // physics_vjp is not inlined: its arguments are copies, so that fs, gc
+  // and h need not live in local memory where the hand transpose runs
+  auto forward_mode = [&]() {
+    float fs_c[S::q], g_c[S::q], h_c[S::q], dom_c;
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) fs_c[l] = fs[l], g_c[l] = gc[l];
+    physics_vjp<S, C, FORCE>(fs_c, g_c, omega, p, h_c, &dom_c);
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) h[l] = h_c[l];
+    dom = dom_c;
+  };
+  if constexpr (std::is_same<C, CollBGK>::value) {
+    if (!(FORCE && p.has_force)) bgk_vjp<S>(fs, gc, omega, p, h, dom);
+    else forward_mode();
+  } else {
+    forward_mode();
+  }
+  if (outflow) {
+    const float cs1 = 1.0f - p.bc[b].vec[3];
+#pragma unroll
+    for (int m = 0; m < S::q; ++m)
+      if (staged_slot<S>(packed, p, b, m)) h[m] += cs1 * g[S::opp(m)];
+  }
+}
+
+// The selection epilogues -- halfway (plus its constant or per-voxel wall
+// term), the outflow, do-nothing and free-slip -- set each post-epilogue
+// population to one pulled or one centred population plus a constant, so
+// their transpose is a selection too, taken here by hand rather than by
+// 2q forward-mode passes: walls are the most common BC, and a wall at a
+// z face puts a BC voxel in one warp of every few. The tests below follow
+// open_halfway_epilogue, free_slip_epilogue and open_epilogue's outflow
+// and do-nothing branches.
+__device__ __forceinline__ bool is_selection(int kind) {
+  return kind == XLB_BC_HALFWAY || kind == XLB_BC_OUTFLOW || kind == XLB_BC_DO_NOTHING || kind == XLB_BC_FREE_SLIP;
+}
+
+// The free-slip BC b's normal axis and outward sign.
+__device__ __forceinline__ void free_slip_axis(const XlbStepParams& p, int b, int& axis, int& sign) {
+  const int n0 = int(p.bc[b].vec[0]), n1 = int(p.bc[b].vec[1]), n2 = int(p.bc[b].vec[2]);
+  axis = n0 != 0 ? 0 : (n1 != 0 ? 1 : 2);
+  sign = n0 + n1 + n2;
+}
+
+// h[A-mirror of l] += h_post[l] for each l that free-slip BC takes from
+// the centred mirror across the wall normal to axis A; with CLEAR, h_post
+// is h itself and those l are zeroed instead (the pulled side).
+template <class S, int A, bool CLEAR>
+__device__ __forceinline__ void free_slip_vjp(int packed, int sign, const float h_post[S::q], float h[S::q]) {
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    if (!missing_bit(packed, l) || S::c(A, l) != -sign) continue;
+    if constexpr (CLEAR) h[l] = 0.0f;
+    else h[mirror_dir<S>(A, l)] += h_post[l];
+  }
+}
+
+// The pulled side of a selection epilogue's transpose, in place: h (the
+// post-epilogue cotangent on entry) keeps h_l where population l was the
+// pulled one, and 0 where it was a centred one.
+template <class S>
+__device__ __forceinline__ void selection_pulled_vjp(int packed, const XlbStepParams& p, int b, float h[S::q]) {
+  const int kind = p.bc_kind[b];
+  if (kind == XLB_BC_DO_NOTHING) {
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) h[l] = 0.0f;
+  } else if (kind == XLB_BC_FREE_SLIP) {
+    int axis, sign;
+    free_slip_axis(p, b, axis, sign);
+    if (axis == 0) free_slip_vjp<S, 0, true>(packed, sign, h, h);
+    else if (axis == 1) free_slip_vjp<S, 1, true>(packed, sign, h, h);
+    else free_slip_vjp<S, 2, true>(packed, sign, h, h);
+  } else {  // halfway, outflow: a missing l took the centred opp(l)
+#pragma unroll
+    for (int l = 0; l < S::q; ++l)
+      if (missing_bit(packed, l)) h[l] = 0.0f;
+  }
+}
+
+// The centred side: acc_k += h_post_l for each l that took the centred k.
+template <class S>
+__device__ __forceinline__ void selection_centred_vjp(int packed, const XlbStepParams& p, int b,
+                                                      const float h_post[S::q], float acc[S::q]) {
+  const int kind = p.bc_kind[b];
+  if (kind == XLB_BC_DO_NOTHING) {
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) acc[l] += h_post[l];
+  } else if (kind == XLB_BC_FREE_SLIP) {
+    int axis, sign;
+    free_slip_axis(p, b, axis, sign);
+    if (axis == 0) free_slip_vjp<S, 0, false>(packed, sign, h_post, acc);
+    else if (axis == 1) free_slip_vjp<S, 1, false>(packed, sign, h_post, acc);
+    else free_slip_vjp<S, 2, false>(packed, sign, h_post, acc);
+  } else {
+#pragma unroll
+    for (int l = 0; l < S::q; ++l)
+      if (missing_bit(packed, l)) acc[S::opp(l)] += h_post[l];
+  }
+}
+
+// The transpose of the streaming-step epilogues at one voxel:
+// h_in[j - first] = sum_l h_post[l] d fs_l / d input_j for first <= j <
+// last, input j < q the pulled population j and q + j the centred j (both
+// store-form reads as f32), in forward mode: streamed_populations on Dual
+// numbers, one pass per input. Not inlined, so the passes share one copy of
+// the epilogues.
+template <class S, bool SHIFTED, int EXT>
+__device__ __noinline__ void epilogue_vjp(const float* pulled, const float* centre, int packed, const XlbStepParams& p,
+                                          AuxAt aux, const float* h_post, int first, int last, float* h_in) {
+#pragma unroll 1
+  for (int j = first; j < last; ++j) {
+    auto pull = [&](int l) { return Dual(pulled[l], l == j ? 1.0f : 0.0f); };
+    auto center = [&](int l) { return Dual(centre[l], l + S::q == j ? 1.0f : 0.0f); };
+    Dual fs[S::q];
+    streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux);
+    float acc = 0.0f;
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) acc += h_post[l] * fs[l].d;
+    h_in[j - first] = acc;
+  }
+}
+
+// K8's first launch. At the voxels of an epilogue BC of the kExtOpen and
+// kExtHybrid forms, the cotangent of the post-epilogue populations
+// (open_post_vjp) goes back to the pulled populations through the
+// epilogues' transpose (selection_pulled_vjp, or epilogue_vjp), the aux
+// field a constant (prescriptions carry no gradient). The thread of voxel
+// y writes df_m[y - c_m] = h_fs_m(y) (+ g_m there when solid); the centred
+// and staged terms belong to other entries, which adjoint_centred_kernel
+// and adjoint_staging_kernel add.
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kAdjointThreads)
     adjoint_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
-                   float* __restrict__ df, float* __restrict__ dom, int X, int Y, int Z, float omega,
-                   const __grid_constant__ XlbStepParams p) {
+                   const float* __restrict__ aux, float* __restrict__ df, float* __restrict__ dom, int X, int Y, int Z,
+                   float omega, const __grid_constant__ XlbStepParams p) {
   const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
@@ -177,11 +396,14 @@ __global__ void __launch_bounds__(kAdjointThreads)
   };
   auto pull = [&](int l) { return to_f32(f[l * plane + neighbour(l)]); };
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
+  const AuxAt aux_at{aux, plane, v};
 
   const int packed = mask[v];
   const int bc = cell_type<S>(packed);
   float fs[S::q];
-  const bool fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
+  bool fixed;
+  if constexpr (ext_reads_aux(EXT)) fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux_at);
+  else fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
 
   float gv[S::q];
 #pragma unroll
@@ -195,13 +417,29 @@ __global__ void __launch_bounds__(kAdjointThreads)
   } else if (is_fullway(bc, p)) {
 #pragma unroll
     for (int m = 0; m < S::q; ++m) h[m] = gv[S::opp(m)];
+  } else if constexpr (ext_reads_aux(EXT)) {
+    const int b = epilogue_bc(bc, p);
+    open_post_vjp<S, C, FORCE>(fs, gv, packed, b, omega, p, h, d_omega);
+    if (b >= 0 && !fixed) {
+      if (is_selection(p.bc_kind[b])) {
+        selection_pulled_vjp<S>(packed, p, b, h);
+      } else {
+        // copies for the call, so that h itself need not live in local memory
+        float fr[S::q], fc[S::q], hp[S::q], hin[S::q];
+#pragma unroll
+        for (int l = 0; l < S::q; ++l) fr[l] = pull(l), fc[l] = center(l), hp[l] = h[l];
+        epilogue_vjp<S, SHIFTED, EXT>(fr, fc, packed, p, aux_at, hp, 0, S::q, hin);
+#pragma unroll
+        for (int m = 0; m < S::q; ++m) h[m] = hin[m];
+      }
+    }
   } else {
     voxel_vjp<S, C, FORCE>(fs, gv, omega, p, h, d_omega);
     if constexpr (EXT != kExtNone) {
       if (has_bc_kind(bc, p, XLB_BC_HALFWAY)) {
 #pragma unroll
         for (int m = 0; m < S::q; ++m)
-          if (missing_bit(packed, m)) h[m] = 0.0f;  // a centred population's: adjoint_halfway_kernel
+          if (missing_bit(packed, m)) h[m] = 0.0f;  // a centred population's: adjoint_centred_kernel
       }
     }
   }
@@ -220,19 +458,33 @@ __global__ void __launch_bounds__(kAdjointThreads)
   dom[v] = d_omega;
 }
 
-// The halfway term, after adjoint_kernel: at each halfway voxel x with
-// missing directions, df_opp(l)[x] += h_l(x) for every missing l.
-template <class S, class C, typename T, bool SHIFTED, bool FORCE>
+// K8's second launch, after adjoint_kernel, for scenes with an epilogue
+// that reads centred populations (reads_centred: halfway, and in the
+// kExtOpen and kExtHybrid forms do-nothing, free-slip, the outflow and the
+// hybrid wall): at such a voxel x, df_m[x] += h_fp_m(x), recomputed as in
+// adjoint_kernel. The halfway epilogue's transpose is a selection (a
+// missing l took the centred opp(l): df_opp(l)[x] += h_l(x)); the open
+// epilogues go through selection_centred_vjp, or epilogue_vjp with the
+// centred inputs seeded. Its thread x touches only voxel x's entries of
+// df, as the third launch's (adjoint_staging_kernel), so no two threads
+// write one entry and no atomics are needed.
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kAdjointThreads)
-    adjoint_halfway_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
-                           float* __restrict__ df, int X, int Y, int Z, float omega,
+    adjoint_centred_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
+                           const float* __restrict__ aux, float* __restrict__ df, int X, int Y, int Z, float omega,
                            const __grid_constant__ XlbStepParams p) {
   const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
   const int packed = mask[v];
   const int bc = cell_type<S>(packed);
-  if ((packed & ((1 << S::q) - 1)) == 0 || !has_bc_kind(bc, p, XLB_BC_HALFWAY)) return;
+  int b = -1;
+  if constexpr (ext_reads_aux(EXT)) {
+    b = epilogue_bc(bc, p);
+    if (b < 0 || !reads_centred(p, b)) return;
+  } else {
+    if ((packed & ((1 << S::q) - 1)) == 0 || !has_bc_kind(bc, p, XLB_BC_HALFWAY)) return;
+  }
   const int z = int(v % unsigned(Z));
   const unsigned xy = v / unsigned(Z);
   const int y = int(xy % unsigned(Y));
@@ -247,13 +499,65 @@ __global__ void __launch_bounds__(kAdjointThreads)
   };
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
   float fs[S::q], gv[S::q], h[S::q], d_omega;
-  streamed_populations<S, SHIFTED, kExtHalfway>(pull, center, packed, p, fs);
+  if constexpr (ext_reads_aux(EXT)) {
+    const AuxAt aux_at{aux, plane, v};
+    float acc[S::q];
+    streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux_at);
 #pragma unroll
-  for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v];
-  voxel_vjp<S, C, FORCE>(fs, gv, omega, p, h, d_omega);
+    for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v], acc[l] = 0.0f;
+    open_post_vjp<S, C, FORCE>(fs, gv, packed, b, omega, p, h, d_omega);
+    if (is_selection(p.bc_kind[b])) {
+      selection_centred_vjp<S>(packed, p, b, h, acc);
+    } else {
+      float fr[S::q], fc[S::q], hp[S::q];
 #pragma unroll
-  for (int l = 0; l < S::q; ++l)
-    if (missing_bit(packed, l)) df[S::opp(l) * plane + v] += h[l];
+      for (int l = 0; l < S::q; ++l) fr[l] = pull(l), fc[l] = center(l), hp[l] = h[l];
+      epilogue_vjp<S, SHIFTED, EXT>(fr, fc, packed, p, aux_at, hp, S::q, 2 * S::q, acc);
+    }
+#pragma unroll
+    for (int m = 0; m < S::q; ++m) df[m * plane + v] += acc[m];
+  } else {
+    streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v];
+    voxel_vjp<S, C, FORCE>(fs, gv, omega, p, h, d_omega);
+#pragma unroll
+    for (int l = 0; l < S::q; ++l)
+      if (missing_bit(packed, l)) df[S::opp(l) * plane + v] += h[l];
+  }
+}
+
+// The third launch, for scenes with an outflow: the staged term, a
+// gather. The outflow voxel y = x + t that stages missing m from x (t =
+// n + c_m) read f_m[x] with weight cs into its slot opp(m), so df_m[x] +=
+// cs g_opp(m)(y). Two outflow faces may stage from one x with different t;
+// each is gathered here in turn. A kernel of its own: it needs few
+// registers, where the recompute of the second launch needs many.
+template <class S>
+__global__ void __launch_bounds__(kAdjointThreads)
+    adjoint_staging_kernel(const float* __restrict__ g, const int* __restrict__ mask, float* __restrict__ df, int X,
+                           int Y, int Z, const __grid_constant__ XlbStepParams p) {
+  const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
+  const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  const int z = int(v % unsigned(Z));
+  const unsigned xy = v / unsigned(Z);
+  const int y = int(xy % unsigned(Y));
+  const int x = int(xy / unsigned(Y));
+  const size_t plane = n;
+  for (int ob = 0; ob < p.n_bc; ++ob) {
+    if (p.bc_kind[ob] != XLB_BC_OUTFLOW) continue;
+    const float cs = p.bc[ob].vec[3];
+#pragma unroll
+    for (int m = 0; m < S::q; ++m) {
+      int tx, ty, tz;
+      if (!staging_offset<S>(p, ob, m, tx, ty, tz)) continue;
+      const size_t u = (size_t(wrap1(x + tx, X)) * Y + wrap1(y + ty, Y)) * Z + wrap1(z + tz, Z);
+      const int pk = mask[u];
+      if (cell_type<S>(pk) != p.bc_id[ob] || !missing_bit(pk, m)) continue;
+      df[m * plane + v] += cs * g[S::opp(m) * plane + u];
+    }
+  }
 }
 
 }  // namespace xlb

@@ -93,12 +93,12 @@ int xlb_collide_stream_blocked(int store_kind, int shifted, const void* f, const
 
 // The adjoint of one step: store_kind and shifted describe the primal f;
 // the cotangent g and the outputs df (q, X, Y, Z) and dom (X, Y, Z) are
-// float32.
+// float32; aux as the forward's (read as a constant), or null.
 int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const void* g, const void* mask, void* df,
-                               void* dom, int X, int Y, int Z, float omega, const XlbStepParams* params,
-                               void* stream) {
+                               void* dom, int X, int Y, int Z, float omega, const void* aux,
+                               const XlbStepParams* params, void* stream) {
   const xlb::XlbLaunch a{xlb::XLB_KERNEL_ADJOINT, store_kind, shifted, f, mask, df, X, Y, Z, 0, 0, 0, 0, omega,
-                         params, static_cast<cudaStream_t>(stream), g, dom};
+                         params, static_cast<cudaStream_t>(stream), g, dom, static_cast<const float*>(aux)};
   return xlb::dispatch(a);
 }
 

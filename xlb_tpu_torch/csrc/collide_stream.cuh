@@ -3,7 +3,9 @@
 // kernels of collide_stream_2d.cu and, through its pieces
 // (streamed_populations, moments_equilibrium, collide_physics,
 // has_bc_kind, is_solid), the adjoint kernel of adjoint_step.cuh and the
-// multires kernels.
+// multires kernels. The epilogues and the physics are templates over the
+// scalar F: float in the forward, the adjoint's Dual numbers there (the
+// collision's and the epilogues' Jacobians in forward mode).
 //
 // It is the CUDA counterpart of the slice of
 // xlb_tpu/kernels/collide_stream.py::_build_kernel_body that scenes with
@@ -410,25 +412,26 @@ __host__ __device__ constexpr int mirror_dir(int a, int l) {
                      a == 2 ? -S::c(2, l) : S::c(2, l));
 }
 
-// The centred (pre-streaming) population l, unshifted.
+// The centred (pre-streaming) population l, unshifted: a float, or the
+// adjoint's Dual when center returns one.
 template <bool SHIFTED, typename Center>
-__device__ __forceinline__ float centred(const Center& center, const XlbStepParams& p, int l) {
-  float v = center(l);
-  if constexpr (SHIFTED) v += p.w[l];
+__device__ __forceinline__ auto centred(const Center& center, const XlbStepParams& p, int l) {
+  auto v = center(l);
+  if constexpr (SHIFTED) v = v + p.w[l];
   return v;
 }
 
 // "halfway" bounce-back of BC b: each missing direction l takes the centred
 // (pre-streaming) population opp(l), plus the constant moving-wall term.
-template <class S, bool SHIFTED, typename Center>
+template <class S, bool SHIFTED, typename Center, typename F>
 __device__ __forceinline__ void halfway_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
-                                                 float fs[S::q]) {
+                                                 F fs[S::q]) {
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     if (!missing_bit(packed, l)) continue;
     const int o = S::opp(l);
-    float refl = center(o);
-    if constexpr (SHIFTED) refl += p.w[o];
+    F refl = center(o);
+    if constexpr (SHIFTED) refl = refl + p.w[o];
     if (p.bc[b].flag) refl = refl + p.bc[b].vec[l];
     fs[l] = refl;
   }
@@ -437,15 +440,15 @@ __device__ __forceinline__ void halfway_epilogue(const Center& center, int packe
 // The kExtOpen "halfway" of BC b: as halfway_epilogue, with XLB_FLAG_AUX
 // the moving-wall term 6 w_l (c_l . u_wall) of the voxel's wall velocity
 // in the aux field (vec holds 6 w_l).
-template <class S, bool SHIFTED, typename Center, typename Aux>
+template <class S, bool SHIFTED, typename Center, typename F, typename Aux>
 __device__ __forceinline__ void open_halfway_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
-                                                      float fs[S::q], const Aux& aux) {
+                                                      F fs[S::q], const Aux& aux) {
   const int flag = p.bc[b].flag;
   const int u_off = flag >> XLB_FLAG_AUX_SHIFT;
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     if (!missing_bit(packed, l)) continue;
-    float refl = centred<SHIFTED>(center, p, S::opp(l));
+    F refl = centred<SHIFTED>(center, p, S::opp(l));
     if (flag & XLB_FLAG_AUX) {
       float cu = 0.0f;
       bool have = false;
@@ -458,9 +461,9 @@ __device__ __forceinline__ void open_halfway_epilogue(const Center& center, int 
         cu = have ? __fadd_rn(cu, t) : t;
         have = true;
       }
-      if (have) refl = __fadd_rn(refl, __fmul_rn(p.bc[b].vec[l], cu));
+      if (have) refl = add_rn(refl, F(__fmul_rn(p.bc[b].vec[l], cu)));
     } else if (flag) {
-      refl = __fadd_rn(refl, p.bc[b].vec[l]);
+      refl = add_rn(refl, F(p.bc[b].vec[l]));
     }
     fs[l] = refl;
   }
@@ -470,9 +473,9 @@ __device__ __forceinline__ void open_halfway_epilogue(const Center& center, int 
 // (XLB_FLAG_PRESSURE), constant or with XLB_FLAG_AUX the voxel's in the aux
 // field, closed by the mass balance fsum; a per-voxel velocity's every
 // component adds its normal term, as xlb_tpu's body.
-template <class S, typename Aux>
-__device__ __forceinline__ void open_prescription(const XlbStepParams& p, int b, float fsum, const float normal[S::d],
-                                                  const Aux& aux, float& rho, float u[S::d]) {
+template <class S, typename F, typename Aux>
+__device__ __forceinline__ void open_prescription(const XlbStepParams& p, int b, F fsum, const float normal[S::d],
+                                                  const Aux& aux, F& rho, F u[S::d]) {
   const int flag = p.bc[b].flag;
   const int ch = flag >> XLB_FLAG_AUX_SHIFT;
   if (!(flag & XLB_FLAG_PRESSURE)) {  // velocity
@@ -490,10 +493,10 @@ __device__ __forceinline__ void open_prescription(const XlbStepParams& p, int b,
     }
     rho = fsum / (1.0f + unormal);
   } else {  // pressure
-    rho = (flag & XLB_FLAG_AUX) ? aux(ch) : p.bc[b].vec[0];
-    const float unormal = -1.0f + fsum / rho;
+    rho = F((flag & XLB_FLAG_AUX) ? aux(ch) : p.bc[b].vec[0]);
+    const F unormal = -1.0f + fsum / rho;
 #pragma unroll
-    for (int a = 0; a < S::d; ++a) u[a] = __fmul_rn(unormal, normal[a]);
+    for (int a = 0; a < S::d; ++a) u[a] = mul_rn(unormal, F(normal[a]));
   }
 }
 
@@ -504,25 +507,25 @@ __device__ __forceinline__ void open_prescription(const XlbStepParams& p, int b,
 // and in intrinsics nvcc never contracts (open_prescription) --; missing
 // directions take the non-equilibrium bounce-back f_opp + feq_l - feq_opp;
 // "regularized" then rebuilds every population as feq + 4.5 w_l Q_l :
-// Pi_neq.
-template <class S, bool OPEN = false, typename Aux = NoAux>
-__device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& p, int b, float fs[S::q],
+// Pi_neq. F is float, or the adjoint's Dual.
+template <class S, bool OPEN = false, typename Aux = NoAux, typename F>
+__device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& p, int b, F fs[S::q],
                                                const Aux& aux = Aux{}) {
   constexpr int q = S::q, d = S::d, nt = n_moments<S>();
   float miss[q];
 #pragma unroll
   for (int l = 0; l < q; ++l) miss[l] = missing_bit(packed, l) ? 1.0f : 0.0f;
 
-  float fsum = 0.0f;
+  F fsum = 0.0f;
 #pragma unroll
   for (int l = 0; l < q; ++l) {
     const float known = miss[S::opp(l)];
     const float middle = 1.0f - fmaxf(miss[l], known);
     if constexpr (OPEN) {
-      const float term = __fadd_rn(__fmul_rn(fs[l], middle), __fmul_rn(2.0f * fs[l], known));
-      fsum = l == 0 ? term : __fadd_rn(fsum, term);
+      const F term = add_rn(mul_rn(fs[l], F(middle)), mul_rn(2.0f * fs[l], F(known)));
+      fsum = l == 0 ? term : add_rn(fsum, term);
     } else {
-      const float term = fs[l] * middle + 2.0f * fs[l] * known;
+      const F term = fs[l] * middle + 2.0f * fs[l] * known;
       fsum = l == 0 ? term : fsum + term;
     }
   }
@@ -543,7 +546,7 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
     normal[a] = -acc;
   }
 
-  float rho, u[d];
+  F rho, u[d];
   if constexpr (OPEN) {
     open_prescription<S>(p, b, fsum, normal, aux, rho, u);
   } else if (p.bc[b].flag == 0) {  // velocity
@@ -561,12 +564,12 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
     rho = fsum / (1.0f + unormal);
   } else {  // pressure
     rho = p.bc[b].vec[0];
-    const float unormal = -1.0f + fsum / rho;
+    const F unormal = -1.0f + fsum / rho;
 #pragma unroll
     for (int a = 0; a < d; ++a) u[a] = unormal * normal[a];
   }
 
-  float feq[q], fbd[q];
+  F feq[q], fbd[q];
   if constexpr (OPEN) equilibrium_rn<S>(rho, u, p, feq);
   else equilibrium<S>(rho, u, p, feq);
 #pragma unroll
@@ -576,17 +579,17 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
   }
 
   if (p.bc_kind[b] == XLB_BC_REGULARIZED) {
-    float pi[nt];
+    F pi[nt];
 #pragma unroll
     for (int t = 0; t < nt; ++t) {
-      float acc = 0.0f;
+      F acc = 0.0f;
       bool have = false;
 #pragma unroll
       for (int l = 0; l < q; ++l) {
         const int k = cc<S>(l, t);
         if (k == 0) continue;
-        const float fneq = fbd[l] - feq[l];
-        const float term = k == 1 ? fneq : -fneq;
+        const F fneq = fbd[l] - feq[l];
+        const F term = k == 1 ? fneq : -fneq;
         acc = have ? acc + term : term;
         have = true;
       }
@@ -594,21 +597,21 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
     }
 #pragma unroll
     for (int l = 0; l < q; ++l) {
-      float qipi = 0.0f;
+      F qipi = 0.0f;
       bool have = false;
 #pragma unroll
       for (int t = 0; t < nt; ++t) {
         if (qi<S>(l, t) == 0.0f) continue;
         if constexpr (OPEN) {
-          const float term = __fmul_rn(pi[t], qi<S>(l, t));
-          qipi = have ? __fadd_rn(qipi, term) : term;
+          const F term = mul_rn(pi[t], F(qi<S>(l, t)));
+          qipi = have ? add_rn(qipi, term) : term;
         } else {
-          const float term = pi[t] * qi<S>(l, t);
+          const F term = pi[t] * qi<S>(l, t);
           qipi = have ? qipi + term : term;
         }
         have = true;
       }
-      if constexpr (OPEN) fbd[l] = __fadd_rn(feq[l], __fmul_rn(p.w45[l], qipi));
+      if constexpr (OPEN) fbd[l] = add_rn(feq[l], mul_rn(F(p.w45[l]), qipi));
       else fbd[l] = feq[l] + p.w45[l] * qipi;
     }
   }
@@ -620,9 +623,9 @@ __device__ __forceinline__ void zouhe_epilogue(int packed, const XlbStepParams& 
 // crosses the wall (c_l along the normal axis == -sign(n)) takes the
 // centred population of its mirror across the wall; the other missing
 // directions (periodic wraps at corners) keep their pulled values.
-template <class S, bool SHIFTED, typename Center>
+template <class S, bool SHIFTED, typename Center, typename F>
 __device__ __forceinline__ void free_slip_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
-                                                   float fs[S::q]) {
+                                                   F fs[S::q]) {
   const int n0 = int(p.bc[b].vec[0]), n1 = int(p.bc[b].vec[1]), n2 = int(p.bc[b].vec[2]);
   const int axis = n0 != 0 ? 0 : (n1 != 0 ? 1 : 2);
   const int sign = n0 + n1 + n2;  // axis-aligned: the one nonzero component
@@ -814,10 +817,11 @@ __device__ __forceinline__ void hybrid_epilogue(const Fpre& fpre, int packed, co
 }
 
 // The kExtOpen (and kExtHybrid) streaming-step epilogues of BC b at one of
-// its voxels; the free-slip and the outflow are 3D only.
-template <class S, bool SHIFTED, int EXT, typename Center, typename Aux>
+// its voxels; the free-slip and the outflow are 3D only. F is float, or
+// the adjoint's Dual (center then returns Dual too).
+template <class S, bool SHIFTED, int EXT, typename Center, typename F, typename Aux>
 __device__ __forceinline__ void open_epilogue(const Center& center, int packed, const XlbStepParams& p, int b,
-                                              float fs[S::q], const Aux& aux) {
+                                              F fs[S::q], const Aux& aux) {
   const int kind = p.bc_kind[b];
   if constexpr (EXT == kExtHybrid) {
     if (kind == XLB_BC_HYBRID) {
@@ -846,21 +850,23 @@ __device__ __forceinline__ void open_epilogue(const Center& center, int packed, 
 
 // The post-streaming populations of one voxel: the q pulls (store form,
 // as f32), the shifted load (+ w_l) and the streaming-step epilogues.
-// Returns whether an "equilibrium" BC replaced them by its constants.
-template <class S, bool SHIFTED, int EXT, typename Pull, typename Center, typename Aux = NoAux>
+// Returns whether an "equilibrium" BC replaced them by its constants. F is
+// float, or the adjoint's Dual: pull and center then return Dual, whose
+// tangents the epilogues carry to fs.
+template <class S, bool SHIFTED, int EXT, typename Pull, typename Center, typename F, typename Aux = NoAux>
 __device__ __forceinline__ bool streamed_populations(const Pull& pull, const Center& center, int packed,
-                                                     const XlbStepParams& p, float fs[S::q], const Aux& aux = Aux{}) {
+                                                     const XlbStepParams& p, F fs[S::q], const Aux& aux = Aux{}) {
   const int bc = cell_type<S>(packed);
 #pragma unroll
   for (int l = 0; l < S::q; ++l) {
     fs[l] = pull(l);
-    if constexpr (SHIFTED) fs[l] += p.w[l];
+    if constexpr (SHIFTED) fs[l] = fs[l] + p.w[l];
   }
   bool fixed = false;
   for (int b = 0; b < p.n_bc; ++b) {
     if (p.bc_kind[b] == XLB_BC_EQUILIBRIUM && bc == p.bc_id[b]) {
 #pragma unroll
-      for (int l = 0; l < S::q; ++l) fs[l] = p.bc[b].vec[l];
+      for (int l = 0; l < S::q; ++l) fs[l] = F(p.bc[b].vec[l]);
       fixed = true;
     }
     if constexpr (EXT == kExtHalfway || EXT == kExtAll) {

@@ -56,7 +56,9 @@
 // and K0 K1, bit for bit.
 //
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
-// the family, adjoint_kernel (K8, adjoint_step.cuh) the fourth.
+// the family, the adjoint K8 (adjoint_step.cuh: adjoint_kernel, with
+// adjoint_centred_kernel and adjoint_staging_kernel where the scene needs
+// them) the fourth.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -227,12 +229,11 @@ namespace xlb {
 // deviation form (the windows) for all four kernels, bf16 plain storage
 // for the single steps and the adjoint (stepper(...) under FP32BF16), each
 // unwalled and walled (halfway epilogue and body force); and for the pairs
-// of has_open, the forward kernels with kExtOpen (walled == 2: every
+// of has_open, all four kernels with kExtOpen (walled == 2: every
 // open-boundary epilogue, the halfway walls and the body force) and with
 // kExtHybrid (walled == 3: those and the hybrid curved wall).
 constexpr bool has_form(int kernel, int walled, int store_kind, int shifted) {
   if (kernel < XLB_KERNEL_STEP || kernel > XLB_KERNEL_ADJOINT || walled < 0 || walled > 3) return false;
-  if (walled >= 2 && kernel == XLB_KERNEL_ADJOINT) return false;
   if (store_kind == 0) return !shifted;
   if (store_kind == 1) return shifted || kernel != XLB_KERNEL_KSTEP;
   return false;
@@ -244,6 +245,51 @@ constexpr bool has_form(int kernel, int walled, int store_kind, int shifted) {
 // rotating sphere).
 constexpr bool has_open(int q, int collision) {
   return (q == 19 && collision == XLB_COLL_BGK) || (q == 27 && collision == XLB_COLL_KBC);
+}
+
+// K8's kExtOpen and kExtHybrid forms, instantiated by
+// XLB_INSTANTIATE_OPEN_ADJOINT / XLB_INSTANTIATE_HYBRID_ADJOINT in sources
+// of their own (collide_stream_*_{open,hybrid}_adjoint.cu): their forward
+// mode over the epilogues makes them the family's longest compiles, so
+// the build runs them beside the forward forms.
+template <class S, class C, int EXT>
+cudaError_t launch_ext_adjoint(const XlbLaunch& a);
+
+// K8's launches: adjoint_kernel; then adjoint_centred_kernel when a BC's
+// epilogue reads centred populations, and adjoint_staging_kernel when the
+// scene has an outflow (kExtOpen and kExtHybrid).
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
+cudaError_t launch_adjoint(const XlbLaunch& a) {
+  const XlbStepParams& p = *a.p;
+  const T* f = static_cast<const T*>(a.f);
+  const int* mask = static_cast<const int*>(a.mask);
+  const float* g = static_cast<const float*>(a.g);
+  float* df = static_cast<float*>(a.out);
+  const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
+  const unsigned blocks = (n + kAdjointThreads - 1) / kAdjointThreads;
+  adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
+      f, g, mask, a.aux, df, static_cast<float*>(a.dom), a.X, a.Y, a.Z, a.omega, p);
+  if constexpr (EXT != kExtNone) {
+    bool centred = false, staged = false;
+    for (int b = 0; b < p.n_bc; ++b) {
+      centred = centred || reads_centred(p, b);
+      staged = staged || p.bc_kind[b] == XLB_BC_OUTFLOW;
+    }
+    if (centred) {
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      adjoint_centred_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
+          f, g, mask, a.aux, df, a.X, a.Y, a.Z, a.omega, p);
+    }
+    if constexpr (ext_reads_aux(EXT)) {
+      if (staged) {
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        adjoint_staging_kernel<S><<<blocks, kAdjointThreads, 0, a.stream>>>(g, mask, df, a.X, a.Y, a.Z, p);
+      }
+    }
+  }
+  return cudaGetLastError();
 }
 
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
@@ -286,24 +332,10 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
       return cudaGetLastError();
     }
   } else if (a.kernel == XLB_KERNEL_ADJOINT) {
-    if constexpr (has_form(XLB_KERNEL_ADJOINT, W, store, SHIFTED)) {
-      const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
-      const unsigned blocks = (n + kAdjointThreads - 1) / kAdjointThreads;
-      const float* g = static_cast<const float*>(a.g);
-      float* df = static_cast<float*>(a.out);
-      adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
-          f, g, mask, df, static_cast<float*>(a.dom), a.X, a.Y, a.Z, a.omega, p);
-      if constexpr (EXT != kExtNone) {
-        bool halfway = false;
-        for (int b = 0; b < p.n_bc; ++b) halfway = halfway || p.bc_kind[b] == XLB_BC_HALFWAY;
-        if (halfway) {
-          const cudaError_t e = cudaGetLastError();
-          if (e != cudaSuccess) return e;
-          adjoint_halfway_kernel<S, C, T, SHIFTED, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
-              f, g, mask, df, a.X, a.Y, a.Z, a.omega, p);
-        }
-      }
-      return cudaGetLastError();
+    if constexpr (ext_reads_aux(EXT)) {
+      return launch_ext_adjoint<S, C, EXT>(a);
+    } else if constexpr (has_form(XLB_KERNEL_ADJOINT, W, store, SHIFTED)) {
+      return launch_adjoint<S, C, T, SHIFTED, EXT, FORCE>(a);
     }
   }
   return cudaErrorInvalidValue;  // outside the table
@@ -317,6 +349,14 @@ template <class S, class C>
 cudaError_t launch_open(const XlbLaunch& a);
 template <class S, class C>
 cudaError_t launch_hybrid(const XlbLaunch& a);
+
+template <class S, class C, int EXT>
+cudaError_t launch_ext_adjoint_impl(const XlbLaunch& a) {
+  // the force compiled in, as the forward's; f32 is never shifted (has_form, checked by dispatch)
+  if (a.store_kind == 0) return launch_adjoint<S, C, float, false, EXT, true>(a);
+  return a.shifted ? launch_adjoint<S, C, __nv_bfloat16, true, EXT, true>(a)
+                   : launch_adjoint<S, C, __nv_bfloat16, false, EXT, true>(a);
+}
 
 template <class S, class C, int EXT>
 cudaError_t launch_open_impl(const XlbLaunch& a) {
@@ -364,5 +404,17 @@ cudaError_t launch_pair(const XlbLaunch& a);
 #define XLB_INSTANTIATE_HYBRID(S, C) \
   template <>                        \
   cudaError_t launch_hybrid<S, C>(const XlbLaunch& a) { return launch_open_impl<S, C, kExtHybrid>(a); }
+
+#define XLB_INSTANTIATE_OPEN_ADJOINT(S, C)                     \
+  template <>                                                  \
+  cudaError_t launch_ext_adjoint<S, C, kExtOpen>(const XlbLaunch& a) { \
+    return launch_ext_adjoint_impl<S, C, kExtOpen>(a);         \
+  }
+
+#define XLB_INSTANTIATE_HYBRID_ADJOINT(S, C)                     \
+  template <>                                                    \
+  cudaError_t launch_ext_adjoint<S, C, kExtHybrid>(const XlbLaunch& a) { \
+    return launch_ext_adjoint_impl<S, C, kExtHybrid>(a);         \
+  }
 
 }  // namespace xlb

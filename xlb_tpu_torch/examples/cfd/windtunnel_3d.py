@@ -18,24 +18,22 @@ import argparse
 import numpy as np
 
 
-def run(nx=96, nyz=48, re=200.0, u_in=0.04, num_steps=1000, stl=None, print_every=200, backend="cuda",
-        object_bc="halfway", device="cuda"):
-    """Run the tunnel and return the drag coefficient after each window,
-    as the reference's ``run``."""
+def build(nx=96, nyz=48, re=200.0, u_in=0.04, stl=None, backend="cuda", object_bc="halfway", precision="FP32FP32",
+          device="cuda"):
+    """(stepper, prepare_fields(), omega, the object's BC, its size) of the
+    tunnel through the public API."""
     import xlb_tpu_torch as xlb
     from xlb_tpu_torch import boundary
     from xlb_tpu_torch.boundary.registry import boundary_condition_registry
     from xlb_tpu_torch.geometry import load_stl, sphere_triangles, transform_mesh
     from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
-    from xlb_tpu_torch.ops import MomentumTransfer
-    from xlb_tpu_torch.ops.macroscopic import density, velocity
     from xlb_tpu_torch.utils import omega_from_reynolds
     from xlb_tpu_torch.velocity_set import D3Q27
 
     xlb.DefaultConfig.reset()
     boundary_condition_registry.reset()
     xlb.init(velocity_set=D3Q27(), default_backend=xlb.ComputeBackend[backend.upper()],
-             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+             default_precision_policy=xlb.PrecisionPolicy[precision])
     grid = xlb.grid_factory((nx, nyz, nyz), device=device)
     box = grid.bounding_box_indices()
     box_ne = grid.bounding_box_indices(remove_edges=True)
@@ -61,10 +59,19 @@ def run(nx=96, nyz=48, re=200.0, u_in=0.04, num_steps=1000, stl=None, print_ever
         bc_object = boundary.HalfwayBounceBackBC(mesh_vertices=tris)
     stepper = IncompressibleNavierStokesStepper(grid, boundary_conditions=[bc_walls, bc_inlet, bc_outlet, bc_object],
                                                 collision_type="KBC")
-    f_0, f_1, bc_mask, missing_mask = stepper.prepare_fields()
+    return stepper, stepper.prepare_fields(), omega_from_reynolds(re, u_in, size), bc_object, size
 
+
+def run(nx=96, nyz=48, re=200.0, u_in=0.04, num_steps=1000, stl=None, print_every=200, backend="cuda",
+        object_bc="halfway", device="cuda"):
+    """Run the tunnel and return the drag coefficient after each window,
+    as the reference's ``run``."""
+    from xlb_tpu_torch.ops import MomentumTransfer
+    from xlb_tpu_torch.ops.macroscopic import density, velocity
+
+    stepper, (f_0, f_1, bc_mask, missing_mask), omega, bc_object, size = build(
+        nx, nyz, re, u_in, stl, backend, object_bc, device=device)
     momentum_transfer = MomentumTransfer(bc_object)
-    omega = omega_from_reynolds(re, u_in, size)
     window = print_every or num_steps
     run_window = stepper.build_multi_step(window)
     drag_history = []

@@ -210,7 +210,8 @@ def load_library():
     lib.xlb_collide_stream_blocked.restype = i32
     lib.xlb_has_instantiation.argtypes = [i32, i32, i32, i32, i32, i32]
     lib.xlb_has_instantiation.restype = i32
-    lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, params, ptr]
+    lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr, params,
+                                               ptr]
     lib.xlb_collide_stream_adjoint.restype = i32
     # ... omega, aux (or null), params, stream
     lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, ptr, params, ptr]

@@ -56,16 +56,16 @@ def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shi
 
 # epilogue kinds behind the EXT switch of csrc/collide_stream.cuh: all of
 # them in the 2D kernels (K3, K4); halfway alone in the 3D kernels of the
-# collision zoo (K0, K1, K2) and their adjoint (K8)
+# collision zoo (K0, K1, K2, and their adjoint K8)
 EXT_KINDS = ("halfway", "zouhe", "regularized")
 # the 2D kernels' kinds: with a hybrid BC or a per-voxel prescription they
 # run their kExtHybrid form (EXT_2D_HYBRID)
 KINDS_2D = frozenset({"equilibrium", "fullway", "hybrid"} | set(EXT_KINDS))
-# the kinds of the 3D kernels that take no EXT epilogue (K5, K7, K8) and of
+# the kinds of the 3D kernels that take no EXT epilogue (K5, K7) and of
 # those that take halfway
 BASE_KINDS_3D = frozenset({"equilibrium", "fullway"})
 ZOO_KINDS_3D = BASE_KINDS_3D | {"halfway"}
-# the open-boundary epilogues (EXT == kExtOpen), in K0, K1 and K2 only, and
+# the open-boundary epilogues (EXT == kExtOpen), in K0, K1, K2 and K8, and
 # only for OPEN_PAIRS; a halfway wall with a per-voxel velocity is one too.
 # The hybrid curved wall (EXT == kExtHybrid: kExtOpen's epilogues and
 # hybrid) likewise.

@@ -34,7 +34,7 @@ from xlb_tpu_torch.boundary.bc_regularized import RegularizedBC
 from xlb_tpu_torch.boundary.bc_zouhe import ZouHeBC, _broadcast_prescribed
 from xlb_tpu_torch.kernels.collide_stream import aux_layout, bc_id_shift, kernel_collision_spec, packed_cell
 from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
-from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep, needs_open
+from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
 from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
 from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
@@ -229,14 +229,15 @@ class _FusedSweeps:
     no temporal blocking, as ``xlb_tpu``'s blocked window.
 
     The reverse sweep (``backward``): "adjoint" -- the adjoint kernel
-    (every 3D "dma" configuration, as ``xlb_tpu``'s fused adjoint);
-    "torch" -- the TORCH tier's VJP (the 2D step, and every 3D "blocked"
-    configuration, as ``xlb_tpu`` differentiates its blocked kernel
-    through the jnp tier); None -- no backward (the 2D window, as in
-    ``xlb_tpu``, and any scene with an open-boundary BC, whose epilogues
-    the adjoint kernel K8 does not take yet), and ``no_backward`` says
+    (every 3D "dma" configuration, the open boundaries and curved walls
+    included, as ``xlb_tpu``'s fused adjoint); "torch" -- the TORCH tier's
+    VJP (the 2D step, and every 3D "blocked" configuration, as ``xlb_tpu``
+    differentiates its blocked kernel through the jnp tier); None -- no
+    backward (the 2D window, as in ``xlb_tpu``), and ``no_backward`` says
     why. The aux field of the BCs' per-voxel prescriptions is built at the
-    first call, after ``prepare_fields`` gave mesh BCs their indices."""
+    first call, after ``prepare_fields`` gave mesh BCs their indices; the
+    reverse sweep passes it to the replayed steps and the adjoint kernel
+    (a constant: prescriptions carry no gradient)."""
 
     def __init__(self, stepper, num_steps, shifted, temporal_steps=None, kernel="dma", tile=None):
         vs = stepper.velocity_set
@@ -254,7 +255,6 @@ class _FusedSweeps:
         shape = stepper.grid.shape
         self.adjoint, self.no_backward = None, None
         self._aux = None
-        open_bcs = needs_open(cfg["bc_specs"], vs.d)
         if vs.d == 2:
             if kernel != "dma":
                 raise NotImplementedError("kernel='blocked' is a 3D kernel; the 2D step has its own (K3, K4)")
@@ -276,14 +276,7 @@ class _FusedSweeps:
             self.single = CollideStreamStep(vs, shape, **cfg)
             self.kstep = CollideStreamKStep(vs, shape, steps=k, **cfg) if k >= 2 else None
             self.backward = "adjoint"
-            if not open_bcs:
-                self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
-        if open_bcs:
-            kinds = sorted({sp["kind"] for sp in cfg["bc_specs"]})
-            self.backward = None
-            self.no_backward = (f"no backward through the CUDA tier for the open-boundary BCs of this scene ({kinds}): "
-                                "the adjoint kernel K8 does not take them yet (ROADMAP Queue A 4); differentiate "
-                                "through ComputeBackend.TORCH")
+            self.adjoint = CollideStreamAdjoint(vs, shape, **cfg)
         self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
@@ -293,13 +286,17 @@ class _FusedSweeps:
         w_c = self.w_shift.to(device=f_0.device, dtype=self.pp.compute_dtype)
         return (f_0.to(self.pp.compute_dtype) - w_c).to(self.pp.store_dtype)
 
+    def _aux_args(self, device):
+        """``(aux,)`` when the scene's BCs read an aux field, else ``()``."""
+        if not self.single.aux_channels:
+            return ()
+        if self._aux is None:  # built at the first call: mesh BCs have their indices after prepare_fields
+            self._aux = torch.as_tensor(build_aux_field(self.stepper), device=device).contiguous()
+        return (self._aux,)
+
     def value(self, f_0, mask_i32, omega):
         g = self._to_store_form(f_0)
-        extra = ()
-        if self.single.aux_channels:
-            if self._aux is None:  # built at the first call: mesh BCs have their indices after prepare_fields
-                self._aux = torch.as_tensor(build_aux_field(self.stepper), device=f_0.device).contiguous()
-            extra = (self._aux,)
+        extra = self._aux_args(f_0.device)
         for _ in range(self.n_k):
             g = self.kstep(g, mask_i32, omega, *extra)
         for _ in range(self.num_steps - self.n_k * self.k):
@@ -318,13 +315,14 @@ class _FusedSweeps:
         d omega as a 0-d float32 tensor)."""
         if self.backward == "torch":
             return self._reverse_torch_tier(f_0, gbar, omega, masks)
+        extra = self._aux_args(f_0.device)
         states = [self._to_store_form(f_0)] if self.num_steps else []
         while len(states) < self.num_steps:
-            states.append(self.single(states[-1], mask_i32, omega))
+            states.append(self.single(states[-1], mask_i32, omega, *extra))
         ct = gbar.to(self.pp.compute_dtype).contiguous()
         dom = torch.zeros((), dtype=torch.float32, device=ct.device)
         while states:  # popped as the sweep goes, so each state is freed once used
-            ct, dom_field = self.adjoint(states.pop(), ct, mask_i32, omega)
+            ct, dom_field = self.adjoint(states.pop(), ct, mask_i32, omega, *extra)
             dom = dom + torch.sum(dom_field.to(torch.float32))
         return ct, dom
 
@@ -361,8 +359,7 @@ def build_fused_step(stepper, kernel="dma", tile=None):
     float or a 0-d tensor): its backward is the adjoint kernel
     (``kernels/adjoint_step.py``) for "dma", and ``torch.func.vjp`` of the
     TORCH-tier step for "blocked" and in 2D, where the forward still runs
-    the kernel. A scene with an open-boundary BC has no backward yet: under
-    autograd it raises ``NotImplementedError``."""
+    the kernel; the open boundaries and curved walls included."""
     sweeps = _FusedSweeps(stepper, 1, shifted=False, kernel=kernel, tile=tile)
 
     def step(f_0, f_1, bc_mask, missing_mask, omega, timestep=0):
