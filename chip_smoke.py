@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ptxas                # one tree's ptxas report: PTXAS {kernel: [registers,
                                                  # spill stores, spill loads, static smem]}
     python3 chip_smoke.py --k8                   # K8's launches by scene (k8_launches)
+    python3 chip_smoke.py --field                # phase [20] alone (field_path)
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from xlb_tpu_torch/csrc with nvcc (sm_90a) and
@@ -96,7 +97,7 @@
    bit for bit; on the 256^3 cavity each kernel and its plain version
    timed (CUDA events) beside the bound.
 14. examples/performance/mlups_3d.py's protocol at 256^3 (omega 1.9, lid
-   0.02, windows of 50, 2 warm-up windows, best of 3) for each pair under
+   0.02, windows of 50, 1 warm-up window, best of 2) for each pair under
    FP32FP32 and FP32BF16, through K1, K2 and K0, each route from the rest
    state with its launch counts reset before and read after it; physics
    checks after each route; FP32FP32 also 10 steps of stepper(...) against
@@ -145,7 +146,7 @@
    of stepper(...) (K1) against the TORCH tier, launch counts reset before
    and read after each CUDA run. Then the flow past a sphere at
    512x256x256 under FP32FP32 and FP32BF16: build_multi_step(200), one
-   warm-up window, best of 3 (MLUPS), launch counts, physics checks, and
+   warm-up window, best of 2 (MLUPS), launch counts, physics checks, and
    K1, K2, K0 on its final state against the plain version and timed
    beside the bound (aux bytes of the inlet included) and its share of
    [16]'s measured copy roofline; [4]'s cavity MLUPS beside those PERF.md
@@ -169,13 +170,13 @@
    at their defaults on the CUDA tier: Cd_max, Cl_max and St in the
    published intervals, the sphere's Cd in [1.00, 1.18], each beside
    xlb_tpu's value; CUDA against TORCH tier on the card: 10 steps of
-   stepper(...) (K1) on the sphere tunnel, two shedding periods of the
+   stepper(...) (K1) on the sphere tunnel, one shedding period of the
    Schafer-Turek force history (K3) and windtunnel_3d.py --object-bc
    hybrid's Cd history (1e-3 of the largest |value|); launch counts reset
    before and read after each CUDA run. Then the sphere-drag
    tunnel at D = 48 (576x288x288, 47.8 M voxels) under FP32FP32 and
    FP32BF16: the setup's seconds, build_multi_step(200), one warm-up
-   window, best of 3 (MLUPS), and K1, K2, K0 on its final state against
+   window, best of 2 (MLUPS), and K1, K2, K0 on its final state against
    the plain version and timed beside the bound (the hybrid voxels' aux bytes
    included) and [16]'s measured copy roofline.
 19. Gradients through the open boundaries and curved walls (K8's kExtOpen
@@ -194,12 +195,35 @@
    on the KBC tunnel; at D = 48, where the plain version's graph over the
    whole tunnel does not fit beside it, over x-slabs with a halo), timed
    beside its bound and [16]'s measured copy roofline.
-20. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
+20. Thermal convection and Shan-Chen multiphase (K1's and K3's field
+   modes, ade and extern_force): every instantiated form against its plain
+   version, f32 and bf16, two launches bit for bit (field_cases: the 2D
+   and 3D thermal scenes, Zou-He / regularized / do-nothing faces for
+   ADE's kExtOpen form, the flow past a sphere and the open hybrid tunnel
+   for the force's kExtOpen and kExtHybrid forms, D3Q27 KBC); the CUDA
+   tier against the TORCH tier on the card over 10 coupled steps (2D and
+   3D thermal, 2D and 3D Shan-Chen); rayleigh_benard_2d.py (with and
+   without --obstacle) and multiphase_droplet_2d.py at their defaults on
+   both tiers against xlb_tpu's numbers (RB_REFERENCE, DROPLET_REFERENCE);
+   2D thermal convection at 4096x2048 (Ra 1e8) and 3D Rayleigh-Benard at
+   512x512x128 (Ra 1e6) under FP32FP32 and FP32BF16 from a hydrostatic
+   start, Shan-Chen phase separation at 256^3: one warm-up window of 100
+   coupled steps, best of 3 (MLUPS, ms per step), launches (one of each
+   mode per step, no plain call), physics checks, peak memory, each
+   kernel on the final state against its plain version and timed beside
+   its bound, the glue's share of a step.
+21. Prints the seconds of the whole run, a JSON line of the card, MLUPS,
    training times and each kernel's per-dtype errors and times, then the
    kernels' JSON line (K0-K12; K0, K1 and K2 with an "open" entry for the
    open-boundary path; K0-K4 with a "hybrid" entry for the curved-wall
-   path; K8 with both: the training runs of [19]), then the result line
-   {"ok": true, "device": {...}} last.
+   path; K8 with both: the training runs of [19]; K1 and K3 with a "field"
+   entry per mode), then the result line {"ok": true, "device": {...}}
+   last.
+
+Every phase prints its seconds. The TORCH tier's side of the CUDA-versus-
+TORCH comparisons of the scripts in [17], [18] and [20] runs in a second
+process while the kernels build (torch_tier_runs; it is bound by the
+host's launches, and the card idles during the build); [2] waits for it.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available. It imports
@@ -207,6 +231,7 @@ nothing of JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -288,11 +313,14 @@ def within(a, b, rtol, atol):
     return float(err.max()), bool((err <= atol + rtol * b.abs()).all())
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() in ms over reps calls after one warm-up."""
+def cuda_ms(fn, reps, warmup=True):
+    """Mean device time of fn() in ms over reps calls after one warm-up
+    (none with ``warmup=False``: a plain version timed right after the
+    call that its check made is warm already)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -1372,7 +1400,7 @@ ZOO = (("D3Q19", "BGK"), ("D3Q19", "SmagorinskyLESBGK"), ("D3Q19", "TRT"), ("D3Q
        ("D3Q19", "PowerLawBGK"), ("D3Q27", "BGK"), ("D3Q27", "KBC"))
 ZOO_PARAMS = {"PowerLawBGK": {"consistency": 0.05, "power_index": 0.8}}  # mlups_3d.py's
 ZOO_RAGGED = (250, 246, 200)
-ZOO_WINDOW, ZOO_WARMUP, ZOO_REPS = 50, 2, 3
+ZOO_WINDOW, ZOO_WARMUP, ZOO_REPS = 50, 1, 2
 ZOO_PARITY_STEPS = 10
 ZOO_SOLID = (slice(100, 140), slice(90, 130), slice(60, 100))  # a solid block in every [13] scene
 # turbulent_channel_3d.py: run()'s defaults, and run_validation()'s shape and u_tau
@@ -1531,7 +1559,7 @@ def compare_zoo(device):
                         for name, kern, steps in (("K1", one, 1), ("K2", two, 2), ("K0", blocked, 1)):
                             r = rec[name]
                             r["ms"] = cuda_ms(lambda: kern(f, mask, omega), 20)
-                            r["plain_ms"] = cuda_ms(lambda: kern.plain(f, mask, omega), 1)
+                            r["plain_ms"] = cuda_ms(lambda: kern.plain(f, mask, omega), 1, warmup=False)
                             r["bound_ms"], r["bound_by"] = zoo_bound(vs, collision, f, mask, shifted, force is not None,
                                                                      steps)
                         print("    " + "; ".join(f"{n} {rec[n]['ms']:.4f} ms (plain {rec[n]['plain_ms']:.2f}, bound "
@@ -1583,7 +1611,7 @@ def zoo_tier_parity(stepper, fields, omega, collision, label):
 
 def zoo_main_path(device):
     """[14]: mlups_3d.py's protocol at 256^3 (omega 1.9, lid 0.02, windows
-    of 50, 2 warm-up windows, best of 3, MLUPS = 256^3 x 50 / s / 1e6, host
+    of 50, ZOO_WARMUP warm-up windows, best of ZOO_REPS, MLUPS = 256^3 x 50 / s / 1e6, host
     clock around work that ends in a synchronize) for every pair of ZOO
     under FP32FP32 and FP32BF16, through K1 (build_fused_window with
     temporal_steps=1), K2 (build_multi_step: the default window) and K0
@@ -1749,7 +1777,7 @@ def compare_zoo_adjoint(device):
                 del df, dom, pdf, pdom
                 if kind == "channel" and store == torch.float32:
                     rec["ms"] = cuda_ms(lambda: adj(f, g, mask, omega), 5)
-                    rec["plain_ms"] = cuda_ms(lambda: adj.plain(f, g, mask, omega), 1)
+                    rec["plain_ms"] = cuda_ms(lambda: adj.plain(f, g, mask, omega), 1, warmup=False)
                     # reads f, g and the mask, writes df and dom
                     rec["bytes_ms"] = (f.numel() * f.element_size() + 2 * g.numel() * 4 + 2 * mask.numel() * 4
                                        ) / HBM_BYTES_PER_S * 1e3
@@ -2055,7 +2083,7 @@ def hybrid_bcs(grid, bnd, geo, method, use_dist=True, wall=None, tunnel="closed"
 OPEN_RAGGED = (100, 52, 44)
 OPEN_OMEGA = 1.6
 OPEN_BIG = (512, 256, 256)  # the flow past a sphere at 33.5 M voxels
-OPEN_WINDOW, OPEN_REPS = 200, 3
+OPEN_WINDOW, OPEN_REPS = 200, 2
 OPEN_PARITY_STEPS = 10
 # [4]'s cavity MLUPS as PERF.md records them before the open-boundary kernels (NVIDIA H100 80GB HBM3,
 # 700.00 W), printed beside this run's to show that the cavity's path did not move
@@ -2314,14 +2342,15 @@ def open_tier_parity(stepper, fields, omega, label):
     return err
 
 
-def open_scripts(device):
+def open_scripts(device, torch_ref):
     """[17]: the torch forms of flow_past_sphere_3d.py (both inlets),
     windtunnel_3d.py and rotating_sphere_3d.py at their defaults, on the
     CUDA tier (build_multi_step windows: K2; stepper(...): K1) against the
-    TORCH tier on the card: the velocity field (rtol 1e-4, atol 1e-6), the
-    drag history (1e-3 relative), the Magnus asymmetry (the same sign) and
-    the velocity field. Each CUDA run's launch counts are reset just before
-    it and read just after. Returns (record, total launches)."""
+    TORCH tier on the card (``torch_ref``: torch_tier_runs' record): the
+    velocity field (rtol 1e-4, atol 1e-6), the drag history (1e-3
+    relative), the Magnus asymmetry (the same sign) and the velocity field.
+    Each CUDA run's launch counts are reset just before it and read just
+    after. Returns (record, total launches)."""
     import torch
 
     import xlb_tpu_torch as xlb
@@ -2342,7 +2371,7 @@ def open_scripts(device):
 
     for inlet in ("parabolic", "uniform"):
         (u_c, counts) = cuda_run(lambda: flow_past_sphere_3d.run(inlet=inlet, backend="cuda", device=device))
-        u_t = flow_past_sphere_3d.run(inlet=inlet, backend="torch", device=device)
+        u_t = torch_ref[f"flow_past_sphere {inlet}"]
         err, ok = within(torch.from_numpy(u_c), torch.from_numpy(u_t), rtol=1e-4, atol=1e-6)
         nx, nyz = u_c.shape[1], u_c.shape[2]
         rec[f"flow_past_sphere {inlet}"] = {"max_u": float(np.abs(u_c).max()),
@@ -2359,7 +2388,7 @@ def open_scripts(device):
     del stepper, fields
 
     (cd_c, counts) = cuda_run(lambda: windtunnel_3d.run(backend="cuda", device=device))
-    cd_t = windtunnel_3d.run(backend="torch", device=device)
+    cd_t = torch_ref["windtunnel"]
     rel = float(np.max(np.abs(np.subtract(cd_c, cd_t)) / np.abs(cd_t)))
     rec["windtunnel"] = {"cd": cd_c, "cd_torch": cd_t, "cd_rel_err": rel, "launches": counts}
     print(f"  windtunnel_3d: Cd history {[round(c, 4) for c in cd_c]}, TORCH tier {[round(c, 4) for c in cd_t]}, "
@@ -2368,7 +2397,7 @@ def open_scripts(device):
 
     ((asym_c, u_c), counts) = cuda_run(lambda: rotating_sphere_3d.run(backend="cuda", device=device,
                                                                        return_velocity=True))
-    asym_t, u_t = rotating_sphere_3d.run(backend="torch", device=device, return_velocity=True)
+    asym_t, u_t = torch_ref["rotating_sphere"]
     fluid = np.isfinite(u_t).all(axis=0) & np.isfinite(u_c).all(axis=0)
     err, ok = within(torch.from_numpy(u_c[:, fluid]), torch.from_numpy(u_t[:, fluid]), rtol=1e-4, atol=1e-6)
     rec["rotating_sphere"] = {"asymmetry": asym_c, "asymmetry_torch": asym_t, "tier_err": err, "launches": counts}
@@ -2456,7 +2485,7 @@ def open_big(device):
             check(max(s1, s2, s0) <= 1.0, f"{policy.name}: a kernel disagrees with its plain version at {OPEN_BIG}")
             for name, kern, steps, e in (("K1", one, 1, e1), ("K2", two, 2, e2), ("K0", blocked, 1, e0)):
                 r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, *aux), 20),
-                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1)}
+                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1, warmup=False)}
                 r["bound_ms"], r["bound_by"] = open_bound(vs, "BGK", f, mask, steps * aux_bytes, shifted, steps)
                 rec[name] = r
                 torch.cuda.empty_cache()
@@ -2477,7 +2506,7 @@ ST_REFERENCE = {"cd_max": 3.2253, "cl_max": 0.9964, "st": 0.2994}  # xlb_tpu's r
 SPHERE_CD_REFERENCE = 1.155  # xlb_tpu's sphere_drag_validation.run() at D = 24 (its docstring)
 ST_PARITY_PERIODS = 2
 SPHERE_BIG_D = 48  # the sphere-drag tunnel at 576x288x288 (47.8 M voxels)
-SPHERE_BIG_WINDOW, SPHERE_BIG_REPS = 200, 3
+SPHERE_BIG_WINDOW, SPHERE_BIG_REPS = 200, 2
 
 
 def hybrid_scene(pair, method, use_dist, wall, tunnel, shape, device, policy="FP32FP32"):
@@ -2612,7 +2641,7 @@ def counts_2d(reset=False):
     return {k.__name__: (k.launches, k.plain_calls) for k in kernels}
 
 
-def hybrid_scripts(device, smi):
+def hybrid_scripts(device, smi, torch_ref):
     """[18]: the torch forms of cylinder_benchmark_schafer_turek.py and
     sphere_drag_validation.py at their defaults on the CUDA tier (launch
     counts reset just before and read just after each), their results
@@ -2621,14 +2650,14 @@ def hybrid_scripts(device, smi):
     tunnel (rtol 1e-4), the Schafer-Turek Cd / Cl history over
     ST_PARITY_PERIODS shedding periods from build()'s state, and
     windtunnel_3d.py --object-bc hybrid's Cd history (each within 1e-3 of
-    the largest |value|). Returns (record,
-    {kernel: launches of the scripts' CUDA runs})."""
+    the largest |value|; the TORCH tier's histories from ``torch_ref``,
+    torch_tier_runs' record). Returns (record, {kernel: launches of the
+    scripts' CUDA runs})."""
     import torch
 
     from xlb_tpu_torch.examples.cfd import cylinder_benchmark_schafer_turek as st
     from xlb_tpu_torch.examples.cfd import sphere_drag_validation as sd
     from xlb_tpu_torch.examples.cfd import windtunnel_3d
-    from xlb_tpu_torch.ops import MomentumTransfer
 
     rec, launches = {}, {}
 
@@ -2674,18 +2703,11 @@ def hybrid_scripts(device, smi):
     rec["sphere_drag"]["tier_err"] = err
     del stepper, fields
 
-    # CUDA against TORCH tier: the force history over two shedding periods from the same state
+    # CUDA against TORCH tier: the force history over ST_PARITY_PERIODS shedding periods from the same state
     n = ST_PARITY_PERIODS * st.period_steps(60, 0.035)
-    hist = {}
-    for backend in ("cuda", "torch"):
-        stepper, fields, omega, bc_cyl = st.build(backend=backend, device=device)
-        run = lambda: st.force_history(stepper, fields, omega, MomentumTransfer(bc_cyl), n)[1]
-        if backend == "cuda":
-            hist[backend], counts, _ = counted(run, counts_2d)
-            check(counts["CollideStream2DStep"][0] == n, "stepper(...) did not launch K3 once per step")
-        else:
-            hist[backend] = run()
-        del stepper, fields
+    hist = {"torch": torch_ref["schafer_turek history"]}
+    hist["cuda"], counts, _ = counted(lambda: schafer_turek_history("cuda", device), counts_2d)
+    check(counts["CollideStream2DStep"][0] == n, "stepper(...) did not launch K3 once per step")
     coef = 2.0 / (0.035**2 * 60)
     rel = [float(np.abs(hist["cuda"][:, a] - hist["torch"][:, a]).max() / np.abs(hist["torch"][:, a]).max())
            for a in range(2)]
@@ -2697,7 +2719,7 @@ def hybrid_scripts(device, smi):
     check(max(rel) <= 1e-3, "Schafer-Turek: the tiers' Cd / Cl histories differ")
 
     cd_c, counts, _ = counted(lambda: windtunnel_3d.run(object_bc="hybrid", backend="cuda", device=device), zoo_counts)
-    cd_t = windtunnel_3d.run(object_bc="hybrid", backend="torch", device=device)
+    cd_t = torch_ref["windtunnel hybrid"]
     rel = float(np.max(np.abs(np.subtract(cd_c, cd_t))) / np.max(np.abs(cd_t)))
     rec["windtunnel_hybrid"] = {"cd": cd_c, "cd_torch": cd_t, "cd_rel_err": rel, "launches": counts}
     print(f"  windtunnel_3d --object-bc hybrid: Cd history {[round(c, 4) for c in cd_c]}, TORCH tier "
@@ -2705,6 +2727,18 @@ def hybrid_scripts(device, smi):
     check(bool(np.all(np.isfinite(cd_c))) and rel <= 1e-3, "windtunnel_3d hybrid: the tiers' Cd histories differ")
     torch.cuda.empty_cache()
     return rec, launches
+
+
+def schafer_turek_history(backend, device):
+    """The Cd / Cl force history of ST_PARITY_PERIODS shedding periods of
+    stepper(...) on ``backend``'s tier from the Schafer-Turek torch form's
+    build() state (D = 60)."""
+    from xlb_tpu_torch.examples.cfd import cylinder_benchmark_schafer_turek as st
+    from xlb_tpu_torch.ops import MomentumTransfer
+
+    stepper, fields, omega, bc_cyl = st.build(backend=backend, device=device)
+    n = ST_PARITY_PERIODS * st.period_steps(60, 0.035)
+    return st.force_history(stepper, fields, omega, MomentumTransfer(bc_cyl), n)[1]
 
 
 def hybrid_2d_times(device):
@@ -2736,7 +2770,7 @@ def hybrid_2d_times(device):
             e, share = held(kern(f, mask, omega, aux), kern.plain(f, mask, omega, aux), store)
             check(share <= 1.0, f"Schafer-Turek {label}: {name} disagrees with its plain version")
             r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, aux), 50),
-                 "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, aux), 1)}
+                 "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, aux), 1, warmup=False)}
             t_bytes = (2 * f.numel() * f.element_size() + mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
             t_ops = k * FLOPS_PER_VOXEL["collide_stream_2d_step"][int(shifted)] * mask.numel() / F32_FLOPS_PER_S * 1e3
             r["bound_ms"], r["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2835,7 +2869,7 @@ def hybrid_big(device):
             check(max(s1, s2, s0) <= 1.0, f"{policy.name}: a kernel disagrees with its plain version at {shape}")
             for name, kern, steps, e in (("K1", one, 1, e1), ("K2", two, 2, e2), ("K0", blocked, 1, e0)):
                 r = {"max_abs_err": e, "ms": cuda_ms(lambda: kern(f, mask, omega, *aux), 10),
-                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1)}
+                     "plain_ms": cuda_ms(lambda: kern.plain(f, mask, omega, *aux), 1, warmup=False)}
                 r["bound_ms"], r["bound_by"] = open_bound(vs, "BGK", f, mask, aux_bytes, shifted, steps)
                 rec[name] = r
                 torch.cuda.empty_cache()
@@ -2964,10 +2998,9 @@ def adjoint_timing(stepper, bc_mask, missing_mask, f, omega, shifted, label, sce
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pdf = pdom = None
-    try:  # its outputs for the check, then its time (as cuda_ms's, warm)
-        pdf, pdom = adj.plain(f, g, mask, omega, *aux)
+    try:  # its outputs for the check, timed
         start.record()
-        adj.plain(f, g, mask, omega, *aux)
+        pdf, pdom = adj.plain(f, g, mask, omega, *aux)
         end.record()
         torch.cuda.synchronize()
         plain = "plain"
@@ -3117,6 +3150,724 @@ def k8_launches(device):
         torch.cuda.empty_cache()
 
 
+# [20]: thermal convection and Shan-Chen multiphase -- K1 and K3's field modes (ade, extern_force)
+# xlb_tpu's own numbers: the jnp tier's run() of examples/cfd/rayleigh_benard_2d.py (Nusselt number per
+# window of 500) and multiphase_droplet_2d.py ((R, dp, |u|max, rho_min, rho_max) per radius, sigma, the
+# Laplace fit's residual) at their defaults, JAX on the CPU (JAX_PLATFORMS=cpu)
+RB_REFERENCE = {
+    False: [4.686615867798986, 1.0215925112566562, -2.5382509682703818, 2.3258750472570995, 5.1678376151330045,
+            4.673081149548953, 4.631260360116496, 5.816937009312578],
+    True: [2.8131374866976855, 3.5011567328518685, 2.498722259340606, 1.6722067949310953, 1.4761826360883432,
+           2.846772589556977, 4.531127563484688, 4.28101333531135],
+}
+DROPLET_REFERENCE = {
+    "sigma": 0.05503674153888224, "resid": 0.01098620192074827,
+    "rows": [[9.507891862878783, 0.00572562962770462, 0.004772797226905823, 0.16328608989715576, 1.9825626611709595],
+             [13.81976597885342, 0.004043057560920715, 0.00543183833360672, 0.16116471588611603, 1.9683289527893066],
+             [17.787636910694122, 0.00313379243016243, 0.005854792892932892, 0.16004985570907593, 1.9606075286865234]],
+}
+FIELD_SMALL_2D, FIELD_SMALL_3D = (200, 136), (100, 52, 44)
+FIELD_OMEGA = 1.3
+THERMAL_2D, RA_2D = (4096, 2048), 1e8
+THERMAL_3D, RA_3D = (512, 512, 128), 1e6
+SC_3D = (256, 256, 256)
+PRANDTL, BETA = 0.71, 5e-4
+FIELD_WINDOW, FIELD_REPS = 100, 3
+FIELD_PARITY_STEPS = 10
+# a bf16 thermal run's mass drift against the TORCH tier's on the same scene: same sign, within this factor
+# (measured on an H100: ratios 1.0015 at 4096x2048, 0.960 at 512x512x128, over 400 coupled steps)
+BF16_DRIFT_RATIO = 1.25
+# the scripts against xlb_tpu's numbers: the Nusselt number per window to 0.01 (the port's TORCH tier on the
+# CPU stays within 1.2e-4 of xlb_tpu over the 4000 steps; the convection rolls amplify float32 roundoff);
+# per droplet R (from the liquid area: a cell of area moves it by ~1 / (2 pi R), <= 0.017 here), dp and
+# |u|max, the densities; sigma
+RB_NU_ATOL = 0.01
+DROPLET_TOL = (("R", 0, 0.02), ("dp", 1e-3, 1e-6), ("|u|max", 1e-3, 1e-6), ("rho_min", 1e-4, 0),
+               ("rho_max", 1e-4, 0))
+DROPLET_SIGMA_RTOL = 1e-3
+
+
+def thermal_3d_scene(shape, rayleigh, policy, backend, device):
+    """(thermal stepper, (f_0, f_1, g_0, g_1, bc_f, miss_f, bc_g, miss_g),
+    omega, omega_phi): rayleigh_benard_2d.py's scene in 3D -- D3Q19 BGK,
+    halfway floor and ceiling (z) for f, a hot floor and a cold ceiling
+    (EquilibriumBC on g), periodic in x and y, gravity -z, the parameters
+    from (Ra, Pr = 0.71, beta = 5e-4) over L = nz - 2; phi starts linear
+    across the layer with a 1% perturbation."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import EquilibriumBC, HalfwayBounceBackBC
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.models import (AdvectionDiffusionStepper, IncompressibleNavierStokesStepper, ThermalNSEStepper,
+                                      omega_from_diffusivity)
+    from xlb_tpu_torch.velocity_set import D3Q19
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    xlb.init(velocity_set=D3Q19(), default_backend=backend, default_precision_policy=policy)
+    grid = xlb.grid_factory(shape, device=device)
+    box = grid.bounding_box_indices()
+    nx, ny, nz = shape
+    nu = np.sqrt(PRANDTL * BETA * (nz - 2) ** 3 / rayleigh)
+    omega, omega_phi = 1.0 / (3.0 * nu + 0.5), omega_from_diffusivity(nu / PRANDTL)
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+    nse = IncompressibleNavierStokesStepper(grid, boundary_conditions=[HalfwayBounceBackBC(indices=walls.tolist())])
+    ade = AdvectionDiffusionStepper(grid, boundary_conditions=[
+        EquilibriumBC(rho=1.0, u=(0.0, 0.0, 0.0), indices=box["bottom"]),
+        EquilibriumBC(rho=0.0, u=(0.0, 0.0, 0.0), indices=box["top"])])
+    thermal = ThermalNSEStepper(nse, ade, beta=BETA, gravity=(0.0, 0.0, -1.0))
+    f_0, f_1, bc_f, miss_f = nse.prepare_fields()
+    x, y, z = np.meshgrid(np.arange(nx) / nx, np.arange(ny) / ny, np.arange(nz) / (nz - 1.0), indexing="ij")
+    phi0 = (1.0 - z) + 0.01 * np.sin(2 * np.pi * 3 * x) * np.sin(2 * np.pi * 2 * y) * np.sin(np.pi * z)
+    g_0, g_1, bc_g, miss_g = ade.prepare_fields(phi_init=phi0.astype(np.float32))
+    return thermal, (f_0, f_1, g_0, g_1, bc_f, miss_f, bc_g, miss_g), omega, omega_phi
+
+
+def shan_chen_scene(shape, policy, backend, device, seed=11, bcs=None, psi_wall=None):
+    """(Shan-Chen stepper, (f_0, f_1, bc_mask, missing_mask)): G = -5, BGK,
+    from the rest state of rho = 0.7 (1 + 0.01 N(0, 1)) (seeded),
+    periodic unless ``bcs(grid, boundary)`` gives walls;
+    tests/models/test_multiphase.py's phase separation at ``shape``."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import boundary
+    from xlb_tpu_torch import velocity_set as vsets
+    from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper, ShanChenMultiphaseStepper
+
+    xlb.DefaultConfig.reset()
+    boundary_condition_registry.reset()
+    vs = vsets.D2Q9() if len(shape) == 2 else vsets.D3Q19()
+    xlb.init(velocity_set=vs, default_backend=backend, default_precision_policy=policy)
+    grid = xlb.grid_factory(shape, device=device)
+    nse = IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs(grid, boundary) if bcs else ())
+    sc = ShanChenMultiphaseStepper(nse, G=-5.0, psi_wall=psi_wall)
+    _, _, bc_mask, missing_mask = nse.prepare_fields()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rho0 = 0.7 * (1.0 + 0.01 * torch.randn(shape, generator=gen, device=device))
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape((-1,) + (1,) * len(shape))
+    f_0 = (w * rho0[None]).to(nse.precision_policy.store_dtype).contiguous()
+    return sc, (f_0, torch.zeros_like(f_0), bc_mask, missing_mask)
+
+
+def field_counts(reset=False):
+    """{"K1 ade": (launches, plain calls of the class), ...}: the field
+    modes' launches by mode, and the kernels' plain calls."""
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DStep
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+
+    out = {}
+    for name, cls in (("K1", CollideStreamStep), ("K3", CollideStream2DStep)):
+        if reset:
+            cls.plain_calls = 0
+            cls.field_launches = dict.fromkeys(cls.field_launches, 0)
+        for mode, n in cls.field_launches.items():
+            out[f"{name} {mode}"] = (n, cls.plain_calls)
+    return out
+
+
+def ade_flops(vs):
+    """Float32 operations per voxel of the advection-diffusion body
+    (collide_stream.cuh::ade_physics): phi, per opposite pair c_l . u and
+    its two linear equilibria, the BGK relaxation of every direction."""
+    pairs = [l for l in range(vs.q) if vs._opp_indices[l] > l]
+    return (vs.q - 1) + sum(int(np.count_nonzero(vs._c[:, l])) - 1 + 6 for l in pairs) + 1 + 3 * vs.q
+
+
+def hydrostatic_start(thermal, state):
+    """The full-width thermal runs' start: phi_ref at the layer's mean
+    scalar (1/2) and f_0 = f_1 at rest in hydrostatic balance with the
+    buoyancy of the initial phi, rho = exp(3 sum F) along gravity's axis
+    (cs^2 = 1/3; the exact-difference force F is the velocity gained per
+    step), scaled to a mean of 1. From a uniform rest state the layer's
+    column would accelerate until a sound wave crossed it (~3500 steps at
+    4096x2048). Returns the new state."""
+    import torch
+
+    thermal.phi_ref = 0.5
+    f_0, _, g_0, *rest = state
+    force = thermal.buoyancy(thermal.ade.phi(g_0))
+    axis = int(np.argmax(np.abs(thermal.gravity)))
+    rho = torch.exp(3.0 * torch.cumsum(force[axis].double(), dim=axis))
+    rho = (rho / rho.mean()).float()
+    vs = thermal.nse.velocity_set
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=rho.device).reshape((-1,) + (1,) * vs.d)
+    f_0 = (w * rho[None]).to(f_0.dtype).contiguous()
+    return (f_0, f_0.clone(), g_0, *rest)
+
+
+def field_bound(kernel, f, mask, aux_bytes):
+    """(least ms, "bytes" or "operations") of one field-mode step: f and the
+    mask read once, f written once, the field's d channels and the BCs'
+    aux bytes (at their voxels) read once; the body's operations
+    (zoo_flops with the force for extern_force, ade_flops for ade)."""
+    from xlb_tpu_torch.kernels.collide_stream import split_collision
+
+    vs, voxels = kernel.vs, mask.numel()
+    t_bytes = (2 * f.numel() * f.element_size() + voxels * 4 * (1 + vs.d) + aux_bytes) / HBM_BYTES_PER_S * 1e3
+    name, _ = split_collision(kernel.collision)
+    flops = ade_flops(vs) if kernel.field == "ade" else zoo_flops(vs, name, False, True)
+    t_ops = flops * voxels / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def field_case(stepper, field, store, seed, device):
+    """A field-mode kernel of ``stepper``'s scene (``fused_step._FieldStep``'s
+    kernel) and its inputs: a seeded perturbed state in ``store``, the
+    packed mask, the aux field (a seeded field -- an advecting velocity of
+    0.03 N(0, 1), or a force of 1e-3 N(0, 1) -- then the BCs' channels),
+    and the BCs' aux bytes per step."""
+    import torch
+
+    from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DStep
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    vs, shape = stepper.velocity_set, tuple(stepper.grid.shape)
+    specs = [bc_to_spec(b, vs) for b in stepper.boundary_conditions]
+    collision = "BGK" if field == "ade" else kernel_collision_spec(stepper)
+    cls = CollideStream2DStep if vs.d == 2 else CollideStreamStep
+    kernel = cls(vs, shape, collision=collision, bc_specs=specs, store_dtype=store, field=field)
+    fields = stepper.prepare_fields()
+    bc_mask, missing_mask = fields[2], fields[3]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = 0.03 if field == "ade" else 1e-3
+    aux = [scale * torch.randn((vs.d,) + shape, generator=gen, device=device)]
+    bc_aux = build_aux_field(stepper)
+    if bc_aux is not None:
+        aux.append(torch.as_tensor(bc_aux, device=device))
+    aux = torch.cat(aux).contiguous()
+    f = perturbed(vs, shape, store, False, seed + 1, device)
+    return kernel, f, pack_masks(bc_mask, missing_mask), aux, hybrid_aux_bytes(specs, bc_mask, vs)
+
+
+def held_field(kernel, f, mask, aux, label, time_them=False):
+    """Hold a field-mode kernel against its plain version (held: f32 rtol
+    1e-5 / atol 1e-6, bf16 8 ulps) and two launches against each other bit
+    for bit; with ``time_them`` also the kernel's and the plain version's
+    ms (CUDA events). Returns the record."""
+    import torch
+
+    out = kernel(f, mask, FIELD_OMEGA, aux)
+    check(torch.equal(out, kernel(f, mask, FIELD_OMEGA, aux)), f"{label}: two launches differ")
+    ref = kernel.plain(f, mask, FIELD_OMEGA, aux)
+    err, share = held(out, ref, kernel.store_dtype)
+    check(share <= 1.0, f"{label}: kernel vs plain max|err| {err:.3e} ({share:.3f} of tol)")
+    rec = {"max_abs_err": err, "tolerance_share": share}
+    if time_them:
+        rec["ms"] = cuda_ms(lambda: kernel(f, mask, FIELD_OMEGA, aux), 10)
+        rec["plain_ms"] = cuda_ms(lambda: kernel.plain(f, mask, FIELD_OMEGA, aux), 1, warmup=False)
+    return rec
+
+
+def field_cases(device, shape_2d=FIELD_SMALL_2D, shape_3d=FIELD_SMALL_3D, d_st=20):
+    """[(label, TORCH-tier stepper, field mode)] of every new form: K3 ade on
+    the 2D thermal scene's g BCs (equilibrium floor and ceiling, the
+    halfway obstacle) and on a Zou-He pressure face with a halfway
+    obstacle, extern_force on the thermal scene's f BCs (halfway) and, in
+    its kExtHybrid form, on the Schafer-Turek scene at D = ``d_st``; K1
+    ade on the 3D thermal scene and on Zou-He / regularized / do-nothing /
+    equilibrium faces (kExtOpen), extern_force on the 3D thermal scene
+    (walled), on the flow past a sphere (kExtOpen: the aux inlet, the
+    outflow) and the open hybrid tunnel (kExtHybrid), and D3Q27 KBC's
+    three forms."""
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import boundary
+    from xlb_tpu_torch.examples.cfd import cylinder_benchmark_schafer_turek as st
+    from xlb_tpu_torch.geometry.distances import implicit_link_distances
+    from xlb_tpu_torch.examples.cfd import rayleigh_benard_2d as rb
+    from xlb_tpu_torch.models import AdvectionDiffusionStepper, IncompressibleNavierStokesStepper
+
+    torch_tier = xlb.ComputeBackend.TORCH
+    f32 = xlb.PrecisionPolicy.FP32FP32
+
+    def ade_open(grid):
+        box_ne = grid.bounding_box_indices(remove_edges=True)
+        return [boundary.ZouHeBC("pressure", prescribed_value=1.2, indices=box_ne["left"]),
+                boundary.RegularizedBC("pressure", prescribed_value=0.9, indices=box_ne["right"]),
+                boundary.DoNothingBC(indices=box_ne["front"]),
+                boundary.EquilibriumBC(rho=0.5, u=(0.0, 0.0, 0.0), indices=box_ne["back"])]
+
+    def zouhe_obstacle(grid):
+        nx, ny = grid.shape
+        box_ne = grid.bounding_box_indices(remove_edges=True)
+        xx, yy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+        circ = np.stack(np.nonzero((xx - nx / 2) ** 2 + (yy - ny / 2) ** 2 <= (ny / 7) ** 2))
+        return [boundary.ZouHeBC("pressure", prescribed_value=1.5, indices=box_ne["left"]),
+                boundary.HalfwayBounceBackBC(indices=circ.tolist())]
+
+    def init(vs_name, shape):
+        from xlb_tpu_torch import velocity_set as vsets
+        from xlb_tpu_torch.boundary.registry import boundary_condition_registry
+
+        xlb.DefaultConfig.reset()
+        boundary_condition_registry.reset()
+        xlb.init(velocity_set=getattr(vsets, vs_name)(), default_backend=torch_tier, default_precision_policy=f32)
+        return xlb.grid_factory(shape, device=device)
+
+    cases = []
+    thermal, *_ = rb.build(*shape_2d, backend="torch", obstacle=True, device=device)
+    cases += [("K3 ade thermal", thermal.ade, "ade"), ("K3 extern_force thermal", thermal.nse, "extern_force")]
+    grid = init("D2Q9", shape_2d)
+    cases.append(("K3 ade zouhe+obstacle", AdvectionDiffusionStepper(grid, zouhe_obstacle(grid)), "ade"))
+    nx, ny, _, _ = st.geometry(d_st)
+    grid = init("D2Q9", (nx, ny))
+    bcs = st.schafer_turek_bcs(grid, boundary, implicit_link_distances, d_st,
+                               hybrid_method="bounceback_regularized")
+    cases.append((f"K3 extern_force hybrid Schafer-Turek D={d_st}",
+                  IncompressibleNavierStokesStepper(grid, boundary_conditions=bcs), "extern_force"))
+    thermal3, *_ = thermal_3d_scene(shape_3d, RA_3D, f32, torch_tier, device)
+    cases += [("K1 ade thermal 3D", thermal3.ade, "ade"), ("K1 extern_force thermal 3D", thermal3.nse, "extern_force")]
+    grid = init("D3Q19", shape_3d)
+    cases.append(("K1 ade open (kExtOpen)", AdvectionDiffusionStepper(grid, ade_open(grid)), "ade"))
+    for pair, scene in ((("D3Q19", "BGK"), "sphere"), (("D3Q27", "KBC"), "rotating")):
+        stepper, _ = open_scene(scene, shape_3d, f32, torch_tier, device)
+        cases.append((f"K1 extern_force {pair[0]} {pair[1]} {scene} (kExtOpen)", stepper, "extern_force"))
+        stepper, _ = hybrid_scene(pair, "bounceback_regularized", True, "spin", "open", shape_3d, device)
+        cases.append((f"K1 extern_force {pair[0]} {pair[1]} hybrid tunnel (kExtHybrid)", stepper, "extern_force"))
+    grid = init("D3Q27", shape_3d)
+    box = grid.bounding_box_indices()
+    walls = np.unique(np.concatenate([np.asarray(box[k]) for k in ("bottom", "top")], axis=1), axis=1)
+    cases.append(("K1 extern_force D3Q27 KBC halfway walls",
+                  IncompressibleNavierStokesStepper(grid, [boundary.HalfwayBounceBackBC(indices=walls.tolist())],
+                                                    collision_type="KBC"), "extern_force"))
+    return cases
+
+
+def compare_field(device):
+    """Every case of field_cases (200x136, 100x52x44, Schafer-Turek at D =
+    20) against its plain version, f32 and bf16, each two launches bit for
+    bit. Returns {form: record}."""
+    import torch
+
+    records = {}
+    for i, (label, stepper, field) in enumerate(field_cases(device)):
+        for store in (torch.float32, torch.bfloat16):
+            kernel, f, mask, aux, _ = field_case(stepper, field, store, 100 + i, device)
+            name = f"{label} {'f32' if store == torch.float32 else 'bf16'}"
+            records[name] = rec = held_field(kernel, f, mask, aux, name)
+            print(f"  {name}: max|err| {rec['max_abs_err']:.3e} ({rec['tolerance_share']:.3f} of tol), bit-equal")
+    return records
+
+
+def thermal_tier_parity(device):
+    """FIELD_PARITY_STEPS coupled steps of the CUDA tier against the TORCH
+    tier on the card (rtol 1e-4; atol 1e-4 of the largest |value|): the 2D
+    thermal scene with its obstacle at 200x136, the 3D one at 100x52x44,
+    Shan-Chen in 2D (a 96^2 droplet on a halfway floor, psi_wall 0.85) and
+    in 3D (64^3 periodic). Returns {scene: (max|err| f, max|err| g)}."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.cfd import rayleigh_benard_2d as rb
+
+    f32 = xlb.PrecisionPolicy.FP32FP32
+    out = {}
+
+    def close(a, b, label):
+        a, b = a.float(), b.float()
+        err = float((a - b).abs().max())
+        check(within(a, b, 1e-4, 1e-4 * float(b.abs().max()))[1], f"{label}: CUDA vs TORCH tier max|err| {err:.3e}")
+        return err
+
+    for label, build in (
+        ("thermal 2D 200x136 + obstacle",
+         lambda be: rb.build(*FIELD_SMALL_2D, backend=be, obstacle=True, device=device)[:4]),
+        ("thermal 3D 100x52x44",
+         lambda be: thermal_3d_scene(FIELD_SMALL_3D, RA_3D, f32, xlb.ComputeBackend[be.upper()], device)),
+    ):
+        res = []
+        for be in ("cuda", "torch"):
+            thermal, state, omega, omega_phi = build(be)
+            f, _, g, _ = thermal.build_multi_step(FIELD_PARITY_STEPS)(*state, omega, omega_phi)
+            res.append((f, g))
+        out[label] = (close(res[0][0], res[1][0], label + " f"), close(res[0][1], res[1][1], label + " g"))
+        print(f"  {label}: CUDA vs TORCH tier after {FIELD_PARITY_STEPS} coupled steps, max|err| f {out[label][0]:.3e}, "
+              f"g {out[label][1]:.3e}")
+
+    def floor(grid, bnd):
+        nx = grid.shape[0]
+        return [bnd.HalfwayBounceBackBC(indices=[list(range(nx)), [0] * nx])]
+
+    for label, shape, bcs, psi_wall in (("Shan-Chen 2D 96^2 droplet floor", (96, 96), floor, 0.85),
+                                        ("Shan-Chen 3D 64^3", (64, 64, 64), None, None)):
+        res = []
+        for be in (xlb.ComputeBackend.CUDA, xlb.ComputeBackend.TORCH):
+            sc, fields = shan_chen_scene(shape, f32, be, device, bcs=bcs, psi_wall=psi_wall)
+            if be == xlb.ComputeBackend.CUDA:
+                check(sc._fused_nse is not None, f"{label}: the CUDA tier has no fused forced step")
+            res.append(sc.build_multi_step(FIELD_PARITY_STEPS)(*fields, 1.0)[0])
+        out[label] = (close(res[0], res[1], label), None)
+        print(f"  {label}: CUDA vs TORCH tier after {FIELD_PARITY_STEPS} steps, max|err| {out[label][0]:.3e}")
+    return out
+
+
+def script_runs(device, backend):
+    """rayleigh_benard_2d.py (with and without --obstacle) and
+    multiphase_droplet_2d.py at their defaults, in their torch form, on
+    ``backend``'s tier on the card: {"rb obstacle=False": Nusselt numbers,
+    "rb obstacle=True": ..., "droplets": (rows, sigma, residual), "seconds":
+    {run: s}}; on the CUDA tier also "launches": {run: field_counts()}."""
+    from xlb_tpu_torch.examples.cfd import multiphase_droplet_2d as md
+    from xlb_tpu_torch.examples.cfd import rayleigh_benard_2d as rb
+
+    out = {"seconds": {}, "launches": {}}
+    runs = [(f"rb obstacle={o}", lambda o=o: rb.run(backend=backend, obstacle=o, device=device).tolist())
+            for o in (False, True)]
+    runs.append(("droplets", lambda: (lambda s, r, rows: (rows, s, r))(*md.run(backend=backend, device=device))))
+    for label, run in runs:
+        field_counts(reset=True)
+        t0 = time.perf_counter()
+        out[label] = run()
+        out["seconds"][label] = time.perf_counter() - t0
+        out["launches"][label] = field_counts()
+    return out
+
+
+def torch_tier_runs(device):
+    """The TORCH tier's side, on the card, of the comparisons of the CUDA
+    tier against the TORCH tier in [17] (flow_past_sphere_3d.py with both
+    inlets, windtunnel_3d.py, rotating_sphere_3d.py at their defaults),
+    [18] (the Schafer-Turek force history, windtunnel_3d.py --object-bc
+    hybrid) and [20] (script_runs). Returns {run: result, "seconds": {run:
+    s}}."""
+    from xlb_tpu_torch.examples.cfd import flow_past_sphere_3d, rotating_sphere_3d, windtunnel_3d
+
+    runs = [(f"flow_past_sphere {inlet}",
+             lambda inlet=inlet: flow_past_sphere_3d.run(inlet=inlet, backend="torch", device=device))
+            for inlet in ("parabolic", "uniform")]
+    runs += [("windtunnel", lambda: windtunnel_3d.run(backend="torch", device=device)),
+             ("rotating_sphere", lambda: rotating_sphere_3d.run(backend="torch", device=device, return_velocity=True)),
+             ("schafer_turek history", lambda: schafer_turek_history("torch", device)),
+             ("windtunnel hybrid", lambda: windtunnel_3d.run(object_bc="hybrid", backend="torch", device=device)),
+             ("scripts", lambda: script_runs(device, "torch"))]
+    out = {"seconds": {}}
+    for name, run in runs:
+        t0 = time.perf_counter()
+        out[name] = run()
+        out["seconds"][name] = time.perf_counter() - t0
+    return out
+
+
+def start_torch_tier(path):
+    """torch_tier_runs in a second process (``--torch-tier PATH``), which
+    pickles its record to ``path``: those runs are bound by the host's
+    launches of small torch operations, and the card idles while the
+    kernels build, so they run beside the build. Returns the process."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--torch-tier", str(path)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def torch_tier_result(proc, path):
+    """The record of start_torch_tier's process, once it has ended (the
+    file is removed)."""
+    import pickle
+
+    out, _ = proc.communicate(timeout=1200)
+    check(proc.returncode == 0, f"the TORCH-tier runs failed:\n{out[-3000:]}")
+    with open(path, "rb") as fh:
+        rec = pickle.load(fh)
+    path.unlink()
+    return rec
+
+
+def field_scripts(device, torch_runs):
+    """The scripts of script_runs on the CUDA tier (launches counted: one of
+    each mode per coupled step, no plain call) and, from ``torch_runs``
+    (script_runs' record on the TORCH tier), on the TORCH tier, against
+    xlb_tpu's numbers (RB_REFERENCE, DROPLET_REFERENCE) within RB_NU_ATOL
+    and DROPLET_TOL, and the two tiers against each other as tight."""
+    runs = {"cuda": script_runs(device, "cuda"), "torch": torch_runs}
+    rec = {}
+    for obstacle in (False, True):
+        label = f"rb obstacle={obstacle}"
+        ref = np.asarray(RB_REFERENCE[obstacle])
+        nus = {be: np.asarray(r[label]) for be, r in runs.items()}
+        counts = runs["cuda"]["launches"][label]
+        check(counts["K3 ade"][0] == 4000 and counts["K3 extern_force"][0] == 4000 and counts["K3 ade"][1] == 0,
+              f"Rayleigh-Benard obstacle={obstacle}: launches {counts}")
+        for be, nu in nus.items():
+            print(f"  rayleigh_benard_2d obstacle={obstacle} [{be}] in {runs[be]['seconds'][label]:.1f} s: Nu "
+                  f"{np.round(nu, 4).tolist()}")
+        for be, nu in list(nus.items()) + [("cuda vs torch", nus["cuda"] - nus["torch"] + ref)]:
+            err = float(np.abs(nu - ref).max())
+            check(err <= RB_NU_ATOL, f"Rayleigh-Benard obstacle={obstacle} [{be}]: Nu {nu} vs {ref} (max {err:.3e})")
+        rec[label] = {"nu_cuda": nus["cuda"].tolist(), "nu_torch": nus["torch"].tolist(), "nu_xlb_tpu": ref.tolist(),
+                      "max_err_xlb_tpu": float(np.abs(nus["cuda"] - ref).max()),
+                      "max_err_tiers": float(np.abs(nus["cuda"] - nus["torch"]).max()),
+                      "seconds": {be: r["seconds"][label] for be, r in runs.items()}}
+    ref_rows = np.asarray(DROPLET_REFERENCE["rows"])
+
+    def droplets_close(rows, ref, sigma, sigma_ref, label):
+        for col, (name, rtol, atol) in enumerate(DROPLET_TOL):
+            check(np.allclose(rows[:, col], ref[:, col], rtol=rtol, atol=atol),
+                  f"{label}: {name} {rows[:, col]} vs {ref[:, col]}")
+        check(abs(sigma / sigma_ref - 1.0) <= DROPLET_SIGMA_RTOL, f"{label}: sigma {sigma} vs {sigma_ref}")
+
+    counts = runs["cuda"]["launches"]["droplets"]
+    check(counts["K3 extern_force"][0] == 3 * 1200 and counts["K3 ade"][1] == 0, f"droplets: launches {counts}")
+    for be, r in runs.items():
+        rows, sigma, resid = r["droplets"]
+        rows = np.asarray(rows)
+        droplets_close(rows, ref_rows, sigma, DROPLET_REFERENCE["sigma"], f"droplets [{be}] vs xlb_tpu")
+        print(f"  multiphase_droplet_2d [{be}] in {r['seconds']['droplets']:.1f} s: sigma {sigma:.6f} (xlb_tpu "
+              f"{DROPLET_REFERENCE['sigma']:.6f}), residual {resid:.4f}")
+        rec[f"droplets {be}"] = {"sigma": sigma, "resid": resid, "rows": rows.tolist(),
+                                 "max_err_xlb_tpu": float(np.abs(rows - ref_rows).max()),
+                                 "seconds": r["seconds"]["droplets"]}
+    (rows_c, sigma_c, _), (rows_t, sigma_t, _) = runs["cuda"]["droplets"], runs["torch"]["droplets"]
+    droplets_close(np.asarray(rows_c), np.asarray(rows_t), sigma_c, sigma_t, "droplets: CUDA vs TORCH tier")
+    return rec
+
+
+def thermal_conservation(thermal, f, mass0, label, witness=None):
+    """Physics checks of a thermal state: finite f, f's mass (halfway walls,
+    periodic sides) conserved to 1e-5 relative, max|u| < 0.1. In bf16
+    storage, unshifted as xlb_tpu's forced step stores it, every population
+    is rounded to 8 bits every step and the mass drifts with the rounding:
+    there the drift must have the sign of ``witness``, the TORCH tier's
+    drift over the same steps of the same scene (thermal_witness_drift),
+    and lie within BF16_DRIFT_RATIO of it either way."""
+    import torch
+
+    f32 = f.float()
+    check(bool(torch.isfinite(f32).all()), f"{label}: non-finite f")
+    mass = float(f32.double().sum())
+    rho, u = thermal.nse.macroscopic(f32)
+    umax = float(u.abs().max())
+    drift = mass / mass0 - 1.0
+    if f.dtype == torch.float32:
+        check(abs(drift) < 1e-5, f"{label}: mass {mass} vs {mass0}")
+    else:
+        ratio = drift / witness if witness else float("inf")
+        check(1.0 / BF16_DRIFT_RATIO <= ratio <= BF16_DRIFT_RATIO,
+              f"{label}: mass drift {drift:.4e}, the TORCH tier's {witness:.4e} (ratio {ratio:.3f})")
+    check(umax < 0.1, f"{label}: max|u| {umax}")
+    return umax, drift
+
+
+def thermal_big_scene(label, pol, backend, device):
+    """(thermal stepper, hydrostatic_start's state, omega, omega_phi) of
+    field_big's thermal run ``label`` under the policy ``pol`` on
+    ``backend``'s tier."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.examples.cfd import rayleigh_benard_2d as rb
+
+    if label.startswith("thermal 2D"):
+        thermal, state, omega, omega_phi, _, _ = rb.build(*THERMAL_2D, rayleigh=RA_2D, backend=backend.name.lower(),
+                                                          device=device, precision=pol)
+    else:
+        thermal, state, omega, omega_phi = thermal_3d_scene(THERMAL_3D, RA_3D, xlb.PrecisionPolicy[pol], backend,
+                                                            device)
+    return thermal, hydrostatic_start(thermal, state), omega, omega_phi
+
+
+def thermal_witness_drift(label, pol, device, steps):
+    """The relative mass drift of the TORCH tier (the plain steps) over
+    ``steps`` coupled steps of field_big's thermal run ``label`` under
+    ``pol``, from the same start as the CUDA tier's run. Returns (drift,
+    seconds)."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+
+    t0 = time.perf_counter()
+    thermal, (f_0, f_1, g_0, g_1, *masks), omega, omega_phi = thermal_big_scene(label, pol, xlb.ComputeBackend.TORCH,
+                                                                                device)
+    mass0 = float(f_0.float().double().sum())
+    window = thermal.build_multi_step(FIELD_WINDOW)
+    with torch.no_grad():
+        for _ in range(steps // FIELD_WINDOW):
+            f_0, f_1, g_0, g_1 = window(f_0, f_1, g_0, g_1, *masks, omega, omega_phi)
+    drift = float(f_0.float().double().sum()) / mass0 - 1.0  # (the read waits for the card)
+    return drift, time.perf_counter() - t0
+
+
+def field_big(device, smi):
+    """The full-width runs: 2D thermal convection at 4096x2048 (Ra 1e8) and
+    3D Rayleigh-Benard at 512x512x128 (Ra 1e6) under FP32FP32 and
+    FP32BF16, Shan-Chen phase separation at 256^3 under FP32FP32. Each: one
+    warm-up window of FIELD_WINDOW coupled steps, then the best of
+    FIELD_REPS (MLUPS = voxels x steps / s / 1e6, ms per coupled step), the
+    launches over the timed windows (one of each mode per step, no plain
+    call), physics checks, peak device memory; then on the final state each
+    kernel against its plain version (and two launches bit for bit), timed
+    beside its bound, and the glue's share of a step. Before each FP32BF16
+    thermal run, the TORCH tier runs the same scene for as many steps: its
+    mass drift is the witness thermal_conservation holds the run's against."""
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.kernels.fused_step import _FieldStep, pack_masks
+
+    cuda = xlb.ComputeBackend.CUDA
+    out = {}
+
+    def timed(run, fields):
+        """The best of FIELD_REPS windows after a warm-up one, from the state
+        in the list ``fields``, which it empties: the caller then holds no
+        reference to the first state while the windows run (the measured
+        peak is the run's)."""
+        state = tuple(fields)
+        fields.clear()
+        state = run(*state)  # warm-up
+        torch.cuda.synchronize()
+        field_counts(reset=True)
+        best = float("inf")
+        for _ in range(FIELD_REPS):
+            t0 = time.perf_counter()
+            state = run(*state)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best, state
+
+    for label, policies in (("thermal 2D 4096x2048", ("FP32FP32", "FP32BF16")),
+                            ("thermal 3D 512x512x128", ("FP32FP32", "FP32BF16"))):
+        for pol in policies:
+            torch.cuda.empty_cache()
+            witness = None
+            if pol == "FP32BF16":  # the TORCH tier's drift over the same steps, before the CUDA tier's run
+                witness, witness_s = thermal_witness_drift(label, pol, device, (1 + FIELD_REPS) * FIELD_WINDOW)
+                print(f"  {label} {pol} [torch]: mass drift {witness:.4e} over {(1 + FIELD_REPS) * FIELD_WINDOW} "
+                      f"coupled steps ({witness_s:.1f} s)")
+                torch.cuda.empty_cache()
+            thermal, (*fields, bc_f, miss_f, bc_g, miss_g), omega, omega_phi = thermal_big_scene(label, pol, cuda,
+                                                                                                  device)
+            mass0 = float(fields[0].double().sum())
+            shape = tuple(thermal.nse.grid.shape)
+            voxels = int(np.prod(shape))
+            window = thermal.build_multi_step(FIELD_WINDOW)
+
+            def run(f_0, f_1, g_0, g_1):
+                return window(f_0, f_1, g_0, g_1, bc_f, miss_f, bc_g, miss_g, omega, omega_phi)
+
+            torch.cuda.reset_peak_memory_stats()  # the run's peak, not the setup's
+            best, (f_0, f_1, g_0, g_1) = timed(run, fields)
+            counts = field_counts()
+            k = "K3" if len(shape) == 2 else "K1"
+            check(counts[f"{k} ade"][0] == FIELD_REPS * FIELD_WINDOW
+                  and counts[f"{k} extern_force"][0] == FIELD_REPS * FIELD_WINDOW and counts[f"{k} ade"][1] == 0,
+                  f"{label} {pol}: launches {counts}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            umax, dmass = thermal_conservation(thermal, f_0, mass0, f"{label} {pol}", witness)
+            check(bool(torch.isfinite(g_0.float()).all()), f"{label} {pol}: non-finite g")
+            ms_step = best / FIELD_WINDOW * 1e3
+            mlups = voxels * FIELD_WINDOW / best / 1e6
+            # the two kernels on the final state: the forced step's force and the ADE step's velocity as the step
+            # computes them
+            force = thermal.buoyancy(thermal.ade.phi(g_0))
+            _, u = thermal.nse.macroscopic(f_0.float())
+            rec = {"mlups": mlups, "ms_per_step": ms_step, "peak_gib": peak, "max_u": umax, "mass_drift": dmass,
+                   "mass_drift_torch_tier": witness,
+                   "launches": {m: counts[f"{k} {m}"][0] for m in ("ade", "extern_force")}}
+            kernel_ms = 0.0
+            for field, stepper, f, bc, miss, aux in (("extern_force", thermal.nse, f_0, bc_f, miss_f, force),
+                                                     ("ade", thermal.ade, g_0, bc_g, miss_g, u)):
+                step = _FieldStep(stepper, field, "BGK")
+                mask = pack_masks(bc, miss)
+                aux = aux.float().contiguous()
+                r = held_field(step.kernel, f.contiguous(), mask, aux, f"{label} {pol} {k} {field}", time_them=True)
+                r["bound_ms"], r["bound_by"] = field_bound(step.kernel, f, mask, 0)
+                kernel_ms += r["ms"]
+                rec[field] = r
+                del step, mask
+            rec["glue_share"] = (ms_step - kernel_ms) / ms_step
+            out[f"{label} {pol}"] = rec
+            print(f"  {label} {pol}: {mlups:.1f} MLUPS, {ms_step:.4f} ms per coupled step (best of {FIELD_REPS} "
+                  f"windows of {FIELD_WINDOW}); {k} extern_force {rec['extern_force']['ms']:.4f} ms (bound "
+                  f"{rec['extern_force']['bound_ms']:.4f}, plain {rec['extern_force']['plain_ms']:.2f}), {k} ade "
+                  f"{rec['ade']['ms']:.4f} ms (bound {rec['ade']['bound_ms']:.4f}, plain {rec['ade']['plain_ms']:.2f}); "
+                  f"glue {rec['glue_share']:.1%} of a step; launches {rec['launches']}; max|u| {umax:.4f}, mass drift "
+                  f"{dmass:.4e}; peak {peak:.2f} GiB; {smi}")
+            del thermal, window, f_0, f_1, g_0, g_1, force, u
+    torch.cuda.empty_cache()
+    sc, fields = shan_chen_scene(SC_3D, xlb.PrecisionPolicy.FP32FP32, cuda, device)
+    check(sc._fused_nse is not None, "Shan-Chen 256^3: the CUDA tier has no fused forced step")
+    window = sc.build_multi_step(FIELD_WINDOW)
+    *fields, bc_mask, missing_mask = fields
+    mass0 = float(fields[0].double().sum())
+    torch.cuda.reset_peak_memory_stats()
+    best, (f_0, f_1) = timed(lambda a, b: window(a, b, bc_mask, missing_mask, 1.0), fields)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = field_counts()
+    check(counts["K1 extern_force"][0] == FIELD_REPS * FIELD_WINDOW and counts["K1 ade"][1] == 0,
+          f"Shan-Chen 256^3: launches {counts}")
+    f32 = f_0.float()
+    check(bool(torch.isfinite(f32).all()), "Shan-Chen 256^3: non-finite f")
+    dmass = float(f32.double().sum()) / mass0 - 1.0
+    rho, u_true = sc.macroscopic(f32)
+    umax = float(u_true.abs().max())
+    check(abs(dmass) < 1e-5 and umax < 0.1, f"Shan-Chen 256^3: mass drift {dmass}, max|u| {umax}")
+    separated = (float(rho.max()), float(rho.min()))
+    ms_step = best / FIELD_WINDOW * 1e3
+    step = _FieldStep(sc.nse, "extern_force", "BGK")
+    du = sc.interaction_du(torch.sum(f32, dim=0, keepdim=True), bc_mask)
+    mask = pack_masks(bc_mask, missing_mask)
+    r = held_field(step.kernel, f_0, mask, du.contiguous(), "Shan-Chen 256^3 K1 extern_force", time_them=True)
+    r["bound_ms"], r["bound_by"] = field_bound(step.kernel, f_0, mask, 0)
+    rec = {"mlups": int(np.prod(SC_3D)) * FIELD_WINDOW / best / 1e6, "ms_per_step": ms_step,
+           "peak_gib": peak, "max_u": umax, "mass_drift": dmass,
+           "rho_range": separated, "launches": {"extern_force": counts["K1 extern_force"][0]}, "extern_force": r,
+           "glue_share": (ms_step - r["ms"]) / ms_step}
+    out["Shan-Chen 3D 256^3 FP32FP32"] = rec
+    print(f"  Shan-Chen 3D 256^3 FP32FP32: {rec['mlups']:.1f} MLUPS, {ms_step:.4f} ms per step; K1 extern_force "
+          f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.2f}); glue {rec['glue_share']:.1%}; "
+          f"rho in [{separated[1]:.3f}, {separated[0]:.3f}] after {(1 + FIELD_REPS) * FIELD_WINDOW} steps; max|u| "
+          f"{umax:.4f}, mass drift {dmass:.2e}; peak {rec['peak_gib']:.2f} GiB; {smi}")
+    return out
+
+
+def field_kernel_records(kernels, field):
+    """Add to K1's and K3's records of the kernels line a "field" entry per
+    mode ([20]): launches over the full-width runs, the largest error and
+    tolerance share over every comparison, times at the full-width FP32FP32
+    runs (K3: the 2D thermal; K1 ade: the 3D thermal; K1 extern_force:
+    Shan-Chen at 256^3)."""
+    for rec in kernels:
+        short = {"collide_stream_step": "K1", "collide_stream_2d_step": "K3"}.get(rec["name"])
+        if not short:
+            continue
+        rec["field"] = {}
+        for mode in ("ade", "extern_force"):
+            runs = {label: r for label, r in field["big"].items() if mode in r
+                    and (label.startswith("thermal 2D") if short == "K3" else not label.startswith("thermal 2D"))}
+            compared = [r for label, r in field["kernels"].items() if label.startswith(f"{short} {mode}")]
+            compared += [r[mode] for r in runs.values()]
+            timed_label = {("K3", "ade"): "thermal 2D 4096x2048 FP32FP32",
+                           ("K3", "extern_force"): "thermal 2D 4096x2048 FP32FP32",
+                           ("K1", "ade"): "thermal 3D 512x512x128 FP32FP32",
+                           ("K1", "extern_force"): "Shan-Chen 3D 256^3 FP32FP32"}[(short, mode)]
+            timed = field["big"][timed_label][mode]
+            rec["field"][mode] = {
+                "launches": sum(r["launches"][mode] for r in runs.values()),
+                "max_abs_err": max(r["max_abs_err"] for r in compared),
+                "tolerance_share": max(r["tolerance_share"] for r in compared),
+                "timed_on": timed_label, **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def field_path(device, smi, torch_runs):
+    """Phase [20]: compare_field, thermal_tier_parity, field_scripts (the
+    TORCH tier's runs from ``torch_runs``), field_big. Returns their
+    records."""
+    return {"kernels": sub(compare_field, device), "tier_parity": sub(thermal_tier_parity, device),
+            "scripts": sub(field_scripts, device, torch_runs), "big": sub(field_big, device, smi)}
+
+
+def sub(fn, *args):
+    """fn(*args), printing its seconds (the parts of a long phase)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"    ({fn.__name__}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def build_seconds(log):
+    """{source: seconds from the start of the build} of _cuda's build log."""
+    import re
+
+    return {m.group(1): float(m.group(2)) for m in re.finditer(r"^# (\S+): ([0-9.]+) s$", log or "", re.M)}
+
+
 def ptxas_summary(report):
     """One line per kernel family and (stencil, collision) of ptxas's
     report: the register range over the store forms and variants, the
@@ -3186,6 +3937,20 @@ def main():
         _cuda.load_library()
         k8_launches(device)
         return 0
+    if "--torch-tier" in sys.argv:  # start_torch_tier's process
+        import pickle
+
+        rec = torch_tier_runs(device)
+        with open(sys.argv[sys.argv.index("--torch-tier") + 1], "wb") as fh:
+            pickle.dump(rec, fh)
+        return 0
+    if "--field" in sys.argv:  # phase [20] alone
+        _cuda.load_library()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        print(smi)
+        print(json.dumps(field_path(device, smi, script_runs(device, "torch"))))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -3197,17 +3962,58 @@ def main():
     print(smi)
 
     t_start = t0 = time.perf_counter()
+    # the TORCH tier's runs of [17], [18] and [20], beside the build
+    path = _cuda.BUILD_ROOT.parent / "chip_smoke" / f"torch_tier.{os.getpid()}.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch_tier = start_torch_tier(path)
+    try:
+        return run_phases(device, kind, smi, torch_tier, path, t_start)
+    finally:
+        if torch_tier.poll() is None:
+            torch_tier.kill()
+            torch_tier.wait()
+        path.unlink(missing_ok=True)
+
+
+def run_phases(device, kind, smi, torch_tier, path, t_start):
+    """Phases [2]-[21] of main (``torch_tier``: start_torch_tier's process,
+    writing to ``path``, whose record the build waits for)."""
+    import torch
+
+    from xlb_tpu_torch.kernels import _cuda
+
+    t0 = time.perf_counter()
     _cuda.load_library()
-    print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    phase_s = {"2": time.perf_counter() - t0}
+    print(f"[2] kernels built and loaded in {phase_s['2']:.1f} s")
+    torch_ref = torch_tier_result(torch_tier, path)
+    phase_s["2 wait"] = time.perf_counter() - t0 - phase_s["2"]
+    runs = ", ".join(f"{k} {v:.1f} s" for k, v in torch_ref["seconds"].items())
+    print(f"    the TORCH tier's runs beside it ({runs}); then waited {phase_s['2 wait']:.1f} s for them")
+    marks = [("2", time.perf_counter())]
+
+    def mark(label):
+        """Close the running phase (print and record its seconds) and open ``label``."""
+        now = time.perf_counter()
+        prev, t_prev = marks[-1]
+        if prev != "2":
+            phase_s[prev] = now - t_prev
+            print(f"  [{prev}] in {phase_s[prev]:.1f} s")
+        marks.append((label, time.perf_counter()))
+
+    slowest = sorted(build_seconds(_cuda.build_log()).items(), key=lambda kv: -kv[1])[:6]
+    print("    the build's slowest sources: " + ", ".join(f"{k} {v:.1f} s" for k, v in slowest))
     for line in ptxas_summary(_cuda.ptxas_report()):
         print("    " + line)
 
+    mark("3")
     print("[3] kernels against their plain versions")
     compare_kernels(SMALL, device, seed=0, time_them=False)
     compare_kernels(SMALL, device, seed=2, time_them=False, solid=True)
     big = compare_kernels((N_MAIN,) * 3, device, seed=1, time_them=True)
     many_bcs = {"3d": compare_many_bcs_3d(SMALL, device, seed=7)}
 
+    mark("4")
     print(f"[4] main path at {N_MAIN}^3, {smi}")
     perf, counts = main_path(device)
     print(f"  launch counts (launches, plain calls): {counts}")
@@ -3215,11 +4021,13 @@ def main():
         check(launches > 0, f"{name} was not launched on the main path")
         check(plain_calls == 0, f"{name}'s plain version ran on the main path")
 
+    mark("5")
     print("[5] the adjoint kernel against its plain version")
     compare_adjoint(SMALL, device, seed=3, time_them=False, solid=True)
     compare_adjoint(SMALL, device, seed=4, time_them=False, solid=False)
     big["collide_stream_adjoint"] = compare_adjoint((N_MAIN,) * 3, device, seed=6, time_them=True, solid=False)
 
+    mark("6")
     print(f"[6] training path at {N_MAIN}^3, {smi}")
     gradient_parity(device)
     training, train_counts = training_path(device)
@@ -3229,6 +4037,7 @@ def main():
         check(plain_calls == 0, f"{name}'s plain version ran on the training path")
     check(train_counts["CollideStreamAdjoint"][0] == 2 * TRAIN_ITERS * TRAIN_WINDOW, "adjoint launches != W per backward")
 
+    mark("7")
     print("[7] the 2D kernels against their plain versions")
     big_2d = compare_kernels_2d("halfway_cavity", SMALL_2D, device, seed=11)
     for more in (compare_kernels_2d("cylinder", CYL_SHAPE, device, seed=12, inout="zouhe"),
@@ -3238,6 +4047,7 @@ def main():
         for name, recs in more.items():
             big_2d[name].update(recs)
 
+    mark("8")
     print(f"[8] 2D main path at {N_2D}^2, {smi}")
     perf_2d, counts_2d = main_path_2d(device)
     print(f"  launch counts (launches, plain calls): {counts_2d}")
@@ -3245,17 +4055,20 @@ def main():
         check(launches > 0, f"{name} was not launched on the 2D main path")
         check(plain_calls == 0, f"{name}'s plain version ran on the 2D main path")
 
+    mark("9")
     print(f"[9] the cylinder at its script's defaults, {smi}")
     cylinder, cyl_counts = cylinder_path(device)
     print(f"  launch counts (launches, plain calls): {cyl_counts}")
     for name, (launches, plain_calls) in cyl_counts.items():
         check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the cylinder")
 
+    mark("10")
     print("[10] the multires kernels against their plain versions at the benchmark's shapes")
     big_mres = compare_kernels_mres(device, seed=41, solid=False, time_them=True)
     for name, recs in compare_kernels_mres(device, seed=42, solid=True, time_them=False).items():
         big_mres[name].update(recs)
 
+    mark("11")
     print(f"[11] the bench.py multires scenes (mlups_3d_multires.py, FUSION_AT_FINEST), {smi}")
     perf_mres, counts_mres, tiers_mres, parity_mres = mres_main_path(device)
     print(f"  launch counts of the timed windows (launches, plain calls): {counts_mres}")
@@ -3263,34 +4076,39 @@ def main():
           "the collide-then-stream kernel was not launched on the multires main path")
     check(counts_mres["CollideThenStream"][1] == 0, "the collide-then-stream plain version ran on the multires main path")
 
+    mark("12")
     print("[12] the walled 2-level cavity under FUSION_AT_FINEST_SFV_ALL")
     walled, counts_walled = mres_walled_path(device)
     print(f"  launch counts (launches, plain calls): {counts_walled}")
     for name, (launches, plain_calls) in counts_walled.items():
         check(launches > 0 and plain_calls == 0, f"{name}: not launched, or its plain version ran, on the walled cavity")
 
+    mark("13")
     print("[13] the collision zoo's kernels (K1, K2, K0) against their plain versions")
-    big_zoo = compare_zoo(device)
+    big_zoo = sub(compare_zoo, device)
 
+    mark("14")
     print(f"[14] mlups_3d.py's cavity at {N_MAIN}^3 for every collision, through K1, K2 and K0, {smi}")
     perf_zoo, counts_zoo, parity_zoo = zoo_main_path(device)
     print(f"  launches over the timed routes: {counts_zoo}")
 
+    mark("15")
     print(f"[15] the turbulent channel (turbulent_channel_3d.py), {smi}")
     channel, counts_chan = channel_path(device)
     print(f"  launch counts of the run() window (launches, plain calls): {counts_chan}")
-    zoo_adjoint = compare_zoo_adjoint(device)
-    zoo_grads = zoo_gradients(device)
+    zoo_adjoint = sub(compare_zoo_adjoint, device)
+    zoo_grads = sub(zoo_gradients, device)
 
+    mark("16")
     print(f"[16] the copy-bandwidth probes (K9-K12: memory_bandwidth.py, dma_experiments.py), {smi}")
     n_cmp, probe_errs = compare_probes(device)
     probes, probe_counts, probe_plain_ms, roofline = probe_path(device)
 
+    mark("17")
     print(f"[17] the open-boundary path (flows past a sphere: K1, K2, K0 with kExtOpen), {smi}")
-    t_open = time.perf_counter()
-    open_errs, open_shares = compare_open(device)
-    open_rec, open_counts = open_scripts(device)
-    open_perf = open_big(device)
+    open_errs, open_shares = sub(compare_open, device)
+    open_rec, open_counts = sub(open_scripts, device, torch_ref)
+    open_perf = sub(open_big, device)
     print(f"  launches over the scripts' CUDA-tier runs: {open_counts}")
     for rec in open_perf.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
         for name in ("K1", "K2", "K0"):
@@ -3300,14 +4118,13 @@ def main():
                                                      for pol, rec in open_perf.items() for n in ("K1", "K2", "K0")))
     print("  [4]'s cavity MLUPS, this run / recorded in PERF.md: "
           + ", ".join(f"{k} {perf[k][0]:.1f} / {v} ({perf[k][0] / v - 1:+.2%})" for k, v in CAVITY_RECORDED_MLUPS.items()))
-    print(f"  [17] in {time.perf_counter() - t_open:.1f} s")
 
+    mark("18")
     print(f"[18] the curved-wall path (HybridBC: K1, K2, K0 with kExtHybrid; K3, K4 with the 2D aux form), {smi}")
-    t_hybrid = time.perf_counter()
-    hybrid_errs, hybrid_shares, n_hybrid = compare_hybrid(device)
-    hybrid_rec, hybrid_counts = hybrid_scripts(device, smi)
-    hybrid_2d = hybrid_2d_times(device)
-    hybrid_perf = hybrid_big(device)
+    hybrid_errs, hybrid_shares, n_hybrid = sub(compare_hybrid, device)
+    hybrid_rec, hybrid_counts = sub(hybrid_scripts, device, smi, torch_ref)
+    hybrid_2d = sub(hybrid_2d_times, device)
+    hybrid_perf = sub(hybrid_big, device)
     print(f"  launches over the scripts' CUDA-tier runs: {hybrid_counts}")
     for rec in hybrid_perf.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
         for name in ("K1", "K2", "K0"):
@@ -3315,21 +4132,25 @@ def main():
     print(f"  the hybrid kernels at the D={SPHERE_BIG_D} tunnel against the measured copy roofline "
           f"({roofline['GBps']:.1f} GB/s): " + "; ".join(f"{pol} {n} {rec[n]['roofline_share']:.3f}"
                                                      for pol, rec in hybrid_perf.items() for n in ("K1", "K2", "K0")))
-    print(f"  [18] in {time.perf_counter() - t_hybrid:.1f} s ({n_hybrid} kernel comparisons)")
+    print(f"  {n_hybrid} kernel comparisons")
 
+    mark("19")
     print(f"[19] gradients through the open boundaries and curved walls (K8's kExtOpen and kExtHybrid forms), {smi}")
-    t_grad = time.perf_counter()
     print(f"  K8 against its plain version (float64 TORCH-tier autograd for D3Q27 KBC), in [17] and [18]: open "
           f"max|err| {open_errs['K8']:.3e} ({open_shares['K8']:.3f} of tol), hybrid {hybrid_errs['K8']:.3e} "
           f"({hybrid_shares['K8']:.3f} of tol); two calls bit-equal on each")
-    window_grads = open_window_gradients(device)
-    open_train = train_open(device)
+    window_grads = sub(open_window_gradients, device)
+    open_train = sub(train_open, device)
     for rec in open_train.values():  # the byte bound at [16]'s measured copy roofline, over the kernel time
         k8 = rec["K8"]
         k8["roofline_share"] = k8["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9) / k8["ms"]
     print(f"  K8 on the final states against the measured copy roofline ({roofline['GBps']:.1f} GB/s): "
           + "; ".join(f"{label} {rec['K8']['roofline_share']:.3f}" for label, rec in open_train.items()))
-    print(f"  [19] in {time.perf_counter() - t_grad:.1f} s")
+
+    mark("20")
+    print(f"[20] thermal convection and Shan-Chen multiphase (K1, K3: the ade and extern_force modes), {smi}")
+    field = field_path(device, smi, torch_ref["scripts"])
+    mark("21")
 
     kernels = []
     for name, cls, source, rep, launches in (
@@ -3432,6 +4253,7 @@ def main():
                     **{key: timed[key] for key in ("ms", "plain_ms", "plain_slabs", "bound_ms", "bound_by",
                                                    "roofline_share") if key in timed},
                     "ms_bf16": bf16["K8"]["ms"], "bound_ms_bf16": bf16["K8"]["bound_ms"]}
+    field_kernel_records(kernels, field)
     for rec in kernels:  # the byte bound at the measured copy roofline, and the kernel's share of it
         if rec["bound_by"] == "bytes":
             rec["roofline_ms"] = rec["bound_ms"] * HBM_BYTES_PER_S / (roofline["GBps"] * 1e9)
@@ -3449,8 +4271,9 @@ def main():
                       "probes": probes,
                       "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf,
                       "hybrid_scripts": hybrid_rec, "hybrid_2d": hybrid_2d, "hybrid_big": hybrid_perf,
-                      "open_window_gradients": window_grads, "open_training": open_train}))
-    print(f"[20] all phases in {time.perf_counter() - t_start:.1f} s")
+                      "open_window_gradients": window_grads, "open_training": open_train, "field": field,
+                      "phase_seconds": phase_s}))
+    print(f"[21] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

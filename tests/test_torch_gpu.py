@@ -789,3 +789,36 @@ def test_open_window_gradients_match_torch_tier(cuda_device):
     from chip_smoke import open_window_gradients
 
     assert set(open_window_gradients(cuda_device)) == {"sphere", "hybrid"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_field_kernels_match_plain_versions_on_the_card(cuda_device, store):
+    """K1's and K3's field modes (ade, extern_force) in every instantiated
+    form -- chip_smoke.field_cases at 40x24, 24x20x16 and the Schafer-Turek
+    scene at D = 4 -- against their plain versions (f32: rtol 1e-5, atol
+    1e-6; bf16: 8 bf16 ulps, as chip_smoke's ``held``), two launches bit
+    for bit."""
+    import torch
+
+    from chip_smoke import field_case, field_cases, held_field
+
+    for i, (label, stepper, field) in enumerate(field_cases(cuda_device, (40, 24), (24, 20, 16), 4)):
+        kernel, f, mask, aux, _ = field_case(stepper, field, getattr(torch, store), 7 + i, cuda_device)
+        held_field(kernel, f, mask, aux, label)  # raises past the tolerance or when two launches differ
+
+
+@pytest.mark.gpu
+def test_thermal_and_shan_chen_cuda_tier_match_torch_tier(cuda_device):
+    """chip_smoke.thermal_tier_parity: 10 coupled steps of the CUDA tier
+    (one launch of each field mode per step) against the TORCH tier on the
+    card (rtol 1e-4), the 2D and 3D thermal scenes and Shan-Chen in 2D and
+    3D."""
+    from chip_smoke import field_counts, thermal_tier_parity
+
+    field_counts(reset=True)
+    thermal_tier_parity(cuda_device)
+    counts = field_counts()
+    assert counts["K3 ade"][0] == counts["K1 ade"][0] == 10
+    assert counts["K3 extern_force"][0] == counts["K1 extern_force"][0] == 20
+    assert counts["K3 ade"][1] == counts["K1 ade"][1] == 0

@@ -452,3 +452,115 @@ def test_zoo_refuses_what_it_lacks_and_never_falls_back():
     with pytest.raises(NotImplementedError, match="no CUDA instantiation for D3Q19 TRT"):
         step._require_instantiation(NoInstantiations)
     assert CollideStreamStep.plain_calls == calls
+
+
+def test_field_mode_gates_refuse():
+    """The field modes of K1 and K3 (ade, extern_force) refuse at
+    construction what they are not instantiated for -- ADE on D3Q27 or with
+    a hybrid BC or a per-voxel prescription, the force on a D3Q19 TRT,
+    either shifted, with a constant force, or on another kernel -- and a
+    call without the field's aux channels; a form the library refuses
+    raises at the launch, with no plain call."""
+    import torch
+
+    from xlb_tpu_torch.kernels import _cuda
+    from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
+    from xlb_tpu_torch.kernels.collide_stream_blocked import CollideStreamBlocked
+    from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
+    from xlb_tpu_torch.velocity_set import D2Q9, D3Q19, D3Q27
+
+    hybrid = {"kind": "hybrid", "id": 3, "step": "streaming", "method": "bounceback", "use_dist": False, "mw": None}
+    spatial = {"kind": "zouhe", "id": 4, "step": "streaming", "bc_type": "velocity", "value": "aux"}
+    for make, match in (
+        (lambda: CollideStreamStep(D3Q27(), SHAPE, collision="KBC", field="ade"), "instantiated for"),
+        (lambda: CollideStreamStep(D3Q19(), SHAPE, collision="TRT", field="extern_force"), "instantiated for"),
+        (lambda: CollideStreamStep(D3Q19(), SHAPE, bc_specs=[hybrid], field="ade"), "constant prescriptions"),
+        (lambda: CollideStream2DStep(D2Q9(), SHAPE[:2], bc_specs=[spatial], field="ade"), "constant prescriptions"),
+        (lambda: CollideStreamStep(D3Q19(), SHAPE, store_dtype=torch.bfloat16, shifted=True, field="ade"),
+         "stores unshifted"),
+        (lambda: CollideStreamStep(D3Q19(), SHAPE, force_vector=(1e-5, 0, 0), field="extern_force"), "not both"),
+    ):
+        with pytest.raises(NotImplementedError, match=match):
+            make()
+    for other in (CollideStream2DKStep, CollideStreamBlocked):  # the field modes are K1's and K3's only
+        with pytest.raises(TypeError):
+            other(D3Q19(), SHAPE, field="ade")
+
+    step = CollideStreamStep(D3Q19(), SHAPE, field="extern_force")
+    assert step.aux_channels == 3 and step.params.walled == 1
+    f = torch.ones((19,) + SHAPE)
+    mask = torch.zeros(SHAPE, dtype=torch.int32)
+    with pytest.raises(ValueError, match="aux field"):
+        step(f, mask, 1.0)
+
+    class Refusing:  # a library whose field entry refuses the form (as outside has_field)
+        @staticmethod
+        def xlb_collide_stream_field_step(*args):
+            return 1  # cudaErrorInvalidValue
+
+        @staticmethod
+        def xlb_error_string(err):
+            return b"invalid argument"
+
+    calls = CollideStreamStep.plain_calls
+    aux = torch.zeros((3,) + SHAPE)
+    err = step._launch(Refusing, f, mask, torch.empty_like(f), 1.0, None, aux)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _cuda.check(Refusing, err, "CollideStreamStep launch")
+    assert CollideStreamStep.plain_calls == calls
+
+
+def test_ade_models_guards():
+    """omega_from_diffusivity and diffusivity_from_omega invert each other;
+    the coupled models need the pull scheme; the CUDA tier needs a grid on
+    the card; the ADE step takes only the voxel-local BCs."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import HybridBC
+    from xlb_tpu_torch.kernels.fused_step import build_fused_ade_step
+    from xlb_tpu_torch.models import (AdvectionDiffusionStepper, IncompressibleNavierStokesStepper,
+                                      ShanChenMultiphaseStepper, ThermalNSEStepper, diffusivity_from_omega,
+                                      omega_from_diffusivity)
+    from xlb_tpu_torch.velocity_set import D2Q9
+
+    for d in (0.02, 0.1, 1.0 / 6.0):
+        assert abs(diffusivity_from_omega(omega_from_diffusivity(d)) - d) < 1e-12
+    xlb.init(velocity_set=D2Q9(), default_backend=xlb.ComputeBackend.TORCH,
+             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+    grid = xlb.grid_factory((8, 6), device="cpu")
+    nse = IncompressibleNavierStokesStepper(grid)
+    nse.streaming_scheme = "push"
+    with pytest.raises(NotImplementedError, match="pull"):
+        ThermalNSEStepper(nse, AdvectionDiffusionStepper(grid))
+    with pytest.raises(NotImplementedError, match="pull"):
+        ShanChenMultiphaseStepper(nse)
+    with pytest.raises(ValueError, match="CUDA device"):
+        AdvectionDiffusionStepper(grid, compute_backend=xlb.ComputeBackend.CUDA)
+    ade = AdvectionDiffusionStepper(grid, [HybridBC(indices=[[3], [3]])])
+    with pytest.raises(NotImplementedError, match="constant prescriptions"):
+        build_fused_ade_step(ade)
+
+
+@pytest.mark.parametrize("vs_name, collision, force, match", [("D3Q19", "TRT", None, "instantiated for"),
+                                                               ("D3Q19", "MRT", None, "instantiated for"),
+                                                               ("D2Q9", "BGK", (1e-5, 0.0), "not both")])
+def test_shan_chen_cuda_tier_refuses_what_it_lacks(vs_name, collision, force, match):
+    """A CUDA-tier Shan-Chen stepper on a (stencil, collision) pair without
+    the forced kernel, or over an NSE stepper with a constant force, raises
+    when it is made, as the thermal stepper does: no TORCH-tier step on the
+    card's tensors."""
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch import velocity_set as vsets
+    from xlb_tpu_torch.models import IncompressibleNavierStokesStepper, ShanChenMultiphaseStepper
+
+    reset_port_state()
+    vs = getattr(vsets, vs_name)()
+    xlb.init(velocity_set=vs, default_backend=xlb.ComputeBackend.TORCH,
+             default_precision_policy=xlb.PrecisionPolicy.FP32FP32)
+    grid = xlb.grid_factory((8, 6) if vs.d == 2 else (6, 5, 4), device="cpu")
+    kwargs = {"collision_type": collision}
+    if force is not None:
+        kwargs["force_vector"] = force
+    nse = IncompressibleNavierStokesStepper(grid, **kwargs)
+    nse.compute_backend = xlb.ComputeBackend.CUDA  # the CUDA tier's gate, without a card
+    with pytest.raises(NotImplementedError, match=match):
+        ShanChenMultiphaseStepper(nse)

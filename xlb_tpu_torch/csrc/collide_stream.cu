@@ -33,6 +33,12 @@ cudaError_t launch_pair<D3Q27, CollBGK>(const XlbLaunch& a);
 template <>
 cudaError_t launch_pair<D3Q27, CollKBC>(const XlbLaunch& a);
 
+// the field modes of K1 (collide_stream_*_field.cu)
+template <>
+cudaError_t launch_field<D3Q19, CollBGK>(const XlbLaunch& a);
+template <>
+cudaError_t launch_field<D3Q27, CollKBC>(const XlbLaunch& a);
+
 // Whether the library holds a (stencil, collision) pair.
 constexpr bool has_pair(int q, int collision) {
   return (q == 19 && collision != XLB_COLL_KBC && collision >= XLB_COLL_BGK && collision <= XLB_COLL_POWERLAW) ||
@@ -108,6 +114,21 @@ int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const
 int xlb_has_instantiation(int kernel, int q, int collision, int walled, int store_kind, int shifted) {
   return xlb::has_pair(q, collision) && xlb::has_form(kernel, walled, store_kind, shifted) &&
          (walled < 2 || xlb::has_open(q, collision));
+}
+
+// K1's field modes: field 1 (the advection-diffusion step) or 2 (a
+// per-voxel force); aux holds the field's d channels, then the BCs'; the
+// form is the params' walled code. Unshifted f32 (store_kind 0) or bf16 (1).
+int xlb_collide_stream_field_step(int field, int store_kind, const void* f, const void* mask, void* out, int X, int Y,
+                                  int Z, float omega, const void* aux, const XlbStepParams* params, void* stream) {
+  const XlbStepParams& p = *params;
+  if (store_kind < 0 || store_kind > 1 || aux == nullptr || !xlb::has_field(field, p.q, p.collision, p.walled))
+    return cudaErrorInvalidValue;
+  const xlb::XlbLaunch a{xlb::XLB_KERNEL_STEP, store_kind, 0, f, mask, out, X, Y, Z, 0, 0, 0, 0, omega, params,
+                         static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux), field};
+  if (p.q == 19 && p.collision == XLB_COLL_BGK) return xlb::launch_field<xlb::D3Q19, xlb::CollBGK>(a);
+  if (p.q == 27 && p.collision == XLB_COLL_KBC) return xlb::launch_field<xlb::D3Q27, xlb::CollKBC>(a);
+  return cudaErrorInvalidValue;
 }
 
 const char* xlb_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

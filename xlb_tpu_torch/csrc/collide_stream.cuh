@@ -30,6 +30,11 @@
 //   -> moments, pair-shared quadratic equilibrium, the collision
 //   -> with FORCE, the exact-difference body force
 //      f += feq(rho, u + F) - feq(rho, u) with the pre-collision rho, u
+//   (the field modes, FIELD: kFieldAde replaces these three steps by the
+//   advection-diffusion step -- phi = sum f, the advecting velocity of aux
+//   channels [0, d), BGK to the pair-shared linear equilibrium -- and
+//   kFieldForce takes the force F per voxel from aux channels [0, d);
+//   the BCs' aux channels then start at d)
 //   -> collision-step "fullway" epilogue (f_out[l] := f_s[opp[l]])
 //   -> with kExtOpen, the outflow's staging: each missing m of an outflow
 //      voxel x stages cs f_s[m](x - n) + (1 - cs) f_s[m](x) in the
@@ -389,6 +394,32 @@ enum : int { kExtNone = 0, kExtAll = 1, kExtHalfway = 2, kExtOpen = 3, kExtHybri
 // Whether an instantiation reads the aux field (and, in 3D, stages the
 // outflow).
 __host__ __device__ constexpr bool ext_reads_aux(int ext) { return ext == kExtOpen || ext == kExtHybrid; }
+
+// The field modes of the single-step kernels (K1 field_step_kernel, K3
+// step_2d_field_kernel), xlb_tpu's `ade` and `extern_force`: the
+// advection-diffusion step, and the NSE step with a per-voxel
+// exact-difference force; both read their field from aux channels [0, d).
+enum : int { kFieldNone = 0, kFieldAde = 1, kFieldForce = 2 };
+
+// The field modes' instantiation table, by (field, stencil, collision,
+// form) -- form: the 3D kernels' walled code (1 walled, 2 kExtOpen, 3
+// kExtHybrid), the 2D kernels' EXT (kExtAll, kExtHybrid) -- in f32 and
+// bf16 storage, unshifted, as xlb_tpu's fused ADE and forced steps. The
+// advection-diffusion step: D2Q9 and D3Q19 BGK with the voxel-local BCs
+// (in 3D the walled form, and kExtOpen for Zou-He, regularized and
+// do-nothing); the force: D2Q9 BGK, D3Q19 BGK and D3Q27 KBC, with every
+// epilogue of their open and hybrid forms. The wrappers' construction-time
+// gate (FIELD_PAIRS and ADE_KINDS of kernels/collide_stream_dma.py) changes
+// with it.
+__host__ __device__ constexpr bool has_field(int field, int q, int collision, int form) {
+  if (field == kFieldAde)
+    return collision == XLB_COLL_BGK && ((q == 9 && form == kExtAll) || (q == 19 && (form == 1 || form == 2)));
+  if (field == kFieldForce)
+    return (q == 9 && collision == XLB_COLL_BGK && (form == kExtAll || form == kExtHybrid)) ||
+           (((q == 19 && collision == XLB_COLL_BGK) || (q == 27 && collision == XLB_COLL_KBC)) && form >= 1 &&
+            form <= 3);
+  return false;
+}
 
 // No aux field and no staging (the kernels that read neither).
 struct NoAux {
@@ -1120,26 +1151,72 @@ struct CollKBC {
   }
 };
 
+// The advection-diffusion step of one voxel (FIELD == kFieldAde): phi =
+// sum fs, the advecting velocity u of aux channels [0, d), BGK relaxation
+// with omega (omega_phi) to the linear equilibrium, pair-shared as
+// xlb_tpu's kernel body: geq_{l,o} = phi w (1 +- 3 c_l . u). In products
+// and sums nvcc never contracts, so it computes the plain version's bits.
+template <class S, typename Aux>
+__device__ __forceinline__ void ade_physics(const float fs[S::q], float omega, const XlbStepParams& p,
+                                            float out[S::q], const Aux& aux) {
+  float phi = fs[0];
+#pragma unroll
+  for (int l = 1; l < S::q; ++l) phi = __fadd_rn(phi, fs[l]);
+  float u[S::d];
+#pragma unroll
+  for (int a = 0; a < S::d; ++a) u[a] = aux(a);
+  auto relax = [&](int l, float geq) { out[l] = __fsub_rn(fs[l], __fmul_rn(omega, __fsub_rn(fs[l], geq))); };
+#pragma unroll
+  for (int l = 0; l < S::q; ++l) {
+    const int o = S::opp(l);
+    if (o < l) continue;  // pair handled at its lower index
+    const float rw = __fmul_rn(phi, p.w[l]);
+    if (o == l) {
+      relax(l, rw);
+      continue;
+    }
+    bool have;
+    const float cu3 = __fmul_rn(3.0f, c_dot<S>(l, u, have));
+    relax(l, __fmul_rn(rw, __fadd_rn(1.0f, cu3)));
+    relax(o, __fmul_rn(rw, __fsub_rn(1.0f, cu3)));
+  }
+}
+
 // The physics of one voxel between the streaming-step and the
 // collision-step epilogues: moments, the pair-shared equilibrium, the
 // collision C and, with FORCE (applied when p.has_force), the
 // exact-difference body force f += feq(rho, u + F) - feq(rho, u) with the
 // pre-collision rho and u. F is float in the forward, Dual in the adjoint.
-template <class S, class C, bool FORCE, typename F>
-__device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const XlbStepParams& p, F out[S::q]) {
-  F rho, inv_rho, u[S::d], feq[S::q];
-  moments_equilibrium<S, FORCE>(fs, p, rho, inv_rho, u, feq);
+// FIELD (the forward's field modes) reads aux: kFieldAde runs ade_physics
+// in place of all this, kFieldForce adds the force of aux channels [0, d).
+template <class S, class C, bool FORCE, int FIELD = kFieldNone, typename F, typename Aux = NoAux>
+__device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const XlbStepParams& p, F out[S::q],
+                                                const Aux& aux = Aux{}) {
+  if constexpr (FIELD == kFieldAde) {
+    ade_physics<S>(fs, omega, p, out, aux);
+  } else {
+    F rho, inv_rho, u[S::d], feq[S::q];
+    moments_equilibrium<S, FORCE || FIELD == kFieldForce>(fs, p, rho, inv_rho, u, feq);
 
-  C::template collide<S>(fs, feq, rho, omega, p, out);
+    C::template collide<S>(fs, feq, rho, omega, p, out);
 
-  if constexpr (FORCE) {
-    if (p.has_force) {
+    if constexpr (FORCE) {
+      if (p.has_force) {
+        F uf[S::d], feqf[S::q];
+#pragma unroll
+        for (int a = 0; a < S::d; ++a) uf[a] = u[a] + p.force[a];
+        equilibrium_rn<S>(rho, uf, p, feqf);
+#pragma unroll
+        for (int l = 0; l < S::q; ++l) out[l] = out[l] + (feqf[l] - feq[l]);
+      }
+    }
+    if constexpr (FIELD == kFieldForce) {
       F uf[S::d], feqf[S::q];
 #pragma unroll
-      for (int a = 0; a < S::d; ++a) uf[a] = u[a] + p.force[a];
+      for (int a = 0; a < S::d; ++a) uf[a] = add_rn(u[a], F(aux(a)));
       equilibrium_rn<S>(rho, uf, p, feqf);
 #pragma unroll
-      for (int l = 0; l < S::q; ++l) out[l] = out[l] + (feqf[l] - feq[l]);
+      for (int l = 0; l < S::q; ++l) out[l] = add_rn(out[l], sub_rn(feqf[l], feq[l]));
     }
   }
 }
@@ -1150,9 +1227,10 @@ __device__ __forceinline__ void collide_physics(const F fs[S::q], F omega, const
 // and (3D) staged(m, tx, ty, tz) the raw population m at x - t (the
 // outflow's staging). Writes the post-collision populations in store form (shifted
 // back when SHIFTED), still in f32, to out. C is the collision; FORCE
-// compiles the exact-difference body force (applied when p.has_force).
-template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, typename Pull, typename Center,
-          typename Aux = NoAux, typename Staged = NoStaged>
+// compiles the exact-difference body force (applied when p.has_force);
+// FIELD a field mode (collide_physics), whose field aux(0..d-1) reads.
+template <class S, bool SHIFTED, int EXT, class C = CollBGK, bool FORCE = false, int FIELD = kFieldNone,
+          typename Pull, typename Center, typename Aux = NoAux, typename Staged = NoStaged>
 __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& center, int packed, float omega,
                                               const XlbStepParams& p, float out[S::q], const Aux& aux = Aux{},
                                               const Staged& staged = Staged{}) {
@@ -1161,7 +1239,7 @@ __device__ __forceinline__ void collide_voxel(const Pull& pull, const Center& ce
   float fs[S::q];
   streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux);
 
-  collide_physics<S, C, FORCE>(fs, omega, p, out);
+  collide_physics<S, C, FORCE, FIELD>(fs, omega, p, out, aux);
 
   // collision-step epilogues
   if (is_fullway(bc, p)) {

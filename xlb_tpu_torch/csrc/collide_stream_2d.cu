@@ -50,6 +50,10 @@
 // would take 125 KB more at the Schafer-Turek scene's 11 channels and no
 // longer fit the block's 227 KB. The hybrid epilogue is voxel-local, so
 // K4 still equals K launches of K3 bit for bit.
+//
+// step_2d_field_kernel is K3 in xlb_tpu's field modes (kFieldAde, the
+// advection-diffusion step; kFieldForce, a per-voxel force; has_field),
+// unshifted, the field in aux channels [0, 2) and the BCs' after them.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -73,10 +77,12 @@ __host__ __device__ inline size_t kstep_2d_smem_bytes(int k, int tx, int ty, siz
   return align16(size_t(D2Q9::q) * (tx + 2 * k) * (ty + 2 * k) * tsize) + size_t(tx + 2 * k - 2) * (ty + 2 * k - 2) * 4;
 }
 
-template <typename T, bool SHIFTED, int EXT>
-__global__ void __launch_bounds__(k2dStepThreads)
-    step_2d_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y,
-                   float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+// One thread's voxel of step_2d_kernel and step_2d_field_kernel (FIELD:
+// the field mode, whose channels the aux field holds first).
+template <typename T, bool SHIFTED, int EXT, int FIELD>
+__device__ __forceinline__ void step_2d_voxel(const T* __restrict__ f, const int* __restrict__ mask,
+                                              T* __restrict__ out, int X, int Y, float omega, const XlbStepParams& p,
+                                              const float* __restrict__ aux) {
   const unsigned n = unsigned(X) * unsigned(Y);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
@@ -92,14 +98,31 @@ __global__ void __launch_bounds__(k2dStepThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[D2Q9::q];
-  if constexpr (EXT == kExtHybrid) {
+  if constexpr (EXT == kExtHybrid || FIELD != kFieldNone) {
     auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
-    collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, mask[v], omega, p, o, aux_at);
+    collide_voxel<D2Q9, SHIFTED, EXT, CollBGK, false, FIELD>(pull, center, mask[v], omega, p, o, aux_at);
   } else {
     collide_voxel<D2Q9, SHIFTED, EXT>(pull, center, mask[v], omega, p, o);
   }
 #pragma unroll
   for (int l = 0; l < D2Q9::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
+}
+
+template <typename T, bool SHIFTED, int EXT>
+__global__ void __launch_bounds__(k2dStepThreads)
+    step_2d_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y,
+                   float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+  step_2d_voxel<T, SHIFTED, EXT, kFieldNone>(f, mask, out, X, Y, omega, p, aux);
+}
+
+// K3's field modes (has_field): the advection-diffusion step (kFieldAde)
+// and the step with a per-voxel force (kFieldForce), unshifted, the field
+// in aux channels [0, 2) and the BCs' channels after it.
+template <typename T, int EXT, int FIELD>
+__global__ void __launch_bounds__(k2dStepThreads)
+    step_2d_field_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y,
+                         float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+  step_2d_voxel<T, false, EXT, FIELD>(f, mask, out, X, Y, omega, p, aux);
 }
 
 // Copies rows of W elements from device memory into shared memory with
@@ -243,6 +266,19 @@ cudaError_t dispatch_2d(int store_kind, int shifted, int ext, const F& fn) {
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int EXT, int FIELD>
+cudaError_t launch_step_2d_field(const void* f, const void* mask, void* out, int X, int Y, float omega,
+                                 const XlbStepParams& p, const float* aux, cudaStream_t stream) {
+  if constexpr (has_field(FIELD, D2Q9::q, XLB_COLL_BGK, EXT)) {
+    const unsigned n = unsigned(X) * unsigned(Y);
+    step_2d_field_kernel<T, EXT, FIELD><<<(n + k2dStepThreads - 1) / k2dStepThreads, k2dStepThreads, 0, stream>>>(
+        static_cast<const T*>(f), static_cast<const int*>(mask), static_cast<T*>(out), X, Y, omega, p, aux);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace xlb
 
 extern "C" {
@@ -273,6 +309,24 @@ int xlb_collide_stream_2d_kstep(int store_kind, int shifted, int ext, int steps,
   return xlb::dispatch_2d(store_kind, shifted, ext, [&](auto t, auto sh, auto ex) {
     return xlb::launch_kstep_2d<decltype(t), decltype(sh)::value, decltype(ex)::value>(f, mask, out, X, Y, TX, TY,
                                                                                          steps, omega, p, a, s);
+  });
+}
+
+// K3's field modes: field 1 (the advection-diffusion step) or 2 (a
+// per-voxel force), ext kExtAll (1) or kExtHybrid (4) as has_field allows,
+// unshifted; aux holds the field's two channels, then the BCs'.
+int xlb_collide_stream_2d_field_step(int field, int store_kind, int ext, const void* f, const void* mask, void* out,
+                                     int X, int Y, float omega, const void* aux, const XlbStepParams* params,
+                                     void* stream) {
+  if (aux == nullptr || !xlb::has_field(field, 9, XLB_COLL_BGK, ext)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const XlbStepParams& p = *params;
+  const float* a = static_cast<const float*>(aux);
+  return xlb::dispatch_2d(store_kind, 0, ext, [&](auto t, auto, auto ex) {
+    constexpr int e = decltype(ex)::value;
+    using T = decltype(t);
+    return field == xlb::kFieldAde ? xlb::launch_step_2d_field<T, e, xlb::kFieldAde>(f, mask, out, X, Y, omega, p, a, s)
+                                   : xlb::launch_step_2d_field<T, e, xlb::kFieldForce>(f, mask, out, X, Y, omega, p, a, s);
   });
 }
 

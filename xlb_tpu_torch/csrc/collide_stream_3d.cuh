@@ -55,6 +55,12 @@
 // sweep's, rounded to the store dtype). So K2 still equals k K1 launches,
 // and K0 K1, bit for bit.
 //
+// field_step_kernel is K1 in xlb_tpu's field modes (FIELD: kFieldAde, the
+// advection-diffusion step; kFieldForce, a per-voxel force), unshifted, the
+// field in the aux field's first d channels; step_kernel and it share
+// step_voxel. Their instantiations (has_field) live in
+// collide_stream_*_field.cu.
+//
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
 // the family, the adjoint K8 (adjoint_step.cuh: adjoint_kernel, with
 // adjoint_centred_kernel and adjoint_staging_kernel where the scene needs
@@ -89,10 +95,12 @@ __host__ __device__ inline size_t kstep_smem_bytes(int k, int tx, int ty, int tz
   return b;
 }
 
-template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
-__global__ void __launch_bounds__(kStepThreads)
-    step_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
-                float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+// One thread's voxel of step_kernel and field_step_kernel (FIELD: the
+// field mode, whose channels the aux field holds first).
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE, int FIELD>
+__device__ __forceinline__ void step_voxel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out,
+                                           int X, int Y, int Z, float omega, const XlbStepParams& p,
+                                           const float* __restrict__ aux) {
   const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
   const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
@@ -111,17 +119,34 @@ __global__ void __launch_bounds__(kStepThreads)
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
 
   float o[S::q];
-  if constexpr (ext_reads_aux(EXT)) {
+  if constexpr (ext_reads_aux(EXT) || FIELD != kFieldNone) {
     auto aux_at = [&](int ch) { return aux[ch * plane + v]; };
     auto staged = [&](int m, int tx, int ty, int tz) {
       return to_f32(f[m * plane + (size_t(wrap1(x - tx, X)) * Y + wrap1(y - ty, Y)) * Z + wrap1(z - tz, Z)]);
     };
-    collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o, aux_at, staged);
+    collide_voxel<S, SHIFTED, EXT, C, FORCE, FIELD>(pull, center, mask[v], omega, p, o, aux_at, staged);
   } else {
     collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[v], omega, p, o);
   }
 #pragma unroll
   for (int l = 0; l < S::q; ++l) out[l * plane + v] = from_f32<T>(o[l]);
+}
+
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
+__global__ void __launch_bounds__(kStepThreads)
+    step_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
+                float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+  step_voxel<S, C, T, SHIFTED, EXT, FORCE, kFieldNone>(f, mask, out, X, Y, Z, omega, p, aux);
+}
+
+// K1's field modes (has_field): the advection-diffusion step (kFieldAde)
+// and the step with a per-voxel force (kFieldForce), unshifted, the field
+// in aux channels [0, d) and the BCs' channels after it.
+template <class S, class C, typename T, int EXT, int FIELD>
+__global__ void __launch_bounds__(kStepThreads)
+    field_step_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
+                      float omega, const __grid_constant__ XlbStepParams p, const float* __restrict__ aux) {
+  step_voxel<S, C, T, false, EXT, false, FIELD>(f, mask, out, X, Y, Z, omega, p, aux);
 }
 
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
@@ -214,7 +239,9 @@ struct XlbLaunch {
   cudaStream_t stream;
   const void* g;  // adjoint: the cotangent (f32, like f); out is df
   void* dom;      // adjoint: the per-voxel omega cotangent
-  const float* aux;  // kExtOpen, kExtHybrid: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null
+  const float* aux;  // kExtOpen, kExtHybrid: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null;
+                     // a field mode: its field's channels first
+  int field;         // the field mode (kFieldAde, kFieldForce) of field_step_kernel, or kFieldNone
 };
 
 }  // namespace xlb
@@ -392,6 +419,54 @@ cudaError_t launch_pair_impl(const XlbLaunch& a) {
 
 template <class S, class C>
 cudaError_t launch_pair(const XlbLaunch& a);
+
+// K1's field modes of the pair (S, C), for the forms of has_field:
+// walled (kExtHalfway), kExtOpen, kExtHybrid; f32 or bf16, unshifted.
+// Instantiated by XLB_INSTANTIATE_FIELD in sources of their own
+// (collide_stream_*_field.cu).
+template <class S, class C, int FIELD, int EXT>
+cudaError_t launch_field_form(const XlbLaunch& a) {
+  constexpr int form = EXT == kExtHybrid ? 3 : (EXT == kExtOpen ? 2 : 1);
+  if constexpr (has_field(FIELD, S::q, C::id, form)) {
+    const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
+    const unsigned blocks = (n + kStepThreads - 1) / kStepThreads;
+    const int* mask = static_cast<const int*>(a.mask);
+    if (a.store_kind == 0)
+      field_step_kernel<S, C, float, EXT, FIELD><<<blocks, kStepThreads, 0, a.stream>>>(
+          static_cast<const float*>(a.f), mask, static_cast<float*>(a.out), a.X, a.Y, a.Z, a.omega, *a.p, a.aux);
+    else
+      field_step_kernel<S, C, __nv_bfloat16, EXT, FIELD><<<blocks, kStepThreads, 0, a.stream>>>(
+          static_cast<const __nv_bfloat16*>(a.f), mask, static_cast<__nv_bfloat16*>(a.out), a.X, a.Y, a.Z, a.omega,
+          *a.p, a.aux);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+template <class S, class C, int FIELD>
+cudaError_t launch_field_walled(const XlbLaunch& a) {
+  switch (a.p->walled) {
+    case 1: return launch_field_form<S, C, FIELD, kExtHalfway>(a);
+    case 2: return launch_field_form<S, C, FIELD, kExtOpen>(a);
+    case 3: return launch_field_form<S, C, FIELD, kExtHybrid>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class S, class C>
+cudaError_t launch_field_impl(const XlbLaunch& a) {
+  if (a.field == kFieldAde) return launch_field_walled<S, C, kFieldAde>(a);
+  if (a.field == kFieldForce) return launch_field_walled<S, C, kFieldForce>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <class S, class C>
+cudaError_t launch_field(const XlbLaunch& a);
+
+#define XLB_INSTANTIATE_FIELD(S, C) \
+  template <>                       \
+  cudaError_t launch_field<S, C>(const XlbLaunch& a) { return launch_field_impl<S, C>(a); }
 
 #define XLB_INSTANTIATE_PAIR(S, C) \
   template <>                      \

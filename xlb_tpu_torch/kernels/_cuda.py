@@ -6,6 +6,7 @@ library with a plain C interface (no PyTorch headers, so the build takes
 seconds), which is loaded with ``ctypes``. The library lands in
 ``build/xlb_tpu_torch/<hash>/`` beside the package, keyed by a hash of the
 sources and flags, under a file lock so concurrent processes do not race.
+The build log there holds ptxas's report and each source's seconds.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
@@ -15,6 +16,8 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -172,8 +175,19 @@ def build_library():
             sources = sorted(CSRC.glob("*.cu"))
             objects = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
             cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)]
+            t0 = time.perf_counter()
             procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
-            outputs = [proc.communicate()[0] for proc in procs]
+            outputs = [None] * len(procs)
+
+            def collect(i):  # each source's output, and its seconds from the start of the build
+                out = procs[i].communicate()[0]
+                outputs[i] = f"{out}# {sources[i].name}: {time.perf_counter() - t0:.1f} s\n"
+
+            threads = [threading.Thread(target=collect, args=(i,)) for i in range(len(procs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
             tmp = out_dir / f"libxlb_tpu_torch.{pid}.so"
             link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
             failed = [(cmd, out) for cmd, out, proc in zip(cmds, outputs, procs) if proc.returncode != 0]
@@ -219,6 +233,12 @@ def load_library():
     lib.xlb_collide_stream_2d_kstep.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr, params,
                                                 ptr]
     lib.xlb_collide_stream_2d_kstep.restype = i32
+    # field, store_kind, f, mask, out, X, Y, Z, omega, aux, params, stream
+    lib.xlb_collide_stream_field_step.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, f32, ptr, params, ptr]
+    lib.xlb_collide_stream_field_step.restype = i32
+    # field, store_kind, ext, f, mask, out, X, Y, omega, aux, params, stream
+    lib.xlb_collide_stream_2d_field_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, ptr, params, ptr]
+    lib.xlb_collide_stream_2d_field_step.restype = i32
     lib.xlb_collide_only.argtypes = [ptr, ptr, ptr, i32, f32, params, ptr]
     lib.xlb_collide_only.restype = i32
     lib.xlb_collide_then_stream.argtypes = [i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,

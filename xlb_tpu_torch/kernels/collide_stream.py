@@ -12,7 +12,9 @@ solid keep-out and shifted (g = f - w) load and store, around moments, the
 pair-shared quadratic equilibrium, the collision (BGK, KBC, Smagorinsky,
 PowerLaw, TRT, MRT, in the kernel body's form: TRT per opposite pair, MRT
 as unrolled projector rows without their zero entries, KBC with the
-pair-shared entropic products) and the exact-difference body force. The
+pair-shared entropic products) and the exact-difference body force,
+constant or per voxel; and the advection-diffusion step (the field modes
+``ade`` and ``extern_force``, ``FIELDS``). The
 CUDA kernels (``csrc/collide_stream.cuh``) compute the same terms in the
 same order; this version is what the CPU tests run and what
 ``chip_smoke.py`` holds the kernels against. Per-voxel prescriptions ride
@@ -83,18 +85,21 @@ def _names(x, *names):
     return isinstance(x, str) and x in names
 
 
-def aux_layout(bc_specs, vs):
+def aux_layout(bc_specs, vs, base=0):
     """The channel layout of the aux field shared by the kernel body and
     ``fused_step.build_aux_field``, as ``xlb_tpu``'s ``aux_layout``: d
     velocity channels first (spatial prescribed-velocity and moving-wall
     BCs), then one prescribed-density channel (spatial pressure BCs), then
     one block of q wall-distance weights per hybrid BC with distances,
-    keyed by BC id. Returns (u_off, rho_off, w_offs, nchan), an offset None
-    when no BC needs that channel."""
+    keyed by BC id. ``base`` shifts the whole layout: the field modes
+    (``FIELDS``) put their d per-voxel channels (the advecting velocity,
+    or the force) at 0 and the BCs' channels after them (base = d).
+    Returns (u_off, rho_off, w_offs, nchan), an offset None when no BC
+    needs that channel; ``nchan`` includes the ``base`` prefix."""
     has_u = any(_names(s.get("mw"), "aux") or _names(s.get("value"), "aux") for s in bc_specs)
     has_rho = any(_names(s.get("value"), "aux_rho") for s in bc_specs)
-    u_off = 0 if has_u else None
-    off = vs.d if has_u else 0
+    u_off = base if has_u else None
+    off = base + (vs.d if has_u else 0)
     rho_off = off if has_rho else None
     off += 1 if has_rho else 0
     w_offs = {}
@@ -103,6 +108,20 @@ def aux_layout(bc_specs, vs):
             w_offs[s["id"]] = off
             off += vs.q
     return u_off, rho_off, w_offs, off
+
+
+# the field modes of the fused step (K1, K3), their per-voxel field at aux
+# channels [0, d): "ade" the advection-diffusion step (the advecting
+# velocity; BGK relaxation to the linear equilibrium of the scalar),
+# "extern_force" the exact-difference force f += feq(rho, u + F) -
+# feq(rho, u)
+FIELDS = ("ade", "extern_force")
+
+
+def field_base(field, vs):
+    """The aux channel where a scene's BC channels start: d under a field
+    mode, 0 without one."""
+    return vs.d if field is not None else 0
 
 
 def outflow_cs():
@@ -217,6 +236,26 @@ def _equilibrium(rho, u, c, w, opp, q, d):
         o = int(opp[l])
         if feq[o] is None:
             feq[o] = rw * (even - cu3)
+    return feq
+
+
+def _linear_equilibrium(rho, u, c, w, opp, q, d):
+    # pair-shared linear form of the advection-diffusion step, as
+    # xlb_tpu's kernel body: geq_{l,o} = rho w (1 +- 3 c_l . u)
+    feq = [None] * q
+    for l in range(q):
+        if feq[l] is not None:
+            continue
+        cu = _cu_list(c, l, d, u)
+        rw = rho * w[l]
+        if cu is None:
+            feq[l] = rw
+            continue
+        cu3 = 3.0 * cu
+        feq[l] = rw * (1.0 + cu3)
+        o = int(opp[l])
+        if feq[o] is None:
+            feq[o] = rw * (1.0 - cu3)
     return feq
 
 
@@ -526,7 +565,7 @@ def collide(vs, collision, f_s, feq, rho, omega):
 
 
 def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, has_solids=True, collision="BGK",
-                   force_vector=None, aux=None, staging_read=None):
+                   force_vector=None, aux=None, staging_read=None, field=None):
     """Per-voxel physics given already-gathered populations (float32).
 
     ``fs_raw[l]`` is the raw (store-form) pulled slab of direction l;
@@ -541,14 +580,18 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
     t)`` returns the raw slab of direction m pulled from x - t (``t`` a
     d-tuple with |t_a| <= 1): the extrapolation outflow's post-collision
     staging reads the pre-streaming population m at x - n - c_m through it,
-    the only read of the body that is not voxel-local. Returns the list of
+    the only read of the body that is not voxel-local. ``field`` (one of
+    ``FIELDS``, or None) reads aux channels [0, d): "ade" relaxes (BGK,
+    ``omega``) to the linear equilibrium of phi = sum f with that advecting
+    velocity, "extern_force" adds the exact-difference force of that
+    per-voxel F; the BCs' channels then start at d. Returns the list of
     post-collision slabs (unshifted, uncast)."""
     q, d = vs.q, vs.d
     c, opp = vs._c, vs._opp_indices
     w = f32_weights(vs)
     if not isinstance(omega, torch.Tensor):
         omega = float(np.float32(omega))
-    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs)
+    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs, field_base(field, vs))
     bc = unpack_bc_id(packed, q)
     f_s = [fs_raw[l] + w[l] if shifted else fs_raw[l] for l in range(q)]
 
@@ -600,14 +643,26 @@ def pointwise_core(vs, bc_specs, fs_raw, fp_raw, packed, omega, shifted=False, h
         else:
             raise NotImplementedError(f"BC kind {kind!r} is not ported to the fused step")
 
-    rho, u = _moments(f_s, c, q, d)
-    feq = _equilibrium(rho, u, c, w, opp, q, d)
-    f_out = collide(vs, collision, f_s, feq, rho, omega)
+    if field == "ade":
+        # the transported scalar phi = sum g and the advecting velocity of
+        # the aux field's first d channels; BGK to the linear equilibrium
+        rho = f_s[0]
+        for l in range(1, q):
+            rho = rho + f_s[l]
+        feq = _linear_equilibrium(rho, [aux[a] for a in range(d)], c, w, opp, q, d)
+        f_out = [f_s[l] - omega * (f_s[l] - feq[l]) for l in range(q)]
+    else:
+        rho, u = _moments(f_s, c, q, d)
+        feq = _equilibrium(rho, u, c, w, opp, q, d)
+        f_out = collide(vs, collision, f_s, feq, rho, omega)
 
     # exact-difference body force with the pre-collision rho and u:
-    # f += feq(rho, u + F) - feq(rho, u)
-    if force_vector is not None:
-        u_f = [u[a] + _f32(force_vector[a]) for a in range(d)]
+    # f += feq(rho, u + F) - feq(rho, u), F constant or the aux field's
+    if force_vector is not None or field == "extern_force":
+        if field == "extern_force":
+            u_f = [u[a] + aux[a] for a in range(d)]
+        else:
+            u_f = [u[a] + _f32(force_vector[a]) for a in range(d)]
         feq_f = _equilibrium(rho, u_f, c, w, opp, q, d)
         f_out = [f_out[l] + (feq_f[l] - feq[l]) for l in range(q)]
 

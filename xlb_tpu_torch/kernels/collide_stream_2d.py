@@ -10,7 +10,9 @@ epilogue kinds equilibrium, fullway, halfway, zouhe and regularized
 (constant prescriptions: the kExtAll form) and, in the kExtHybrid form,
 the hybrid curved wall (four methods, wall distances, static or per-voxel
 moving wall) and the per-voxel prescriptions of the aux field (a halfway
-wall's velocity, a Zou-He / regularized velocity or density). The 2D
+wall's velocity, a Zou-He / regularized velocity or density); the single
+step also in the field modes ``ade`` and ``extern_force``
+(``step_2d_field_kernel``, unshifted, kExtAll and kExtHybrid). The 2D
 outflow, free-slip and do-nothing are not ported: they raise. The TPU
 tiling does not carry over: there the y pulls are lane rolls over a
 lane-resident Y and the x halos come as 8-row blocks, which is why
@@ -29,8 +31,8 @@ import torch
 
 from xlb_tpu_torch.kernels import _cuda
 from xlb_tpu_torch.kernels.collide_stream_2step import _align16
-from xlb_tpu_torch.kernels.collide_stream import spec_uses_aux
-from xlb_tpu_torch.kernels.collide_stream_dma import EXT_KINDS, FusedKernel
+from xlb_tpu_torch.kernels.collide_stream import FIELDS, spec_uses_aux
+from xlb_tpu_torch.kernels.collide_stream_dma import EXT_KINDS, FIELD_CODE, FusedKernel
 
 MAX_STEPS = 8  # 2 <= k <= 8, as in xlb_tpu
 # the k-step's output tile (x, y): the fastest of those timed on an H100
@@ -66,13 +68,19 @@ class _Fused2D(FusedKernel):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.ext = ext_2d(self.bc_specs)
+        if self.field is not None and self.ext == EXT_2D_NONE:
+            self.ext = EXT_2D_ALL  # the field modes have no kExtNone form: with no BC it runs the same
 
 
 class CollideStream2DStep(_Fused2D):
-    """One fused D2Q9 step: ``(f, mask_i32, omega) -> f_new``."""
+    """One fused D2Q9 step: ``(f, mask_i32, omega) -> f_new``; with a
+    field mode (``FIELDS``) the advection-diffusion step or the forced NSE
+    step, the field in the aux field's first two channels."""
 
     launches = 0
     plain_calls = 0
+    field_launches = dict.fromkeys(FIELDS, 0)
+    fields = FIELDS
 
     def plain(self, f, mask_i32, omega, aux=None):
         CollideStream2DStep.plain_calls += 1
@@ -80,6 +88,11 @@ class CollideStream2DStep(_Fused2D):
 
     def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y = self.shape
+        if self.field is not None:
+            return lib.xlb_collide_stream_2d_field_step(
+                FIELD_CODE[self.field], _cuda.STORE_KIND[self.store_dtype], self.ext, f.data_ptr(),
+                mask_i32.data_ptr(), out.data_ptr(), X, Y, omega, aux.data_ptr(), ctypes.byref(self.params), stream,
+            )
         return lib.xlb_collide_stream_2d_step(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), self.ext, f.data_ptr(), mask_i32.data_ptr(),
             out.data_ptr(), X, Y, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,

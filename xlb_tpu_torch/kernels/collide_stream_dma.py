@@ -9,7 +9,9 @@ D3Q19 and D3Q27, every collision, the exact-difference force and halfway
 walls, and -- on D3Q19 BGK and D3Q27 KBC -- the open-boundary epilogues
 (``OPEN_KINDS``: do-nothing, free-slip, Zou-He and regularized in 3D,
 extrapolation outflow with its staging, per-voxel prescriptions from the
-aux field) and the hybrid curved wall (the kExtHybrid form). The TPU kernel's double-buffered halo DMAs have no counterpart: on
+aux field) and the hybrid curved wall (the kExtHybrid form); and its
+field modes ``ade`` and ``extern_force`` (``FIELD_PAIRS``,
+``csrc/collide_stream_3d.cuh::field_step_kernel``). The TPU kernel's double-buffered halo DMAs have no counterpart: on
 Hopper each thread pulls its q neighbours straight from device memory, and
 L1/L2 serve the reuse.
 
@@ -23,16 +25,18 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
-from xlb_tpu_torch.kernels.collide_stream import (aux_layout, collision_constants, f32_weights, kernel_bc_id,
-                                                  outflow_cs, pointwise_core, spec_uses_aux, split_collision)
+from xlb_tpu_torch.kernels.collide_stream import (FIELDS, aux_layout, collision_constants, f32_weights, field_base,
+                                                  kernel_bc_id, outflow_cs, pointwise_core, spec_uses_aux,
+                                                  split_collision)
 
 
 def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=True, collision="BGK",
-                  force_vector=None, aux=None):
+                  force_vector=None, aux=None, field=None):
     """The plain step before its store: pull-stream gather of the float32
     store-form field ``fc`` with periodic wrap, then ``pointwise_core``
-    (``aux``: the BCs' per-voxel prescriptions, or None). Returns the
-    post-collision populations (q, *s), unshifted, float32."""
+    (``aux``: the field mode's channels and the BCs' per-voxel
+    prescriptions, or None). Returns the post-collision populations (q,
+    *s), unshifted, float32."""
     dims = tuple(range(vs.d))
 
     def pulled(l, t):
@@ -40,15 +44,15 @@ def plain_collide(vs, bc_specs, fc, mask_i32, omega, shifted=False, has_solids=T
 
     fs_raw = [pulled(l, vs._c[:, l]) for l in range(vs.q)]
     return torch.stack(pointwise_core(vs, bc_specs, fs_raw, lambda l: fc[l], mask_i32, omega, shifted, has_solids,
-                                      collision, force_vector, aux, pulled))
+                                      collision, force_vector, aux, pulled, field))
 
 
 def collide_stream_step_plain(vs, bc_specs, f, mask_i32, omega, store_dtype, shifted=False, has_solids=True,
-                              collision="BGK", force_vector=None, aux=None):
+                              collision="BGK", force_vector=None, aux=None, field=None):
     """Plain torch version of one fused step: ``plain_collide``, then the
     (shifted) store."""
     out = plain_collide(vs, bc_specs, f.to(torch.float32), mask_i32, omega, shifted, has_solids, collision,
-                        force_vector, aux)
+                        force_vector, aux, field)
     if shifted:
         out = out - torch.tensor(f32_weights(vs), device=out.device).reshape((-1,) + (1,) * vs.d)
     return out.to(store_dtype)
@@ -81,6 +85,16 @@ FLAG_PRESSURE, FLAG_AUX, FLAG_AUX_SHIFT = 1, 2, 8
 # 8-19 and the velocity's in bits 20-30
 HYBRID_METHODS = ("bounceback", "bounceback_regularized", "bounceback_grads", "nonequilibrium_regularized")
 FLAG_HYB_DIST, FLAG_HYB_MW_SHIFT, FLAG_HYB_W_SHIFT, FLAG_HYB_U_SHIFT = 4, 3, 8, 20
+# the field modes (collide_stream.FIELDS) of K1 and K3: the (q, collision)
+# pairs with CUDA instantiations, and the BC kinds of the advection-diffusion
+# step (as xlb_tpu's fused ADE: voxel-local kinds, constant prescriptions).
+# They are the construction-time gate and change together with has_field of
+# csrc/collide_stream.cuh, as OPEN_PAIRS with has_open; the C entries refuse
+# any form outside has_field (cudaErrorInvalidValue, raised by the launch).
+FIELD_PAIRS = {"ade": ((9, "BGK"), (19, "BGK")), "extern_force": ((9, "BGK"), (19, "BGK"), (27, "KBC"))}
+ADE_KINDS = frozenset({"equilibrium", "do_nothing", "halfway", "fullway", "zouhe", "regularized"})
+# the launchers' field codes (csrc/collide_stream.cuh: kFieldAde, kFieldForce)
+FIELD_CODE = {"ade": 1, "extern_force": 2}
 
 
 def has_hybrid(bc_specs):
@@ -114,12 +128,30 @@ def _f32_list(values):
     return [float(x) for x in np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1)]
 
 
-def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_vector=None):
+def check_field(vs, bc_specs, collision, force_vector, field):
+    """Raise ``NotImplementedError`` unless K1 / K3 have the field mode
+    ``field`` for this stencil, collision and BC set."""
+    name, _ = split_collision(collision)
+    if force_vector is not None:
+        raise NotImplementedError("use either a static force_vector or the per-voxel force field, not both")
+    if field == "ade":
+        bad = sorted({s["kind"] for s in bc_specs if s["kind"] not in ADE_KINDS or spec_uses_aux(s)})
+        if bad:
+            raise NotImplementedError(f"the fused advection-diffusion step takes the BC kinds {sorted(ADE_KINDS)} "
+                                      f"with constant prescriptions; got {bad}")
+    if (vs.q, name) not in FIELD_PAIRS[field]:
+        pairs = ", ".join(f"D{2 if q == 9 else 3}Q{q} {c}" for q, c in FIELD_PAIRS[field])
+        raise NotImplementedError(f"the {field!r} mode is instantiated for {pairs} only, got D{vs.d}Q{vs.q} {name}")
+
+
+def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_vector=None, field=None):
     """The kernels' launch parameters (``XlbStepParams``) for a D3Q19,
     D3Q27 or D2Q9 scene. ``kinds`` is the set of epilogue kinds the calling
     kernel takes; by default every kind in 2D and ``BASE_KINDS_3D`` in 3D.
     ``collision`` (a ``kernel_collision_spec``) and ``force_vector`` fill
-    the collision fields that the kernels of the zoo read."""
+    the collision fields that the kernels of the zoo read. ``field`` (one
+    of ``FIELDS``) lays the BCs' aux channels after the field's d and
+    selects a walled form in 3D (the field forms have no unwalled one)."""
     from xlb_tpu_torch.velocity_set import D2Q9, D3Q19, D3Q27
 
     ref = {9: D2Q9, 19: D3Q19, 27: D3Q27}.get(vs.q)
@@ -137,7 +169,9 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     if len(bc_specs) > _cuda.MAX_BC:
         raise ValueError(f"{len(bc_specs)} BCs exceed the packed id field's {_cuda.MAX_BC} ids")
     allowed = kinds if kinds is not None else (BASE_KINDS_3D if vs.d == 3 else KINDS_2D)
-    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs)
+    if field is not None:
+        check_field(vs, bc_specs, collision, force_vector, field)
+    u_off, rho_off, w_offs, _ = aux_layout(bc_specs, vs, field_base(field, vs))
     for b, spec in enumerate(bc_specs):
         kind = spec["kind"]
         if kind not in allowed:
@@ -184,7 +218,7 @@ def kernel_params(vs, bc_specs, has_solids, kinds=None, collision="BGK", force_v
     k = collision_constants(collision)
     p.q = q
     p.collision = _cuda.COLLISION[name]
-    p.walled = int(force_vector is not None or any(s["kind"] == "halfway" for s in bc_specs))
+    p.walled = int(field is not None or force_vector is not None or any(s["kind"] == "halfway" for s in bc_specs))
     if needs_open(bc_specs, vs.d):
         if (q, name) not in OPEN_PAIRS:
             raise NotImplementedError(
@@ -228,18 +262,27 @@ class FusedKernel:
     the others BGK without force on D3Q19 or D2Q9. A scene whose BCs read
     per-voxel prescriptions (``aux_channels`` > 0) passes its aux field,
     (aux_channels, *shape) float32 from ``fused_step.build_aux_field``, to
-    every call."""
+    every call. A kernel with a field mode (``fields``: K1 and K3) built
+    with ``field`` reads the per-voxel field in the aux field's first d
+    channels, the BCs' after them, and stores unshifted; ``field_launches``
+    counts its launches by mode."""
 
     dims = 3
     zoo = False
     bc_kinds = None  # the epilogue kinds the kernel takes (kernel_params' default when None)
     kernel_kind = None  # the zoo kernels' code in csrc/collide_stream_3d.cuh (XLB_KERNEL_*)
+    fields = ()  # the field modes the kernel has
 
     def __init__(self, velocity_set, shape, collision="BGK", bc_specs=(), compute_dtype=torch.float32,
-                 store_dtype=torch.float32, shifted=False, has_solids=True, force_vector=None):
+                 store_dtype=torch.float32, shifted=False, has_solids=True, force_vector=None, field=None):
         if velocity_set.d != self.dims:
             raise NotImplementedError(f"{type(self).__name__} runs {self.dims}D scenes, got {velocity_set}")
         name, _ = split_collision(collision)
+        if field is not None:
+            if field not in self.fields:
+                raise NotImplementedError(f"{type(self).__name__} has no {field!r} mode")
+            if shifted:
+                raise NotImplementedError(f"the {field!r} mode stores unshifted, as in xlb_tpu")
         if not self.zoo:
             if name != "BGK":
                 raise NotImplementedError(f"only BGK is ported to {type(self).__name__}, got {name!r}")
@@ -261,14 +304,16 @@ class FusedKernel:
         self.store_dtype = store_dtype
         self.shifted = bool(shifted)
         self.has_solids = bool(has_solids)
+        self.field = field
         kinds = self.bc_kinds if self.bc_kinds is not None else (ZOO_KINDS_3D if self.zoo else None)
-        self.params = kernel_params(velocity_set, self.bc_specs, has_solids, kinds, collision, self.force_vector)
-        self.aux_channels = aux_layout(self.bc_specs, velocity_set)[3]
+        self.params = kernel_params(velocity_set, self.bc_specs, has_solids, kinds, collision, self.force_vector,
+                                    field)
+        self.aux_channels = aux_layout(self.bc_specs, velocity_set, field_base(field, velocity_set))[3]
 
     def _plain_step(self, f, mask_i32, omega, aux=None):
         """One plain step of this configuration, stored in the store dtype."""
         return collide_stream_step_plain(self.vs, self.bc_specs, f, mask_i32, omega, self.store_dtype, self.shifted,
-                                         self.has_solids, self.collision, self.force_vector, aux)
+                                         self.has_solids, self.collision, self.force_vector, aux, self.field)
 
     def _check_aux(self, f, aux):
         """Raise unless ``aux`` is the aux field this configuration reads
@@ -279,7 +324,8 @@ class FusedKernel:
             return
         shape = (self.aux_channels,) + self.shape
         if aux is None:
-            raise ValueError(f"{type(self).__name__}: this scene's BCs read a {shape} aux field (build_aux_field)")
+            raise ValueError(f"{type(self).__name__}: this configuration reads a {shape} aux field (the field "
+                             "mode's channels, then build_aux_field's)")
         if aux.shape != shape or aux.dtype != torch.float32 or not aux.is_contiguous() or aux.device != f.device:
             raise ValueError(f"aux must be a contiguous float32 {shape} tensor on {f.device}, got {aux.dtype} "
                              f"{tuple(aux.shape)} on {aux.device}")
@@ -326,12 +372,14 @@ class FusedKernel:
         if f.device.type == "cpu":
             return plain()
         lib = _cuda.load_library()
-        if self.zoo:
+        if self.zoo and self.field is None:  # check_field gated the field modes at construction
             self._require_instantiation(lib)
         with torch.cuda.device(f.device):
             result, err = launch(lib, torch.cuda.current_stream(f.device).cuda_stream)
         _cuda.check(lib, err, f"{type(self).__name__} launch")
         type(self).launches += 1
+        if self.field is not None:
+            type(self).field_launches[self.field] += 1
         return result
 
     def __call__(self, f, mask_i32, omega, aux=None):
@@ -351,9 +399,11 @@ class CollideStreamStep(FusedKernel):
 
     launches = 0
     plain_calls = 0
+    field_launches = dict.fromkeys(FIELDS, 0)
     zoo = True
     bc_kinds = OPEN_KINDS_3D
     kernel_kind = 1  # XLB_KERNEL_STEP
+    fields = FIELDS
 
     def plain(self, f, mask_i32, omega, aux=None):
         CollideStreamStep.plain_calls += 1
@@ -361,6 +411,11 @@ class CollideStreamStep(FusedKernel):
 
     def _launch(self, lib, f, mask_i32, out, omega, stream, aux=None):
         X, Y, Z = self.shape
+        if self.field is not None:
+            return lib.xlb_collide_stream_field_step(
+                FIELD_CODE[self.field], _cuda.STORE_KIND[self.store_dtype], f.data_ptr(), mask_i32.data_ptr(),
+                out.data_ptr(), X, Y, Z, omega, aux.data_ptr(), ctypes.byref(self.params), stream,
+            )
         return lib.xlb_collide_stream_step(
             _cuda.STORE_KIND[self.store_dtype], int(self.shifted), f.data_ptr(), mask_i32.data_ptr(), out.data_ptr(),
             X, Y, Z, omega, _cuda.data_ptr(aux), ctypes.byref(self.params), stream,

@@ -14,6 +14,10 @@ and the per-voxel prescriptions; any other kind or pair raises. In 3D every coll
 the TORCH tier and the exact-difference body force run in the kernels,
 through the single-step kernel (``kernel="dma"``, the default, with the
 k-step kernel in windows) or the block-tiled one (``kernel="blocked"``).
+The field modes run through the single-step kernels (K1, K3):
+``build_fused_ade_step`` (advection-diffusion, ``models/ade.py``) and
+``build_fused_forced_step`` (a per-voxel force, the thermal and Shan-Chen
+models), forward only, as in ``xlb_tpu``.
 
 None of the TPU machinery of ``xlb_tpu.kernels.fused_step`` is carried
 over: no z padding to lane multiples, no tile estimators for on-chip
@@ -418,5 +422,85 @@ def build_fused_window(stepper, num_steps, temporal_steps=None, kernel="dma", ti
         else:
             f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
         return f, f
+
+    return run
+
+
+class _FieldStep:
+    """The CUDA-tier step of a field mode (``collide_stream.FIELDS``): K1
+    in 3D, K3 in 2D, one launch per call, forward only as in ``xlb_tpu``
+    (a tensor that requires grad raises: differentiate through the TORCH
+    tier). The per-voxel field goes first in the aux field, the BCs'
+    channels (``build_aux_field``, built at the first call, after
+    ``prepare_fields``) after it. The packed mask is reused while the same
+    mask tensors come back unmodified."""
+
+    def __init__(self, stepper, field, collision):
+        vs = stepper.velocity_set
+        pp = stepper.precision_policy
+        specs = [bc_to_spec(bc, vs) for bc in stepper.boundary_conditions]
+        kernel = CollideStream2DStep if vs.d == 2 else CollideStreamStep
+        self.stepper = stepper
+        self.kernel = kernel(vs, stepper.grid.shape, collision=collision, bc_specs=specs,
+                             compute_dtype=pp.compute_dtype, store_dtype=pp.store_dtype,
+                             has_solids=getattr(stepper, "has_solids", True), field=field)
+        self.has_bc_aux = self.kernel.aux_channels > vs.d
+        self._aux_bc = None
+        self._masks = None
+
+    def _mask(self, bc_mask, missing_mask):
+        versions = (bc_mask._version, missing_mask._version)
+        m = self._masks
+        if m is None or m[0] is not bc_mask or m[1] is not missing_mask or m[2] != versions:
+            self._masks = m = (bc_mask, missing_mask, versions, pack_masks(bc_mask, missing_mask))
+        return m[3]
+
+    def __call__(self, f_0, bc_mask, missing_mask, omega, field):
+        aux = field.to(torch.float32)
+        if self.has_bc_aux:
+            if self._aux_bc is None:
+                self._aux_bc = torch.as_tensor(build_aux_field(self.stepper), device=f_0.device)
+            aux = torch.cat([aux, self._aux_bc])
+        return self.kernel(f_0, self._mask(bc_mask, missing_mask), _host_float(omega), aux.contiguous())
+
+
+def build_fused_ade_step(stepper):
+    """The CUDA-tier advection-diffusion step (``models/ade.py``), the port
+    of ``xlb_tpu.kernels.fused_step.build_fused_ade_step``: one pass of
+    stream, the voxel-local BCs (equilibrium, do-nothing, halfway, fullway,
+    Zou-He and regularized with constant prescriptions) and BGK relaxation
+    to the linear equilibrium, with the advecting velocity (d, *shape) as
+    the aux field's first d channels -- it changes every step in coupled
+    flows, so it is a call argument. ``xlb_tpu``'s padding of z to a
+    multiple of 128 lanes has no counterpart: the kernels take any shape.
+
+    Returns ``(g_0, g_1, bc_mask, missing_mask, omega_phi, u, timestep) ->
+    (g_0, g_1)``. Forward only, as in ``xlb_tpu``: differentiate through
+    the TORCH tier."""
+    step = _FieldStep(stepper, "ade", "BGK")
+
+    def run(g_0, g_1, bc_mask, missing_mask, omega_phi, u, timestep=0):
+        return g_0, step(g_0, bc_mask, missing_mask, omega_phi, u)
+
+    return run
+
+
+def build_fused_forced_step(stepper):
+    """The CUDA-tier NSE step with a per-voxel exact-difference force field
+    (the field form of a constant ``force_vector``), the port of
+    ``xlb_tpu.kernels.fused_step.build_fused_forced_step``: one pass with
+    the force (d, *shape) as the aux field's first d channels and the
+    BCs' per-voxel prescriptions (profile inlets, hybrid wall distances)
+    after them. Used by the Boussinesq coupling (``models/ade.py``) and
+    Shan-Chen (``models/multiphase.py``), whose force changes every step.
+
+    Returns ``(f_0, f_1, bc_mask, missing_mask, omega, force_field,
+    timestep) -> (f_0, f_1)``. Forward only, as in ``xlb_tpu``."""
+    if stepper_force_vector(stepper) is not None:
+        raise NotImplementedError("use either a static force_vector or the per-voxel force field, not both")
+    step = _FieldStep(stepper, "extern_force", kernel_collision_spec(stepper))
+
+    def run(f_0, f_1, bc_mask, missing_mask, omega, force_field, timestep=0):
+        return f_0, step(f_0, bc_mask, missing_mask, omega, force_field)
 
     return run

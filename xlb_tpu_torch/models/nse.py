@@ -25,10 +25,14 @@ Both tiers differentiate with ``torch.autograd`` with respect to ``f_0``
 and ``omega`` (a float or a 0-d tensor; the TORCH tier also takes a
 per-voxel field). On the CUDA tier the backward of ``stepper(...)`` and of
 ``build_multi_step`` is the fused adjoint kernel
-(``kernels/adjoint_step.py``); a 3D scene with an open-boundary BC or a
-HybridBC has none yet and raises under autograd. In 2D, as in ``xlb_tpu``, the backward of
-``stepper(...)`` is the TORCH tier's VJP and the window has none (it
-raises under autograd). The masks and BC prescriptions get no gradient.
+(``kernels/adjoint_step.py``), the 3D open boundaries and curved walls
+included. In 2D, as in ``xlb_tpu``, the backward of ``stepper(...)`` is
+the TORCH tier's VJP and the window has none (it raises under autograd).
+The masks and BC prescriptions get no gradient. The per-voxel force of
+``_step_pull(..., force_field)`` (the thermal and multiphase models,
+``models/ade.py``, ``models/multiphase.py``) runs on the CUDA tier through
+the forward-only ``kernels.fused_step.build_fused_forced_step``, as in
+``xlb_tpu``: differentiate those models through the TORCH tier.
 """
 
 import torch
@@ -37,7 +41,7 @@ from xlb_tpu_torch.cell_type import BC_SOLID
 from xlb_tpu_torch.compute_backend import ComputeBackend
 from xlb_tpu_torch.models.stepper import Stepper
 from xlb_tpu_torch.ops.stream import Stream
-from xlb_tpu_torch.ops.equilibrium import QuadraticEquilibrium
+from xlb_tpu_torch.ops.equilibrium import QuadraticEquilibrium, quadratic_equilibrium
 from xlb_tpu_torch.ops.macroscopic import Macroscopic
 from xlb_tpu_torch.ops.collision import BGK, KBC, MRT, TRT, ForcedCollision, PowerLawBGK, SmagorinskyLESBGK
 from xlb_tpu_torch.boundary.base import ImplementationStep
@@ -162,7 +166,11 @@ class IncompressibleNavierStokesStepper(Stepper):
             return self._fused_step(f_0, f_1, bc_mask, missing_mask, omega, timestep)
         return self._step_pull(f_0, f_1, bc_mask, missing_mask, omega, timestep)
 
-    def _step_pull(self, f_0, f_1, bc_mask, missing_mask, omega, timestep):
+    def _step_pull(self, f_0, f_1, bc_mask, missing_mask, omega, timestep, force_field=None):
+        """The TORCH-tier step; ``force_field`` (d, *spatial), when given,
+        is a per-voxel exact-difference force (the field form of a constant
+        ``force_vector``, with the same rho_0 = 1 convention): f +=
+        feq(rho, u + F) - feq(rho, u) after the collision."""
         pp = self.precision_policy
         f_0c = pp.cast_to_compute(f_0)
 
@@ -174,6 +182,11 @@ class IncompressibleNavierStokesStepper(Stepper):
         rho, u = self.macroscopic(f_post_stream)
         feq = self.equilibrium(rho, u)
         f_post_collision = self.collision(f_post_stream, feq, omega)
+
+        if force_field is not None:
+            vs = self.velocity_set
+            feq_shift = quadratic_equilibrium(rho, u + force_field.to(u.dtype), vs._c, vs._w, u.dtype)
+            f_post_collision = f_post_collision + (feq_shift - feq)
 
         # staging for the next step (the extrapolation outflow), then the
         # collision-step BCs; the "pre-streaming" population a collision-step

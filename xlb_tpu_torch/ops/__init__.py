@@ -1,5 +1,5 @@
 from xlb_tpu_torch.ops.stream import Stream
-from xlb_tpu_torch.ops.equilibrium import Equilibrium, QuadraticEquilibrium
+from xlb_tpu_torch.ops.equilibrium import Equilibrium, LinearEquilibrium, QuadraticEquilibrium
 from xlb_tpu_torch.ops.macroscopic import Macroscopic, SecondMoment
 from xlb_tpu_torch.ops.collision import (BGK, KBC, MRT, TRT, Collision, ForcedCollision, PowerLawBGK,
                                          SmagorinskyLESBGK)
@@ -9,6 +9,7 @@ __all__ = [
     "Stream",
     "Equilibrium",
     "QuadraticEquilibrium",
+    "LinearEquilibrium",
     "Macroscopic",
     "SecondMoment",
     "Collision",

@@ -4,6 +4,8 @@ Second-order (quadratic) Hermite equilibrium:
 
     feq_l = rho * w_l * (1 + cu_l * (1 + cu_l / 2) - 1.5 |u|^2),
     cu_l  = 3 (c_l . u)
+
+and the linear equilibrium of advection-diffusion, geq_l = w_l phi (1 + cu_l).
 """
 
 import numpy as np
@@ -41,6 +43,18 @@ def quadratic_equilibrium_np(rho, u, c, w):
     return rho * w * (1.0 + cu * (1.0 + 0.5 * cu) - usqr)
 
 
+def linear_equilibrium(phi, u, c, w, compute_dtype=None):
+    """First-order (linear) equilibrium of advection-diffusion for fields
+    phi (1, *spatial) and u (d, *spatial): geq_l = w_l phi (1 + 3 c_l . u).
+    The scalar needs only the first velocity moment to recover the
+    advection term, so the quadratic terms are dropped."""
+    dtype = compute_dtype or u.dtype
+    cu = 3.0 * stencil_contract(np.asarray(c).T, u)  # (q, *spatial), exact adds
+    w = torch.as_tensor(np.asarray(w, dtype=np.float64), device=u.device).to(dtype)
+    w = w.reshape((-1,) + (1,) * (u.ndim - 1))
+    return phi * w * (1.0 + cu)
+
+
 class Equilibrium(Operator):
     """Base class for equilibrium operators."""
 
@@ -48,3 +62,10 @@ class Equilibrium(Operator):
 class QuadraticEquilibrium(Equilibrium):
     def __call__(self, rho, u):
         return quadratic_equilibrium(rho, u, self.velocity_set._c, self.velocity_set._w, self.compute_dtype)
+
+
+class LinearEquilibrium(Equilibrium):
+    """ADE equilibrium: geq_l = w_l phi (1 + 3 c_l . u)."""
+
+    def __call__(self, phi, u):
+        return linear_equilibrium(phi, u, self.velocity_set._c, self.velocity_set._w, self.compute_dtype)
