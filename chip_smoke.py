@@ -7,6 +7,7 @@
                                                  # spill stores, spill loads, static smem]}
     python3 chip_smoke.py --k8                   # K8's launches by scene (k8_launches)
     python3 chip_smoke.py --field                # phase [20] alone (field_path)
+    python3 chip_smoke.py --probes               # phase [16] alone (the copy-bandwidth probes)
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Builds the CUDA kernels from xlb_tpu_torch/csrc with nvcc (sm_90a) and
@@ -122,7 +123,11 @@
    torch form at their defaults (every line printed; launch counts reset
    before and read after: every probe launched, no plain call), the plain
    versions timed, and the best sustained copy rate as the card's measured
-   copy roofline.
+   copy roofline. Then K10, K11 and Tensor.copy_ in alternating windows
+   of 50 calls on the scripts' field, best of 5 each: each one's ms, its
+   ratio to copy_, and the bulk kernel's resident blocks per SM and shared
+   memory per block; the kernels line's K10 / K11 ms and library_ms come
+   from these windows.
 17. The open-boundary path (3D flows past a sphere; K1, K2 and K0 with the
    kExtOpen epilogues: outflow and its staging, 3D Zou-He / regularized,
    free-slip, do-nothing, the aux field of per-voxel prescriptions). K1,
@@ -1860,6 +1865,7 @@ def zoo_gradients(device):
 # the copy-bandwidth probes (K9-K12): the scripts' field, a ragged one and one of 420 bytes
 PROBE_FIELDS = ((19, 256, 256, 256), (3, 17, 13, 11), (7, 5, 3))
 PROBE_SEED = 16
+PROBE_ROUNDS = 5  # [16]'s interleaved K10 / K11 / copy_ windows: best of 5 each
 
 
 def probe_kernels(q):
@@ -1939,11 +1945,36 @@ def probe_path(device):
     return runs, counts, plain_ms, {"GBps": best[0], "line": best[1]}
 
 
-def probe_records(runs, counts, plain_ms, n_cmp, errs):
-    """The kernels-line entries of K9-K12: each kernel's best variant of the
-    [16] runs beside the plain version, the bound (the array read and
-    written at the data-sheet rate) and the library call (copy_ for K9-K11,
-    torch.mul(..., out=) for K12)."""
+def probe_interleaved(device):
+    """[16]: K10, K11 and ``Tensor.copy_`` on the scripts' (19, 256^3)
+    field in alternating windows of 50 calls (common.interleaved_ms), best
+    of PROBE_ROUNDS each; prints each one's ms and ratio to copy_ and the
+    bulk kernel's launch shape. Returns {"K10", "K11", "copy_": ms,
+    "blocks_per_sm", "smem_per_block"}."""
+    import torch
+
+    from xlb_tpu_torch.examples.performance.common import field, interleaved_ms, library_step
+    from xlb_tpu_torch.kernels.copy_bandwidth import BulkCopy, SplitBulkCopy, bulk_shape
+
+    x = field(256, 19, device)
+    ms = interleaved_ms({"copy_": library_step("copy", x), "K10": BulkCopy(), "K11": SplitBulkCopy(19)}, x, 50,
+                        PROBE_ROUNDS)
+    per_sm, smem = bulk_shape(device)
+    del x
+    torch.cuda.empty_cache()
+    print(f"  interleaved at (19, 256, 256, 256), best of {PROBE_ROUNDS} windows of 50: "
+          + "; ".join(f"{k} {v:.4f} ms ({v / ms['copy_']:.4f} x copy_)" for k, v in ms.items())
+          + f"; the bulk kernel: {per_sm} resident blocks per SM x {smem} B shared memory")
+    return {**ms, "blocks_per_sm": per_sm, "smem_per_block": smem}
+
+
+def probe_records(runs, counts, plain_ms, n_cmp, errs, inter):
+    """The kernels-line entries of K9-K12: K9's and K12's best variant of the
+    [16] runs, K10's and K11's time from the interleaved windows (``inter``,
+    probe_interleaved), beside the plain version, the bound (the array read
+    and written at the data-sheet rate) and the library call (copy_ for
+    K9-K11, from the interleaved windows for K10 / K11; torch.mul(...,
+    out=) for K12)."""
     mb, dma = runs["memory_bandwidth"]["lines"], runs["dma_experiments"]["lines"]
     bound_ms = 2 * runs["dma_experiments"]["bytes"] / HBM_BYTES_PER_S * 1e3
     table = (
@@ -1959,10 +1990,13 @@ def probe_records(runs, counts, plain_ms, n_cmp, errs):
     out = []
     for (name, cls, rep, lines, library, plain), kernel in zip(table, ("K9", "K10", "K11", "K12")):
         variant, rec = min(lines.items(), key=lambda kv: kv[1]["ms"])
+        ms, library_ms = rec["ms"], library["ms"]
+        if kernel in ("K10", "K11"):
+            variant, ms, library_ms = f"interleaved with copy_, best of {PROBE_ROUNDS}", inter[kernel], inter["copy_"]
         out.append({
             "name": name, "route": "cuda", "source": "xlb_tpu_torch/csrc/copy_bandwidth.cu", "replaces": rep,
-            "launches": counts[cls][0], "max_abs_err": errs[kernel], "ms": rec["ms"], "plain_ms": plain_ms[plain],
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library["ms"], "variant": variant,
+            "launches": counts[cls][0], "max_abs_err": errs[kernel], "ms": ms, "plain_ms": plain_ms[plain],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms, "variant": variant,
             "bit_equal_comparisons": n_cmp,
         })
     return out
@@ -3944,6 +3978,17 @@ def main():
         with open(sys.argv[sys.argv.index("--torch-tier") + 1], "wb") as fh:
             pickle.dump(rec, fh)
         return 0
+    if "--probes" in sys.argv:  # phase [16] alone
+        _cuda.load_library()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        print(smi)
+        n_cmp, errs = compare_probes(device)
+        runs, counts, plain_ms, roofline = probe_path(device)
+        inter = probe_interleaved(device)
+        print(json.dumps({"kernels": probe_records(runs, counts, plain_ms, n_cmp, errs, inter),
+                          "copy_roofline": roofline}))
+        return 0
     if "--field" in sys.argv:  # phase [20] alone
         _cuda.load_library()
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4103,6 +4148,7 @@ def run_phases(device, kind, smi, torch_tier, path, t_start):
     print(f"[16] the copy-bandwidth probes (K9-K12: memory_bandwidth.py, dma_experiments.py), {smi}")
     n_cmp, probe_errs = compare_probes(device)
     probes, probe_counts, probe_plain_ms, roofline = probe_path(device)
+    probe_inter = probe_interleaved(device)
 
     mark("17")
     print(f"[17] the open-boundary path (flows past a sphere: K1, K2, K0 with kExtOpen), {smi}")
@@ -4205,7 +4251,7 @@ def run_phases(device, kind, smi, torch_tier, path, t_start):
         "ms": k0["ms"], "plain_ms": k0["plain_ms"], "bound_ms": k0["bound_ms"], "bound_by": k0["bound_by"],
         "library_ms": None,  # no single PyTorch call computes an LBM step
     })
-    kernels += probe_records(probes, probe_counts, probe_plain_ms, n_cmp, probe_errs)
+    kernels += probe_records(probes, probe_counts, probe_plain_ms, n_cmp, probe_errs, probe_inter)
     check(len(kernels) == 13, f"the kernels line lists {len(kernels)} kernels, not K0-K12")
     for rec in kernels:  # the open-boundary path's K1, K2, K0: 512^2 x 256 flow past a sphere, FP32FP32's f32 form
         short = {"collide_stream_step": "K1", "collide_stream_kstep": "K2", "collide_stream_blocked": "K0"}.get(rec["name"])
@@ -4268,7 +4314,7 @@ def run_phases(device, kind, smi, torch_tier, path, t_start):
                       "multires_tier_err": parity_mres, "kernel_variants_mres": big_mres, "walled_multires": walled,
                       "kernel_variants_zoo": big_zoo, "mlups_zoo": perf_zoo, "zoo_tier_err": parity_zoo,
                       "channel": channel, "many_bcs": many_bcs, "zoo_adjoint": zoo_adjoint, "zoo_gradients": zoo_grads,
-                      "probes": probes,
+                      "probes": probes, "probes_interleaved": probe_inter,
                       "copy_roofline": roofline, "open_scripts": open_rec, "open_big": open_perf,
                       "hybrid_scripts": hybrid_rec, "hybrid_2d": hybrid_2d, "hybrid_big": hybrid_perf,
                       "open_window_gradients": window_grads, "open_training": open_train, "field": field,

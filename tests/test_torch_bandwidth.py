@@ -157,6 +157,17 @@ def test_wrappers_check_their_inputs():
     assert cb.like_aligned(view).data_ptr() % 16 == view.data_ptr() % 16
 
 
+def test_bulk_chunk_matches_the_source():
+    """BULK_CHUNK mirrors kBulkChunk of csrc/copy_bandwidth.cu: the GPU
+    tests size their one-chunk ranges by it."""
+    import re
+
+    from xlb_tpu_torch.kernels import _cuda, copy_bandwidth
+
+    src = (_cuda.CSRC / "copy_bandwidth.cu").read_text()
+    assert int(re.search(r"constexpr int kBulkChunk = (\d+);", src).group(1)) == copy_bandwidth.BULK_CHUNK
+
+
 def test_probe_runs_on_cpu():
     from xlb_tpu_torch.examples.performance import dma_experiments, memory_bandwidth
 
@@ -181,7 +192,7 @@ def test_mlups_entry_points_run_on_cpu():
         mlups_3d_multires.run(16, 0.5, 2, 1, 1, "fusion_at_finest", device="cpu"),
     ]
     assert all(np.isfinite(m) and m > 0 for m in results)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(NotImplementedError, match=r"a device mesh \(multires over several cards\) is not ported yet"):
         mlups_3d_multires.run(16, mesh_shape=(2, 1), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         mlups_2d.benchmark(16, 4, "pallas", "FP32FP32", 1, 1, device="cpu")

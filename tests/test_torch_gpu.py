@@ -602,17 +602,26 @@ def test_zoo_dma_step_differentiates_through_adjoint_kernel(cuda_device, collisi
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("where", ["aligned", "offset"])
-@pytest.mark.parametrize("shape", [(3, 17, 13, 11), (7, 5, 3), (19, 24, 20, 36)])
+@pytest.mark.parametrize("shape", [
+    (3, 17, 13, 11), (7, 5, 3), (19, 24, 20, 36),
+    # the bulk copies' chunk plan at its edges: q above the resident blocks,
+    # ranges shorter than a 16-byte word, a range of one chunk and of a chunk
+    # plus a word ("chunk": copy_bandwidth.BULK_CHUNK // 4 floats), a prime q
+    # that divides no persistent grid of 132 x k blocks
+    (1000, 7), (5000, 7), (64, 3), (3, "chunk"), (3, "chunk + 1 word"), (131, 300),
+])
 def test_copy_probes_match_plain_versions(cuda_device, shape, where):
     """K9 under its three launch shapes, K10, K11 over the leading channels
     and K12's five variants against their plain versions, bit for bit, on
-    ragged fields (420 bytes: not a multiple of 16), aligned and 4 bytes
-    past a 16-byte boundary."""
+    ragged fields (420 bytes: not a multiple of 16) and at the edges of the
+    bulk copies' chunk plan, aligned and 4 bytes past a 16-byte boundary."""
     import torch
 
     from xlb_tpu_torch.examples.performance.memory_bandwidth import LAUNCH_SHAPES
     from xlb_tpu_torch.kernels import copy_bandwidth as cb
 
+    chunk = cb.BULK_CHUNK // 4
+    shape = tuple({"chunk": chunk, "chunk + 1 word": chunk + 4}.get(s, s) for s in shape)
     n = int(np.prod(shape))
     base = torch.from_numpy(np.random.default_rng(16).standard_normal(n + 1).astype(np.float32)).to(cuda_device)
     x = (base[:n] if where == "aligned" else base[1:]).view(shape)

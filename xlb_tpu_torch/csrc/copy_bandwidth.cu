@@ -8,14 +8,17 @@
 //       pipelined block copy): vector_copy_kernel, a plain copy of 16-byte
 //       words, V words per thread, consecutive threads on consecutive words;
 //   K10 examples/performance/dma_experiments.py::hbm2hbm_kernel (one
-//       whole-array device-to-device DMA): bulk_copy_kernel over one range.
-//       Hopper has no global-to-global bulk copy, so each block moves its
-//       chunks with cp.async.bulk global -> shared on an mbarrier, then
-//       shared -> global with cp.async.bulk and a bulk-group wait, through a
-//       ring of kBulkStages chunks driven by one thread;
-//   K11 dma_experiments.py::hbm2hbm_q_kernel (q concurrent per-channel DMAs):
-//       bulk_copy_kernel with the channel as the grid's y dimension, each
-//       channel slice its own chain of bulk copies, all in one launch;
+//       whole-array device-to-device DMA) and
+//   K11 dma_experiments.py::hbm2hbm_q_kernel (q concurrent per-channel
+//       DMAs): bulk_copy_kernel over one range or q. Hopper has no
+//       global-to-global bulk copy, so each chunk goes global -> shared with
+//       cp.async.bulk on an mbarrier, then shared -> global with
+//       cp.async.bulk in a bulk group. The q ranges' chunks form one chunk
+//       space (a chunk never crosses a range, so each range stays its own
+//       chain of bulk copies) that a persistent grid deals out round robin:
+//       no resident slot idles at any q and the tails balance. One thread
+//       per block drives a ring of kBulkStages stages, kBulkAhead of them
+//       loading while the others' stores read theirs;
 //   K12 dma_experiments.py::make_manual (a manually pipelined scale-copy
 //       out = x * 1.0000001f): manual_scale_kernel, a ring of DEPTH
 //       shared-memory stages, each filled by SPLIT bulk loads on one
@@ -26,15 +29,17 @@
 //       global stores.
 //
 // The TPU's VMEM tiles do not carry over (K12's (1, 8, 256, 256) f32 stage
-// is 2 MB, far beyond 227 KB of shared memory): a stage here is 16 KB.
+// is 2 MB, far beyond 227 KB of shared memory): a stage here is 8-16 KB.
 // Every kernel takes any contiguous float32 range whose input and output
 // share their address modulo 16 bytes (the wrappers allocate the output so):
 // a scalar head up to the first 16-byte boundary, a body of whole 16-byte
 // words (the bulk copies' unit of size and address), a scalar tail. All
 // four are bound by device-memory bytes: each reads its input once and
-// writes its output once, 8 bytes per float.
+// writes its output once, 8 bytes per float. The persistent grids' shapes
+// are queried on a kernel's first launch on each device and kept.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace xlb {
@@ -63,11 +68,10 @@ __device__ __forceinline__ float4 apply4(float4 v) {
   return make_float4(apply<SCALE>(v.x), apply<SCALE>(v.y), apply<SCALE>(v.z), apply<SCALE>(v.w));
 }
 
-// The scalar head (threads 0..3) and tail (threads 4..7) of a range, by the
-// range's first block (blockDim.x >= 8).
+// The scalar head (threads 0..3) and tail (threads 4..7) of a range
+// (blockDim.x >= 8).
 template <bool SCALE>
 __device__ __forceinline__ void copy_edges(const float* in, float* out, const Split16& s) {
-  if (blockIdx.x != 0) return;
   const unsigned t = threadIdx.x;
   if (t < s.head) {
     out[t] = apply<SCALE>(in[t]);
@@ -84,7 +88,7 @@ __device__ __forceinline__ void copy_edges(const float* in, float* out, const Sp
 template <int V>
 __global__ void vector_copy_kernel(const float* __restrict__ in, float* __restrict__ out, size_t n) {
   const Split16 s = split16(in, n);
-  copy_edges<false>(in, out, s);
+  if (blockIdx.x == 0) copy_edges<false>(in, out, s);
   const float4* src = reinterpret_cast<const float4*>(in + s.head);
   float4* dst = reinterpret_cast<float4*>(out + s.head);
   const size_t words = s.body / 4;
@@ -183,45 +187,79 @@ struct Chunks {
 
 // ---------------------------------------------------------- K10, K11
 
+// The ring of bulk_copy_kernel: kBulkStages stages of kBulkChunk bytes,
+// kBulkAhead chunks loading ahead of the one being stored, which leaves
+// kBulkStages - kBulkAhead store groups free to read their stages; the grid
+// keeps kBulkPerSm blocks per SM (0: as many as fit). Chosen by
+// examples/performance/bulk_copy_sweep.py (PERF.md): on an H100 the copy
+// runs fastest with ~32 KB of loads in flight per SM (2 blocks x 2 x 8 KB);
+// more in flight runs slower.
 constexpr int kBulkThreads = 32;
-constexpr int kBulkChunk = 16384;
+constexpr int kBulkChunk = 8192;
 constexpr int kBulkStages = 4;
-constexpr int kBulkSmem = kBulkStages * kBulkChunk;
+constexpr int kBulkAhead = 2;
+constexpr int kBulkPerSm = 2;
 
-// Range blockIdx.y of length n (K10: one range; K11: channel y). Thread 0
-// keeps kBulkStages chunk loads in flight: chunk j is stored as soon as it
-// has landed, and the stage of chunk j - 1 is refilled with chunk
-// j - 1 + kBulkStages once that chunk's store has read it.
-__global__ void __launch_bounds__(kBulkThreads) bulk_copy_kernel(const float* __restrict__ in,
-                                                                  float* __restrict__ out, size_t n) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ uint64_t bar[kBulkStages];
-  const float* src = in + blockIdx.y * n;
-  float* dst = out + blockIdx.y * n;
+// One chunk of a bulk copy: source, destination, bytes (0: past its
+// range's body, nothing to copy).
+struct BulkChunk {
+  const unsigned char* src;
+  unsigned char* dst;
+  uint32_t bytes;
+};
+
+// Chunk g of the chunk space of ranges of n floats, per_range chunks of
+// CHUNK bytes each: chunk g % per_range of range g / per_range's body.
+template <int CHUNK>
+__device__ __forceinline__ BulkChunk bulk_chunk(const float* in, float* out, size_t n, size_t per_range, size_t g) {
+  const size_t r = g / per_range, off = (g - r * per_range) * CHUNK;
+  const float* src = in + r * n;
   const Split16 s = split16(src, n);
-  copy_edges<false>(src, dst, s);
+  const size_t body = s.body * 4, left = off < body ? body - off : 0;
+  return {reinterpret_cast<const unsigned char*>(src + s.head) + off,
+          reinterpret_cast<unsigned char*>(out + r * n + s.head) + off, uint32_t(left < CHUNK ? left : CHUNK)};
+}
+
+// ``ranges`` consecutive ranges of n floats (K10: one; K11: the q channel
+// slices), per_range = ceil(4 n / CHUNK) chunks each. Block b copies the
+// scalar edges of ranges b, b + gridDim.x, ...; its thread 0 copies chunks
+// b, b + gridDim.x, ... of the chunk space: chunk j of the block lands in
+// stage j % STAGES and is stored as soon as it has landed; then the load of
+// chunk j + AHEAD refills the stage of chunk j + AHEAD - STAGES once that
+// chunk's store group has read it (at most STAGES - AHEAD groups still
+// reading).
+template <int CHUNK, int STAGES, int AHEAD>
+__global__ void __launch_bounds__(kBulkThreads) bulk_copy_kernel(const float* __restrict__ in,
+                                                                  float* __restrict__ out, size_t n, unsigned ranges,
+                                                                  size_t per_range) {
+  static_assert(CHUNK % 16 == 0 && 0 < AHEAD && AHEAD < STAGES, "a ring of whole 16-byte words, loads and stores");
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ uint64_t bar[STAGES];
+  for (size_t r = blockIdx.x; r < ranges; r += gridDim.x)
+    copy_edges<false>(in + r * n, out + r * n, split16(in + r * n, n));
   if (threadIdx.x != 0) return;
-  const Chunks<kBulkChunk> ch{s.body * 4, blockIdx.x, gridDim.x};
-  const size_t count = ch.count();
+  const size_t total = ranges * per_range;
+  const size_t count = blockIdx.x < total ? (total - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
   if (count == 0) return;
-  const unsigned char* g_in = reinterpret_cast<const unsigned char*>(src + s.head);
-  unsigned char* g_out = reinterpret_cast<unsigned char*>(dst + s.head);
-  for (int i = 0; i < kBulkStages; ++i) mbar_init(&bar[i]);
+  for (int i = 0; i < STAGES; ++i) mbar_init(&bar[i]);
   mbar_init_fence();
+  auto chunk = [&](size_t j) { return bulk_chunk<CHUNK>(in, out, n, per_range, blockIdx.x + j * gridDim.x); };
   auto load = [&](size_t j) {
-    const int st = int(j % kBulkStages);
-    mbar_expect(&bar[st], ch.size(j));
-    bulk_load(ring + st * kBulkChunk, g_in + ch.offset(j), ch.size(j), &bar[st]);
+    const int st = int(j % STAGES);
+    const BulkChunk c = chunk(j);
+    mbar_expect(&bar[st], c.bytes);  // 0 bytes: the phase completes on the arrival alone
+    if (c.bytes != 0) bulk_load(ring + st * CHUNK, c.src, c.bytes, &bar[st]);
   };
-  for (size_t j = 0; j < count && j < size_t(kBulkStages); ++j) load(j);
+  for (size_t j = 0; j < count && j < size_t(AHEAD); ++j) load(j);
   for (size_t j = 0; j < count; ++j) {
-    const int st = int(j % kBulkStages);
-    mbar_wait(&bar[st], uint32_t(j / kBulkStages) & 1u);
-    bulk_store(g_out + ch.offset(j), ring + st * kBulkChunk, ch.size(j));
-    bulk_commit();
-    if (j >= 1 && j - 1 + kBulkStages < count) {
-      bulk_wait_read<1>();  // chunk j - 1's store has read its stage
-      load(j - 1 + kBulkStages);
+    const int st = int(j % STAGES);
+    mbar_wait(&bar[st], uint32_t(j / STAGES) & 1u);
+    const BulkChunk c = chunk(j);
+    if (c.bytes != 0) bulk_store(c.dst, ring + st * CHUNK, c.bytes);
+    bulk_commit();  // an empty group for an empty chunk keeps the count of groups
+    if (j + AHEAD < count) {
+      bulk_wait_read<STAGES - AHEAD>();
+      load(j + AHEAD);
     }
   }
   bulk_wait_all();
@@ -248,7 +286,7 @@ __global__ void __launch_bounds__(kManualThreads) manual_scale_kernel(const floa
   unsigned char* ring = smem;
   float4* obuf = reinterpret_cast<float4*>(smem + DEPTH * kManualChunk);  // 2 stages with MANUAL_OUT
   const Split16 s = split16(in, n);
-  copy_edges<true>(in, out, s);
+  if (blockIdx.x == 0) copy_edges<true>(in, out, s);
   const Chunks<kManualChunk> ch{s.body * 4, blockIdx.x, gridDim.x};
   const size_t count = ch.count();
   const unsigned char* g_in = reinterpret_cast<const unsigned char*>(in + s.head);
@@ -304,16 +342,34 @@ bool shares_alignment(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) ^ reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
-// Blocks of ``kernel`` resident on the whole card at once (a persistent grid).
+// Blocks of ``kernel`` resident on one SM at once, at most ``max_per_sm``
+// (0: as many as fit).
 template <typename K>
-cudaError_t resident_blocks(K kernel, int threads, int smem, int& blocks) {
+cudaError_t blocks_per_sm(K kernel, int threads, int smem, int max_per_sm, int& per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
+  return err;
+}
+
+constexpr int kCachedDevices = 16;
+
+// Blocks of ``kernel`` resident on the whole card at once (a persistent
+// grid), at most ``max_per_sm`` per SM (0: as many as fit), queried on its
+// first launch on each device and kept in ``cache`` (the launcher's own,
+// one per kernel; 0: not queried yet).
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int smem, int max_per_sm, std::atomic<int>* cache, int& blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  blocks = dev < kCachedDevices ? cache[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm(kernel, threads, smem, max_per_sm, per_sm);
   blocks = per_sm * sms;
   if (err == cudaSuccess && blocks < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess && dev < kCachedDevices) cache[dev].store(blocks, std::memory_order_relaxed);
   return err;
 }
 
@@ -329,10 +385,25 @@ template <int DEPTH, int SPLIT, bool MANUAL_OUT>
 cudaError_t launch_manual(const float* in, float* out, size_t n, cudaStream_t s) {
   auto kernel = manual_scale_kernel<DEPTH, SPLIT, MANUAL_OUT>;
   constexpr int smem = manual_smem(DEPTH, MANUAL_OUT);
+  static std::atomic<int> cache[kCachedDevices];
   int blocks = 0;
-  const cudaError_t err = resident_blocks(kernel, kManualThreads, smem, blocks);
+  const cudaError_t err = resident_blocks(kernel, kManualThreads, smem, 0, &cache[0], blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kManualThreads, smem, s>>>(in, out, n);
+  return cudaGetLastError();
+}
+
+// K10 / K11 over ``ranges`` ranges of n floats on a persistent grid of at
+// most PER_SM blocks per SM (0: as many as fit).
+template <int CHUNK, int STAGES, int AHEAD, int PER_SM>
+cudaError_t launch_bulk(const float* in, float* out, size_t n, unsigned ranges, cudaStream_t s) {
+  auto kernel = bulk_copy_kernel<CHUNK, STAGES, AHEAD>;
+  constexpr int smem = STAGES * CHUNK;
+  static std::atomic<int> cache[kCachedDevices];
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(kernel, kBulkThreads, smem, PER_SM, &cache[0], blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kBulkThreads, smem, s>>>(in, out, n, ranges, (4 * n + CHUNK - 1) / CHUNK);
   return cudaGetLastError();
 }
 
@@ -365,13 +436,17 @@ int xlb_copy_vector(const void* in, void* out, long long n, int threads, int per
 // floats each, every range its own chain of bulk copies.
 int xlb_copy_bulk(const void* in, void* out, long long n, int ranges, void* stream) {
   if (n < 1 || ranges < 1 || ranges > 65535 || !xlb::shares_alignment(in, out)) return cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err = xlb::resident_blocks(xlb::bulk_copy_kernel, xlb::kBulkThreads, xlb::kBulkSmem, blocks);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(unsigned(blocks / ranges > 0 ? blocks / ranges : 1), unsigned(ranges));
-  xlb::bulk_copy_kernel<<<grid, xlb::kBulkThreads, xlb::kBulkSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), size_t(n));
-  return cudaGetLastError();
+  return xlb::launch_bulk<xlb::kBulkChunk, xlb::kBulkStages, xlb::kBulkAhead, xlb::kBulkPerSm>(
+      static_cast<const float*>(in), static_cast<float*>(out), size_t(n), unsigned(ranges),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bulk copy's launch shape on the current device: resident blocks per
+// SM and dynamic shared memory per block (the ring), in bytes.
+int xlb_copy_bulk_shape(int* per_sm, int* smem) {
+  *smem = xlb::kBulkStages * xlb::kBulkChunk;
+  return xlb::blocks_per_sm(xlb::bulk_copy_kernel<xlb::kBulkChunk, xlb::kBulkStages, xlb::kBulkAhead>,
+                            xlb::kBulkThreads, *smem, xlb::kBulkPerSm, *per_sm);
 }
 
 // K12: out = in * 1.0000001f through a ring of ``depth`` stages, each filled

@@ -69,6 +69,27 @@ def best_window_ms(step, x, iters, reps):
     return best / iters, x
 
 
+def interleaved_ms(steps, x, iters, rounds):
+    """{name: ms per call} of each of ``steps`` ({name: step}) on the card,
+    in windows of ``iters`` calls of ``v = step(v)`` from ``x``, the steps
+    taking turns: one warm-up round, then ``rounds`` rounds, forward and
+    backward in turn, each step's best window kept (CUDA events)."""
+    best, order = {}, list(steps.items())
+    for r in range(rounds + 1):
+        for name, step in (order if r % 2 == 0 else order[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            v = x
+            start.record()
+            for _ in range(iters):
+                v = step(v)
+            end.record()
+            end.synchronize()
+            if r > 0:
+                best[name] = min(best.get(name, float("inf")), start.elapsed_time(end) / iters)
+            del v
+    return best
+
+
 def line(name, ms, nbytes):
     """Print and return one probe's line: ms per call and GB/s, counting
     the array read once and written once."""

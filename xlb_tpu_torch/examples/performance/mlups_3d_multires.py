@@ -44,7 +44,7 @@ def run(coarse_edge=64, box_frac=0.5, levels=2, num_coarse_steps=20, reps=3, mre
     from xlb_tpu_torch.velocity_set import D3Q19
 
     if mesh_shape is not None and mesh_shape[0] * mesh_shape[1] > 1:
-        raise NotImplementedError("a device mesh (multires over several cards) is not ported yet: ROADMAP Queue A 7")
+        raise NotImplementedError("a device mesh (multires over several cards) is not ported yet")
     xlb.DefaultConfig.reset()
     boundary_condition_registry.reset()
     xlb.init(velocity_set=D3Q19(), default_backend=xlb.ComputeBackend.TORCH,
@@ -83,7 +83,7 @@ if __name__ == "__main__":
     parser.add_argument("--precision", default="FP32FP32",
                         help="PrecisionPolicy name (FP32BF16 runs the deviation-form 16-bit kernels)")
     parser.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("PX", "PY"),
-                        help="device-mesh shape (not ported yet: ROADMAP Queue A 7)")
+                        help="device-mesh shape (multires over several cards: not ported yet)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     run(coarse_edge=args.coarse_edge, box_frac=args.box_frac, levels=args.levels, num_coarse_steps=args.steps,

@@ -249,6 +249,8 @@ def load_library():
     lib.xlb_copy_vector.restype = i32
     lib.xlb_copy_bulk.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.xlb_copy_bulk.restype = i32
+    lib.xlb_copy_bulk_shape.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.xlb_copy_bulk_shape.restype = i32
     lib.xlb_copy_manual_scale.argtypes = [ptr, ptr, i64, i32, i32, i32, ptr]
     lib.xlb_copy_manual_scale.restype = i32
     lib.xlb_copy_has_variant.argtypes = [i32, i32, i32, i32]

@@ -8,9 +8,11 @@ They are the counterparts of the Pallas kernels of
   16-byte words, ``per_thread`` words a thread, ``threads`` a block -- the
   card's launch shapes in place of the script's three TPU blockings;
 - ``BulkCopy`` (K10, ``dma_experiments.py::hbm2hbm_kernel``): the whole
-  array through bulk copies (TMA) via shared memory;
+  array through bulk copies (TMA) via shared memory, chunk by chunk over a
+  persistent grid;
 - ``SplitBulkCopy(q)`` (K11, ``hbm2hbm_q_kernel``): the same, each of the q
-  channel slices its own chain of bulk copies, in one launch;
+  channel slices its own chain of bulk copies, all the slices' chunks one
+  chunk space in one launch;
 - ``ManualScaleCopy(depth, n_split, manual_out)`` (K12, ``make_manual``):
   ``x * float32(1.0000001)`` through a ring of ``depth`` shared-memory
   stages, each filled by ``n_split`` bulk loads, with bulk stores of the
@@ -23,6 +25,8 @@ need); for a CPU tensor it runs its plain version; any other device
 raises.
 """
 
+import ctypes
+
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
@@ -33,6 +37,8 @@ VECTOR_PER_THREAD = (1, 4, 8)
 # K12's variants (has_manual), dma_experiments.py's five: (ring depth, bulk
 # loads per stage, manual output copy)
 MANUAL_VARIANTS = ((2, 1, True), (3, 1, False), (2, 1, False), (2, 4, False), (3, 1, True))
+# the bulk copies' chunk in bytes (kBulkChunk of csrc/copy_bandwidth.cu; a CPU test holds them equal)
+BULK_CHUNK = 8192
 
 
 def copy_plain(x):
@@ -189,6 +195,17 @@ class ManualScaleCopy(CopyKernel):
     def _launch(self, lib, x, out, stream):
         return lib.xlb_copy_manual_scale(x.data_ptr(), out.data_ptr(), x.numel(), self.depth, self.n_split,
                                          int(self.manual_out), stream)
+
+
+def bulk_shape(device=None):
+    """The launch shape of K10 / K11 on a card: (resident blocks per SM,
+    shared memory per block in bytes)."""
+    lib = _cuda.load_library()
+    per_sm, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.xlb_copy_bulk_shape(ctypes.byref(per_sm), ctypes.byref(smem))
+    _cuda.check(lib, err, "xlb_copy_bulk_shape")
+    return per_sm.value, smem.value
 
 
 KERNELS = (PipelinedCopy, BulkCopy, SplitBulkCopy, ManualScaleCopy)

@@ -44,7 +44,7 @@ The port's rings are one cell wide on every axis, the least its pulls
 need: a sub-step reads the ring's innermost layer only. The reference's
 tile ranking and ring alignment are TPU tiling and are not carried over.
 Only BGK is ported; ``step_with_force``, differentiable windows and mesh
-sharding are not (ROADMAP Queue A step 13).
+sharding (multires over several cards) are not.
 """
 
 import numpy as np
@@ -111,8 +111,8 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
         super().__init__(velocity_set, precision_policy, compute_backend)
         if collision_type != "BGK":
             raise NotImplementedError(
-                f"multires collision_type {collision_type!r} is not ported yet (only BGK; the other collision "
-                "models are ROADMAP Queue A step 8)"
+                f"multires collision_type {collision_type!r} is not ported yet: KBC and SmagorinskyLESBGK on "
+                "multires are not ported yet (only BGK)"
             )
         self.grid = grid
         self.collision_type = collision_type
@@ -252,7 +252,7 @@ class MultiresIncompressibleNavierStokesStepper(Operator):
             missing_idx = [type(bc).__name__ for bc in bcs if bc.indices is None]
             if missing_idx:
                 raise NotImplementedError(
-                    f"BCs without voxel indices (mesh-based, ROADMAP Queue A step 10) are not ported yet: {missing_idx}"
+                    f"mesh BCs per level (BCs without voxel indices) on multires are not ported yet: {missing_idx}"
                 )
             if bcs:
                 masker = IndicesBoundaryMasker(vs, pp, self.compute_backend)
