@@ -183,17 +183,34 @@ def test_cuda_window_differentiates(steps):
 
 
 def test_kstep_shared_memory_budget():
-    """Default tiles fit two blocks per SM; the measured-best tiles at k=2."""
+    """Every column the k-step wrapper picks fits one block's 227 KB of
+    shared memory (the table's at k = 2 per form, the budget rule's at k =
+    3, 4), and the layout is the three-plane rings of sweeps 1 .. k-1."""
     import torch
 
-    from xlb_tpu_torch.kernels.collide_stream_2step import TILE_BUDGET, default_tile, kstep_smem_bytes
+    from xlb_tpu_torch.kernels.collide_stream_2step import (COLLISION_TILES, MAX_SHARED, TILE_BUDGET, TILES,
+                                                            default_tile, kstep_smem_bytes)
 
-    for store in (torch.float32, torch.bfloat16):
-        for steps in (2, 3, 4):
-            assert kstep_smem_bytes(steps, default_tile(steps, store), store.itemsize) <= TILE_BUDGET
-    assert default_tile(2, torch.bfloat16) == (4, 8, 32)
-    assert default_tile(2, torch.float32) == (4, 4, 32)
-    assert kstep_smem_bytes(2, (4, 8, 32), 2) == 19 * 6 * 10 * 34 * 2
+    assert MAX_SHARED == 227 * 1024
+    for q in (19, 27):
+        for store in (torch.float32, torch.bfloat16):
+            for walled in range(4):
+                assert (q, store, walled) in TILES
+                for steps in (2, 3, 4):
+                    tile = default_tile(steps, store, q, walled)
+                    assert kstep_smem_bytes(steps, tile, store.itemsize, q) <= MAX_SHARED
+                    if steps > 2:
+                        assert kstep_smem_bytes(steps, tile, store.itemsize, q) <= TILE_BUDGET
+    for (q, collision, store, walled), tile in COLLISION_TILES.items():
+        assert default_tile(2, store, q, walled, collision) == tile
+        assert kstep_smem_bytes(2, tile, store.itemsize, q) <= MAX_SHARED
+    assert default_tile(2, torch.float32, 19, 0, "TRT") != default_tile(2, torch.float32, 19, 0)
+    # D3Q19 f32 at 8x32: one ring of depth 1, three planes of (8 + 2) x (32 + 2) voxels
+    assert kstep_smem_bytes(2, (8, 32), 4) == 3 * 19 * 10 * 34 * 4
+    # k = 3: the rings of depth 2 and 1, each 16-byte aligned (3 x 27 x 6 x 18 x 2 = 17496 -> 17504)
+    assert kstep_smem_bytes(3, (4, 16), 2, 27) == 3 * 27 * 8 * 20 * 2 + 17504
+    with pytest.raises(ValueError, match="no k-step tile"):
+        default_tile(9, torch.float32, 27)
 
 
 def test_missing_nvcc_raises(monkeypatch):

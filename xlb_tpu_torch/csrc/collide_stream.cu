@@ -81,11 +81,26 @@ int xlb_collide_stream_step(int store_kind, int shifted, const void* f, const vo
   return xlb::dispatch(a);
 }
 
+// The k-step kernel on (TY, TZ) columns marching over segments of seg
+// planes of x.
 int xlb_collide_stream_kstep(int store_kind, int shifted, int steps, const void* f, const void* mask, void* out,
-                             int X, int Y, int Z, int TX, int TY, int TZ, float omega, const void* aux,
+                             int X, int Y, int Z, int seg, int TY, int TZ, float omega, const void* aux,
                              const XlbStepParams* params, void* stream) {
-  const xlb::XlbLaunch a{xlb::XLB_KERNEL_KSTEP, store_kind, shifted, f, mask, out, X, Y, Z, TX, TY, TZ, steps, omega,
-                         params, static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux)};
+  xlb::XlbLaunch a{xlb::XLB_KERNEL_KSTEP, store_kind, shifted, f, mask, out, X, Y, Z, 0, TY, TZ, steps, omega,
+                   params, static_cast<cudaStream_t>(stream), nullptr, nullptr, static_cast<const float*>(aux)};
+  a.seg = seg;
+  return xlb::dispatch(a);
+}
+
+// The launch shape of that kernel's configuration, without a launch:
+// shape[0] resident blocks per SM, shape[1] registers per thread,
+// shape[2] local-memory (spill) bytes per thread.
+int xlb_collide_stream_kstep_shape(int store_kind, int shifted, int steps, int TY, int TZ,
+                                   const XlbStepParams* params, int* shape) {
+  xlb::XlbLaunch a{xlb::XLB_KERNEL_KSTEP, store_kind, shifted, nullptr, nullptr, nullptr, 1, 1, 1, 0, TY, TZ, steps,
+                   0.0f, params, nullptr};
+  a.seg = 1;
+  a.shape = shape;
   return xlb::dispatch(a);
 }
 

@@ -25,21 +25,38 @@
 //
 // kstep_kernel (K2) replaces
 // xlb_tpu/kernels/collide_stream_2step.py::build_fused_collide_stream_3d_kstep
-// (plain mode, k >= 2). A block owns a (TX, TY, TZ) output tile and runs k
-// sweeps on regions that shrink by one voxel per side. The first sweep
-// computes the depth-(k-1) region around the tile, pulling straight from
-// device memory like step_kernel (L1/L2 serve the overlap between blocks);
-// every later sweep pulls from the previous one in shared memory, where
-// each intermediate is rounded to the store dtype -- so k-step equals k
-// single steps to store-dtype roundoff while device memory sees one read
-// and one write of the populations per k steps. The sweep regions are whole
-// boxes, so D3Q27's corner pulls find their sources. A first version also
-// staged the depth-k input halo in shared memory, as the TPU kernel does in
-// VMEM: with one 217 KB block per SM its load loop was latency and
-// index-arithmetic bound, 15-30x slower than two single steps on an H100,
-// so the input now goes through the caches. Only the sweep buffers live in
-// shared memory; the wrapper sizes the tile so that two 256-thread blocks
-// fit on an SM (D3Q19 bf16 4x8x32 at k=2: 78 KB; f32 4x4x32: 93 KB).
+// (plain mode, k >= 2): k steps per pass over device memory, each
+// intermediate rounded to the store dtype, so K2 equals k K1 launches bit
+// for bit. Its byte bound is one K1 step's: per k steps one read and one
+// write of the populations and the mask (D3Q19 156 B per voxel in f32, 80
+// B in bf16); every recomputed halo voxel costs a collide and q pulls
+// through L1/L2 on top. The first design gave each block a 3D box and swept
+// it k times: the depth-1 halo of a 4x4x32 box made the first sweep 2.4
+// times the box's voxels, so K2 cost 2.2 single steps (a copy of the input
+// halo into shared memory, as the TPU kernel stages it in VMEM, was 15-30x
+// slower still: its load loop was latency bound). Now a block owns a
+// (TY, TZ) column of the y-z plane, z contiguous so a warp's pulls
+// coalesce, and marches along x over a segment of `seg` planes. At each
+// march step sweep s (1..k) computes one y-z plane of its depth-(k-s)
+// region, (TY + 2(k-s)) x (TZ + 2(k-s)) voxels; sweeps 1..k-1 keep a ring
+// of three planes of their results in shared memory, where sweep s + 1
+// finds its x - 1, x and x + 1 sources (the outflow staging's x - t, |t_a|
+// <= 1, too). Sweep 1 pulls from device memory through L1/L2, each
+// population of an input plane once per block, when sweep 1 reaches the
+// plane it streams into. The halo then costs (TY + 2)(TZ + 2) / (TY TZ) in
+// collides and L1/L2 reads (1.42 at 6x32, 1.33 at 8x32), not the box's
+// 2.0-2.4, and k - 1 recomputed planes at each end of a segment are the
+// only x halo. Sweep s runs two march steps behind sweep s - 1 with a
+// __syncthreads after every sweep (march_schedule in
+// kernels/collide_stream_2step.py models it, and a CPU test holds every
+// ring read to it; a four-plane ring with one __syncthreads per step ran
+// slower). On the H100 it runs at 0.5 of its byte bound at best: what
+// moved it in kstep_sweep.py was resident warps (most forms compiled for
+// two blocks per SM, the column per form from the sweep's table), cheap
+// index arithmetic and short segments (at most 32 planes: more blocks in
+// more waves; marches of 128-256 planes ran 15-44% slower). Periodic wrap
+// in x, y and z as the single step's; the stores of the last sweep alone
+// are masked, at the ragged y and z edges.
 //
 // With kExtOpen and kExtHybrid (kExtOpen's epilogues and the hybrid
 // curved wall, whose wall-distance weights ride the aux field too) a
@@ -47,13 +64,14 @@
 // per-voxel prescriptions, read only at the voxels of those BCs,
 // and the outflow's staging reads one more population per staged slot at
 // x - t (|t_a| <= 1): step_kernel from device memory, kstep_kernel's first
-// sweep too and its later sweeps from the previous sweep in shared memory
-// (region-local index + 1 - t; the source region's depth h + 1 covers it),
+// sweep too and its later sweeps from the previous sweep's ring in shared
+// memory (planes x - 1 .. x + 1, region-local y and z index + 1 - t; the
+// source region's depth h + 1 covers it),
 // blocked_kernel from device memory (its staged boxes hold only the pull
 // sources). The hybrid epilogue is voxel-local (its pre-streaming
 // populations are the centre reads, in K2's later sweeps the previous
-// sweep's, rounded to the store dtype). So K2 still equals k K1 launches,
-// and K0 K1, bit for bit.
+// sweep's ring centre, rounded to the store dtype). So K2 still equals k
+// K1 launches, and K0 K1, bit for bit.
 //
 // field_step_kernel is K1 in xlb_tpu's field modes (FIELD: kFieldAde, the
 // advection-diffusion step; kFieldForce, a per-voxel force), unshifted, the
@@ -77,23 +95,37 @@ namespace xlb {
 
 constexpr int kStepThreads = 256;
 constexpr int kKstepThreads = 256;
+constexpr int kKstepRing = 3;  // planes of each sweep's ring in shared memory
+// Resident k-step blocks per SM each form is compiled for (kstep_sweep.py).
+// Two, at most 128 registers: the D3Q19 open and curved-wall forms would
+// take 166-235 and one block per SM, the D3Q27 KBC one 145; capped, with
+// spills of 0-136 B, they ran faster. One for D3Q27's walled, open and
+// curved-wall forms: at 128 registers they spill 256-1324 B, and at
+// 197-255 registers and one block per SM they ran 21-31% faster.
+__host__ __device__ constexpr int kstep_min_blocks(int q, int ext) { return q == 27 && ext != kExtNone ? 1 : 2; }
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in limit per block on sm_90
 
 enum : int { XLB_KERNEL_STEP = 1, XLB_KERNEL_KSTEP = 2, XLB_KERNEL_BLOCKED = 3, XLB_KERNEL_ADJOINT = 4 };
 
-__host__ __device__ inline size_t halo_volume(int h, int tx, int ty, int tz) {
-  return size_t(tx + 2 * h) * size_t(ty + 2 * h) * size_t(tz + 2 * h);
+// Shared-memory layout of kstep_kernel: for each sweep s = 1 .. k-1 a ring
+// of kKstepRing planes of its depth-(k-s) region, each plane q populations
+// of (TY + 2(k-s)) x (TZ + 2(k-s)) voxels in the store dtype
+// ([slot][l][y][z]). Mirrored by kstep_smem_bytes in collide_stream_2step.py.
+template <class S>
+__host__ __device__ inline size_t kstep_ring_bytes(int h, int ty, int tz, size_t tsize) {
+  return align16(size_t(kKstepRing) * S::q * size_t(ty + 2 * h) * size_t(tz + 2 * h) * tsize);
 }
 
-// Shared-memory layout of kstep_kernel: sweep buffer A (depth K-1) | sweep
-// buffer B (depth K-2, only for K > 2). Mirrored by kstep_smem_bytes in
-// collide_stream_2step.py.
 template <class S>
-__host__ __device__ inline size_t kstep_smem_bytes(int k, int tx, int ty, int tz, size_t tsize) {
-  size_t b = align16(S::q * halo_volume(k - 1, tx, ty, tz) * tsize);
-  if (k > 2) b += align16(S::q * halo_volume(k - 2, tx, ty, tz) * tsize);
+__host__ __device__ inline size_t kstep_smem_bytes(int k, int ty, int tz, size_t tsize) {
+  size_t b = 0;
+  for (int s = 1; s < k; ++s) b += kstep_ring_bytes<S>(k - s, ty, tz, tsize);
   return b;
 }
+
+// i wrapped into [0, n): wrap1's two compares while i stays within a period
+// of the domain, as it does unless a column and its halo span the domain.
+__device__ __forceinline__ int wrap_near(int i, int n) { return i >= -n && i < 2 * n ? wrap1(i, n) : wrapmod(i, n); }
 
 // One thread's voxel of step_kernel and field_step_kernel (FIELD: the
 // field mode, whose channels the aux field holds first).
@@ -150,36 +182,42 @@ __global__ void __launch_bounds__(kStepThreads)
 }
 
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
-__global__ void __launch_bounds__(kKstepThreads)
+__global__ void __launch_bounds__(kKstepThreads, kstep_min_blocks(S::q, EXT))
     kstep_kernel(const T* __restrict__ f, const int* __restrict__ mask, T* __restrict__ out, int X, int Y, int Z,
-                 int TX, int TY, int TZ, int K, float omega, const __grid_constant__ XlbStepParams p,
+                 int seg, int TY, int TZ, int K, float omega, const __grid_constant__ XlbStepParams p,
                  const float* __restrict__ aux) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t plane = size_t(X) * Y * Z;
-  const int x0 = blockIdx.z * TX, y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
-  T* s_a = reinterpret_cast<T*>(smem);
-  T* s_b = reinterpret_cast<T*>(smem + align16(S::q * halo_volume(K - 1, TX, TY, TZ) * sizeof(T)));
+  const int y0 = blockIdx.y * TY, z0 = blockIdx.x * TZ;
+  const int xa = blockIdx.z * seg, len = min(seg, X - xa);
 
-  for (int s = 1; s <= K; ++s) {
-    const int h = K - s;  // sweep s writes the depth-h region around the tile
-    const int ex = TX + 2 * h, ey = TY + 2 * h, ez = TZ + 2 * h, vol = ex * ey * ez;
-    const int sy = ey + 2, sz = ez + 2, svol = (ex + 2) * sy * sz;  // its source has depth h + 1
-    const T* src = s % 2 == 0 ? s_a : s_b;                        // sweeps 2..K read shared memory
-    T* dst = s % 2 == 1 ? s_a : s_b;                              // unused by the last sweep
-    for (int i = threadIdx.x; i < vol; i += blockDim.x) {
-      int r = i;
-      const int iz = r % ez;
-      r /= ez;
-      const int iy = r % ey;
-      const int ix = r / ey;
-      const int gx = wrapmod(x0 - h + ix, X), gy = wrapmod(y0 - h + iy, Y), gz = wrapmod(z0 - h + iz, Z);
-      const size_t g = (size_t(gx) * Y + gy) * Z + gz;
-      const int packed = mask[g];
-      auto aux_at = [&](int ch) { return aux[ch * plane + g]; };  // read by kExtOpen and kExtHybrid only
+  // The block's threads over one plane of a depth-h region: visit(iy, iz,
+  // v, gy, gz) per voxel, (iy, iz) region-local, v its index in the ring
+  // plane, (gy, gz) in the domain.
+  auto region = [&](int h, auto&& visit) {
+    const int ez = TZ + 2 * h, vol = (TY + 2 * h) * ez;
+    const int step_y = kKstepThreads / ez, step_z = kKstepThreads % ez;
+    int iy = int(threadIdx.x) / ez, iz = int(threadIdx.x) % ez;
+    for (int v = threadIdx.x; v < vol; v += kKstepThreads) {
+      visit(iy, iz, v, wrap_near(y0 - h + iy, Y), wrap_near(z0 - h + iz, Z));
+      iy += step_y;
+      iz += step_z;
+      if (iz >= ez) iz -= ez, ++iy;
+    }
+  };
 
-      float o[S::q];
-      if (s == 1) {
-        // first sweep: pull from device memory through L1/L2
+  // Sweep s runs two march steps behind sweep s - 1: at step t it computes
+  // its plane index i = t - 2(s - 1), plane x_a - (k - s) + i, into slot
+  // i % 3 of its ring; a __syncthreads follows every sweep, so sweep s + 1
+  // finds this step's plane and the next step overwrites only the plane
+  // sweep s + 1 has read.
+  for (int t = 0; t < len + 2 * (K - 1); ++t) {
+    {  // sweep 1 pulls from device memory through L1/L2
+      const int h = K - 1, vol = (TY + 2 * h) * (TZ + 2 * h);
+      const int gx = wrap_near(xa - h + t, X);
+      T* d = reinterpret_cast<T*>(smem) + size_t(t % kKstepRing) * S::q * vol;
+      region(h, [&](int, int, int v, int gy, int gz) {
+        const size_t g = (size_t(gx) * Y + gy) * Z + gz;
         auto pull = [&](int l) {
           const int xs = wrap1(gx - S::c(0, l), X);
           const int ys = wrap1(gy - S::c(1, l), Y);
@@ -187,39 +225,66 @@ __global__ void __launch_bounds__(kKstepThreads)
           return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
         };
         auto center = [&](int l) { return to_f32(f[l * plane + g]); };
+        float o[S::q];
         if constexpr (ext_reads_aux(EXT)) {
+          auto aux_at = [&](int ch) { return aux[ch * plane + g]; };  // at the voxels of the BCs that read it
           auto staged = [&](int m, int tx, int ty, int tz) {
-            return to_f32(f[m * plane + (size_t(wrap1(gx - tx, X)) * Y + wrap1(gy - ty, Y)) * Z + wrap1(gz - tz, Z)]);
+            const size_t gs = (size_t(wrap1(gx - tx, X)) * Y + wrap1(gy - ty, Y)) * Z + wrap1(gz - tz, Z);
+            return to_f32(f[m * plane + gs]);
           };
-          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o, aux_at, staged);
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[g], omega, p, o, aux_at, staged);
         } else {
-          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[g], omega, p, o);
         }
-      } else {
-        // region-local index in the source: dst index + 1 - c_l
-        auto pull = [&](int l) {
-          return to_f32(src[l * svol + ((ix + 1 - S::c(0, l)) * sy + (iy + 1 - S::c(1, l))) * sz +
-                            (iz + 1 - S::c(2, l))]);
-        };
-        auto center = [&](int l) { return to_f32(src[l * svol + ((ix + 1) * sy + (iy + 1)) * sz + (iz + 1)]); };
-        if constexpr (ext_reads_aux(EXT)) {
-          auto staged = [&](int m, int tx, int ty, int tz) {
-            return to_f32(src[m * svol + ((ix + 1 - tx) * sy + (iy + 1 - ty)) * sz + (iz + 1 - tz)]);
-          };
-          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o, aux_at, staged);
-        } else {
-          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, packed, omega, p, o);
-        }
-      }
-      if (s < K) {
 #pragma unroll
-        for (int l = 0; l < S::q; ++l) dst[l * vol + i] = from_f32<T>(o[l]);  // store-dtype rounding
-      } else if (x0 + ix < X && y0 + iy < Y && z0 + iz < Z) {
-#pragma unroll
-        for (int l = 0; l < S::q; ++l) out[l * plane + g] = from_f32<T>(o[l]);
-      }
+        for (int l = 0; l < S::q; ++l) d[l * vol + v] = from_f32<T>(o[l]);  // store-dtype rounding
+      });
     }
     __syncthreads();
+
+    // sweeps 2 .. k pull from the previous sweep's ring: planes x - 1, x,
+    // x + 1 are its indices i, i + 1, i + 2, region-local y and z + 1 - c_l
+    const T* src = reinterpret_cast<const T*>(smem);
+    for (int s = 2; s <= K && t >= 2 * (s - 1); ++s) {
+      const int h = K - s, i = t - 2 * (s - 1);
+      const int vol = (TY + 2 * h) * (TZ + 2 * h), sz = TZ + 2 * h + 2, svol = (TY + 2 * h + 2) * sz;
+      const int gx = wrap_near(xa - h + i, X);
+      const T* sm = src + size_t(i % kKstepRing) * S::q * svol;
+      const T* s0 = src + size_t((i + 1) % kKstepRing) * S::q * svol;
+      const T* sp = src + size_t((i + 2) % kKstepRing) * S::q * svol;
+      T* dst = const_cast<T*>(src) + kstep_ring_bytes<S>(h + 1, TY, TZ, sizeof(T)) / sizeof(T);
+      T* d = dst + size_t(i % kKstepRing) * S::q * vol;
+      region(h, [&](int iy, int iz, int v, int gy, int gz) {
+        const size_t g = (size_t(gx) * Y + gy) * Z + gz;
+        auto at = [&](const T* pl, int l, int dy, int dz) {
+          return to_f32(pl[l * svol + (iy + 1 - dy) * sz + (iz + 1 - dz)]);
+        };
+        auto pull = [&](int l) {
+          const int cx = S::c(0, l);
+          return at(cx == 1 ? sm : (cx == 0 ? s0 : sp), l, S::c(1, l), S::c(2, l));
+        };
+        auto center = [&](int l) { return at(s0, l, 0, 0); };
+        float o[S::q];
+        if constexpr (ext_reads_aux(EXT)) {
+          auto aux_at = [&](int ch) { return aux[ch * plane + g]; };
+          auto staged = [&](int m, int tx, int ty, int tz) {
+            return at(tx == 1 ? sm : (tx == 0 ? s0 : sp), m, ty, tz);
+          };
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[g], omega, p, o, aux_at, staged);
+        } else {
+          collide_voxel<S, SHIFTED, EXT, C, FORCE>(pull, center, mask[g], omega, p, o);
+        }
+        if (s < K) {
+#pragma unroll
+          for (int l = 0; l < S::q; ++l) d[l * vol + v] = from_f32<T>(o[l]);
+        } else if (y0 + iy < Y && z0 + iz < Z) {
+#pragma unroll
+          for (int l = 0; l < S::q; ++l) out[l * plane + g] = from_f32<T>(o[l]);  // the stores of the last sweep
+        }
+      });
+      __syncthreads();
+      src = dst;
+    }
   }
 }
 
@@ -232,7 +297,7 @@ struct XlbLaunch {
   const void* mask;
   void* out;
   int X, Y, Z;
-  int TX, TY, TZ;  // k-step and blocked tiles
+  int TX, TY, TZ;  // blocked: its box; k-step: TY, TZ its column (TX unused)
   int K;           // k-step: steps per pass
   float omega;
   const XlbStepParams* p;
@@ -242,6 +307,8 @@ struct XlbLaunch {
   const float* aux;  // kExtOpen, kExtHybrid: the BCs' per-voxel prescriptions (nchan, X, Y, Z), or null;
                      // a field mode: its field's channels first
   int field;         // the field mode (kFieldAde, kFieldForce) of field_step_kernel, or kFieldNone
+  int seg;           // k-step: planes of x per segment
+  int* shape;        // k-step: when set, no launch; shape[0..2] := resident blocks per SM, registers, local bytes
 };
 
 }  // namespace xlb
@@ -336,17 +403,25 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
     }
   } else if (a.kernel == XLB_KERNEL_KSTEP) {
     if constexpr (has_form(XLB_KERNEL_KSTEP, W, store, SHIFTED)) {
-      if (a.K < 2 || a.TX < 1 || a.TY < 1 || a.TZ < 1) return cudaErrorInvalidValue;
-      const size_t smem = kstep_smem_bytes<S>(a.K, a.TX, a.TY, a.TZ, sizeof(T));
+      if (a.K < 2 || a.TY < 1 || a.TZ < 1 || a.seg < 1) return cudaErrorInvalidValue;
+      const size_t smem = kstep_smem_bytes<S>(a.K, a.TY, a.TZ, sizeof(T));
       if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+      auto kernel = kstep_kernel<S, C, T, SHIFTED, EXT, FORCE>;
       if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kstep_kernel<S, C, T, SHIFTED, EXT, FORCE>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
         if (e != cudaSuccess) return e;
       }
-      const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.TX - 1) / a.TX);
+      if (a.shape) {
+        cudaFuncAttributes attr;
+        cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+        if (e != cudaSuccess) return e;
+        a.shape[1] = attr.numRegs;
+        a.shape[2] = int(attr.localSizeBytes);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.shape[0], kernel, kKstepThreads, smem);
+      }
+      const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.seg - 1) / a.seg);
       kstep_kernel<S, C, T, SHIFTED, EXT, FORCE><<<grid, kKstepThreads, smem, a.stream>>>(
-          f, mask, out, a.X, a.Y, a.Z, a.TX, a.TY, a.TZ, a.K, a.omega, p, a.aux);
+          f, mask, out, a.X, a.Y, a.Z, a.seg, a.TY, a.TZ, a.K, a.omega, p, a.aux);
       return cudaGetLastError();
     }
   } else if (a.kernel == XLB_KERNEL_BLOCKED) {

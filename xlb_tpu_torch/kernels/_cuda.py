@@ -216,9 +216,12 @@ def load_library():
     # ... omega, aux (the BCs' per-voxel prescriptions, or null), params, stream
     lib.xlb_collide_stream_step.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, f32, ptr, params, ptr]
     lib.xlb_collide_stream_step.restype = i32
+    # ... X, Y, Z, seg, TY, TZ, omega, aux, params, stream
     lib.xlb_collide_stream_kstep.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr, params,
                                              ptr]
     lib.xlb_collide_stream_kstep.restype = i32
+    lib.xlb_collide_stream_kstep_shape.argtypes = [i32, i32, i32, i32, i32, params, ctypes.POINTER(i32)]
+    lib.xlb_collide_stream_kstep_shape.restype = i32
     lib.xlb_collide_stream_blocked.argtypes = [i32, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, ptr, params,
                                                ptr]
     lib.xlb_collide_stream_blocked.restype = i32
