@@ -831,3 +831,52 @@ def test_thermal_and_shan_chen_cuda_tier_match_torch_tier(cuda_device):
     assert counts["K3 ade"][0] == counts["K1 ade"][0] == 10
     assert counts["K3 extern_force"][0] == counts["K1 extern_force"][0] == 20
     assert counts["K3 ade"][1] == counts["K1 ade"][1] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,syncs", [("window f32", 0), ("window bf16", 2), ("train f32", 1)])
+def test_wait_spans_count_the_host_syncs(cuda_device, case, syncs):
+    """Under the profiler, the port's ``xlb.wait.*`` records of one window
+    call (training: the call and its ``loss.backward()``, Adam left out as
+    the user's code) are as many as the synchronizations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports for it: bf16 copies
+    ``w_shift`` from pageable host memory in and out, training reads omega
+    back. Each ``xlb.window`` record's device time covers its sweeps'."""
+    import warnings
+
+    import torch
+
+    from xlb_tpu_torch.kernels.fused_step import build_fused_window
+    from xlb_tpu_torch.utils import tracing
+
+    train = case.startswith("train")
+    stepper, (f_0, _, bc_mask, missing_mask) = _cavity("FP32BF16" if "bf16" in case else "FP32FP32", "CUDA",
+                                                       cuda_device)
+    window = build_fused_window(stepper, 3)
+    omega = torch.tensor(OMEGA, device=cuda_device, requires_grad=True) if train else OMEGA
+
+    def call():
+        f_in = f_0.detach().float().requires_grad_(train)
+        out, _ = window(f_in, f_in, bc_mask, missing_mask, omega)
+        if train:
+            torch.mean(out ** 2).backward()
+
+    call()  # loads the kernels
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    reported = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    recs = tracing.records()
+    waits = [r.name for r in recs if r.name.startswith("xlb.wait.")]
+    assert len(waits) == len(reported) == syncs, (waits, [str(w.message) for w in reported])
+    windows = [r for r in recs if r.name == "xlb.window"]
+    assert len(windows) == 1 and sum(r.name == "xlb.backward" for r in recs) == int(train)
+    for w in windows:
+        sweeps = [r.device_ms for r in recs if r.parent is w and r.name == "xlb.window.sweep"]
+        assert sweeps and w.device_ms >= sum(sweeps) > 0

@@ -42,6 +42,7 @@ from xlb_tpu_torch.kernels.collide_stream_dma import CollideStreamStep
 from xlb_tpu_torch.kernels.collide_stream_2step import CollideStreamKStep
 from xlb_tpu_torch.kernels.collide_stream_2d import CollideStream2DKStep, CollideStream2DStep
 from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
+from xlb_tpu_torch.utils.tracing import span, wait
 
 # default k of the window's k-step groups by dimension, as in xlb_tpu
 TEMPORAL_STEPS = {2: 8, 3: 2}
@@ -191,8 +192,12 @@ def _stepper_config(stepper):
 
 
 def _host_float(omega):
-    """omega as the Python float the kernels read (one read per call)."""
-    return float(omega.detach()) if isinstance(omega, torch.Tensor) else float(omega)
+    """omega as the Python float the kernels read (one read per call; a
+    CUDA tensor's read waits for its device)."""
+    if not isinstance(omega, torch.Tensor):
+        return float(omega)
+    with wait("omega", omega.device):
+        return float(omega.detach())
 
 
 class _FusedFunction(torch.autograd.Function):
@@ -213,13 +218,14 @@ class _FusedFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        f_0, mask_i32, *masks = ctx.saved_tensors
-        df, dom = ctx.sweeps.reverse(f_0.detach(), gbar, mask_i32, ctx.omega_f, masks)
-        d_omega = None
-        if ctx.needs_input_grad[1]:
-            device, dtype, shape = ctx.omega_like
-            d_omega = dom.to(device=device, dtype=dtype).reshape(shape)
-        return df.to(f_0.dtype), d_omega, None, None, None, None
+        with span("xlb.backward", gbar.device):
+            f_0, mask_i32, *masks = ctx.saved_tensors
+            df, dom = ctx.sweeps.reverse(f_0.detach(), gbar, mask_i32, ctx.omega_f, masks)
+            d_omega = None
+            if ctx.needs_input_grad[1]:
+                device, dtype, shape = ctx.omega_like
+                d_omega = dom.to(device=device, dtype=dtype).reshape(shape)
+            return df.to(f_0.dtype), d_omega, None, None, None, None
 
 
 class _FusedSweeps:
@@ -284,11 +290,16 @@ class _FusedSweeps:
         self.n_k = num_steps // self.k if self.kstep is not None else 0
         self.w_shift = torch.as_tensor(vs._w).to(pp.store_dtype).reshape((vs.q,) + (1,) * vs.d)
 
+    def _weights_on(self, device):
+        """``w_shift`` in the compute dtype on ``device``: a copy from host
+        memory, which on a CUDA device waits until the device is done."""
+        with wait("w_shift", device):
+            return self.w_shift.to(device=device, dtype=self.pp.compute_dtype)
+
     def _to_store_form(self, f_0):
         if not self.shifted:
             return f_0
-        w_c = self.w_shift.to(device=f_0.device, dtype=self.pp.compute_dtype)
-        return (f_0.to(self.pp.compute_dtype) - w_c).to(self.pp.store_dtype)
+        return (f_0.to(self.pp.compute_dtype) - self._weights_on(f_0.device)).to(self.pp.store_dtype)
 
     def _aux_args(self, device):
         """``(aux,)`` when the scene's BCs read an aux field, else ``()``."""
@@ -299,14 +310,19 @@ class _FusedSweeps:
         return (self._aux,)
 
     def value(self, f_0, mask_i32, omega):
-        g = self._to_store_form(f_0)
-        extra = self._aux_args(f_0.device)
-        for _ in range(self.n_k):
-            g = self.kstep(g, mask_i32, omega, *extra)
-        for _ in range(self.num_steps - self.n_k * self.k):
-            g = self.single(g, mask_i32, omega, *extra)
+        g = f_0
         if self.shifted:
-            return g.to(self.pp.compute_dtype) + self.w_shift.to(device=g.device, dtype=self.pp.compute_dtype)
+            with span("xlb.window.shift_in", f_0.device):
+                g = self._to_store_form(f_0)
+        extra = self._aux_args(f_0.device)
+        with span("xlb.window.sweep", f_0.device):
+            for _ in range(self.n_k):
+                g = self.kstep(g, mask_i32, omega, *extra)
+            for _ in range(self.num_steps - self.n_k * self.k):
+                g = self.single(g, mask_i32, omega, *extra)
+        if self.shifted:
+            with span("xlb.window.shift_out", g.device):
+                return g.to(self.pp.compute_dtype) + self._weights_on(g.device)
         return g
 
     def reverse(self, f_0, gbar, mask_i32, omega, masks):
@@ -321,12 +337,14 @@ class _FusedSweeps:
             return self._reverse_torch_tier(f_0, gbar, omega, masks)
         extra = self._aux_args(f_0.device)
         states = [self._to_store_form(f_0)] if self.num_steps else []
-        while len(states) < self.num_steps:
-            states.append(self.single(states[-1], mask_i32, omega, *extra))
+        with span("xlb.backward.replay", f_0.device):
+            while len(states) < self.num_steps:
+                states.append(self.single(states[-1], mask_i32, omega, *extra))
         ct = gbar.to(self.pp.compute_dtype).contiguous()
         dom = torch.zeros((), dtype=torch.float32, device=ct.device)
         while states:  # popped as the sweep goes, so each state is freed once used
-            ct, dom_field = self.adjoint(states.pop(), ct, mask_i32, omega, *extra)
+            with span("xlb.backward.adjoint", ct.device):
+                ct, dom_field = self.adjoint(states.pop(), ct, mask_i32, omega, *extra)
             dom = dom + torch.sum(dom_field.to(torch.float32))
         return ct, dom
 
@@ -415,12 +433,14 @@ def build_fused_window(stepper, num_steps, temporal_steps=None, kernel="dma", ti
                           temporal_steps=temporal_steps, kernel=kernel, tile=tile)
 
     def run(f_0, f_1, bc_mask, missing_mask, omega):
-        sweeps.check_backward(f_0, omega)
-        mask_i32 = pack_masks(bc_mask, missing_mask)
-        if sweeps.backward is None:
-            f = sweeps.value(f_0.detach(), mask_i32, _host_float(omega))
-        else:
-            f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
+        with span("xlb.window", f_0.device):
+            sweeps.check_backward(f_0, omega)
+            with span("xlb.window.pack_masks", f_0.device):
+                mask_i32 = pack_masks(bc_mask, missing_mask)
+            if sweeps.backward is None:
+                f = sweeps.value(f_0.detach(), mask_i32, _host_float(omega))
+            else:
+                f = _FusedFunction.apply(f_0, omega, mask_i32, _host_float(omega), sweeps, (bc_mask, missing_mask))
         return f, f
 
     return run
