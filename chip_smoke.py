@@ -5,7 +5,7 @@
     python3 chip_smoke.py --ab LABEL [--quick]   # one tree's kernel times (ab_line)
     python3 chip_smoke.py --ptxas                # one tree's ptxas report: PTXAS {kernel: [registers,
                                                  # spill stores, spill loads, static smem]}
-    python3 chip_smoke.py --k8                   # K8's launches by scene (k8_launches)
+    python3 chip_smoke.py --k8 [--out PATH]      # K8's launches by scene (k8_launches), as JSON in PATH
     python3 chip_smoke.py --field                # phase [20] alone (field_path)
     python3 chip_smoke.py --probes               # phase [16] alone (the copy-bandwidth probes)
 
@@ -240,6 +240,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2228,43 +2229,53 @@ def k8_held(df, dom, pdf, pdom, ref64=None):
     return max(e1, e2), max(s1, s2), readings
 
 
-def k8_without_centred(adj, f, g, mask, omega, aux):
-    """A planted fault for the float64 limit: K8's plain version with the
-    epilogues' centred reads held constant outside the solid voxels, so
-    that their cotangent is dropped, as a K8 that skipped its second launch
-    (adjoint_centred_kernel) would drop it. Returns (df, dom_field)."""
+def k8_without(launch, adj, f, g, mask, omega, aux):
+    """A planted fault for K8's limits: its plain version with the terms of
+    one launch dropped, as a K8 that skipped that launch would drop them.
+    ``launch`` "centred" (adjoint_centred_kernel): the epilogues' centred
+    reads held constant outside the solid voxels; "boundary" (the split
+    forms' boundary launch): the pulled populations and omega held constant
+    at the voxels of an epilogue BC (``boundary_voxels``), so that their
+    pushes and dom_field are 0. Returns (df, dom_field)."""
     import torch
 
     from xlb_tpu_torch.kernels.collide_stream import bc_id_shift, pointwise_core
 
     vs, fc = adj.vs, f.detach().float()
-    solid = (mask >> bc_id_shift(vs.q)) & (31 if vs.q == 27 else 0xFF) == (31 if vs.q == 27 else 255)
     held = fc.clone()
     om = torch.full(tuple(mask.shape), float(np.float32(omega)), dtype=torch.float32, device=f.device)
     dims = tuple(range(vs.d))
+    if launch == "centred":
+        solid = (mask >> bc_id_shift(vs.q)) & (31 if vs.q == 27 else 0xFF) == (31 if vs.q == 27 else 255)
+        bvox = torch.zeros_like(solid)
+    else:
+        solid, bvox = torch.ones(tuple(mask.shape), dtype=torch.bool, device=f.device), adj.boundary_voxels(mask)
 
     def step(x, o):
         def pulled(l, t):
             return torch.roll(x[l], shifts=tuple(int(c) for c in t), dims=dims)
 
-        fs = [pulled(l, vs._c[:, l]) for l in range(vs.q)]
-        return torch.stack(pointwise_core(vs, adj.bc_specs, fs, lambda l: torch.where(solid, x[l], held[l]), mask, o,
-                                          adj.shifted, adj.has_solids, adj.collision, adj.force_vector, aux,
-                                          pulled))
+        fs = [torch.where(bvox, torch.roll(held[l], shifts=tuple(int(c) for c in vs._c[:, l]), dims=dims),
+                          pulled(l, vs._c[:, l])) for l in range(vs.q)]
+        return torch.stack(pointwise_core(vs, adj.bc_specs, fs, lambda l: torch.where(solid, x[l], held[l]), mask,
+                                          torch.where(bvox, om, o), adj.shifted, adj.has_solids, adj.collision,
+                                          adj.force_vector, aux, pulled))
 
     _, vjp = torch.func.vjp(step, fc, om)
     return vjp(g)
 
 
-def check_adjoint(stepper, f, mask, omega, aux, store, shifted, label, scene64=None):
-    """K8 in the scene's kExtOpen or kExtHybrid form on the store-form state
-    ``f`` with a seeded cotangent g = w N(0, 1), aux field included: against
-    its plain version or, for D3Q27 KBC (``scene64``: its FP64FP64
-    TORCH-tier scene), against float64 TORCH-tier autograd (k8_held) --
-    KBC's float32 gradient is ill-conditioned, so the float32 plain version
-    is no sharper a reference. For KBC the limit must also fail a planted
-    fault (k8_without_centred). Two calls must agree bit for bit. Returns
-    (max |err|, largest tolerance share)."""
+def check_adjoint(stepper, f, mask, omega, aux, store, shifted, label, scene64=None, force_vector=None):
+    """K8 in the scene's kExtOpen or kExtHybrid form (with ``force_vector``,
+    a body force: its forced bulk) on the store-form state ``f`` with a
+    seeded cotangent g = w N(0, 1), aux field included: against its plain
+    version or, for D3Q27 KBC (``scene64``: its FP64FP64 TORCH-tier scene),
+    against float64 TORCH-tier autograd (k8_held) -- KBC's float32 gradient
+    is ill-conditioned, so the float32 plain version is no sharper a
+    reference. The limit must fail a planted fault: K8 without its boundary
+    launch (k8_without), and for KBC also without its centred one. Two
+    calls, both split by voxel class (``split_launches``), must agree bit
+    for bit. Returns (max |err|, largest tolerance share)."""
     import torch
 
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
@@ -2274,28 +2285,31 @@ def check_adjoint(stepper, f, mask, omega, aux, store, shifted, label, scene64=N
     vs = stepper.velocity_set
     adj = CollideStreamAdjoint(vs, tuple(mask.shape), collision=kernel_collision_spec(stepper), store_dtype=store,
                                bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions], shifted=shifted,
-                               has_solids=stepper.has_solids)
-    check(adj.params.walled >= 2, f"{label}: K8 did not select the kExtOpen / kExtHybrid form")
+                               has_solids=stepper.has_solids, force_vector=force_vector)
+    check(adj.split, f"{label}: K8 did not select the kExtOpen / kExtHybrid form")
     gen = torch.Generator(device=f.device).manual_seed(20)
     w = torch.as_tensor(vs._w, dtype=torch.float32, device=f.device).reshape(-1, 1, 1, 1)
     g = (w * torch.randn(f.shape, generator=gen, device=f.device)).contiguous()
+    split = CollideStreamAdjoint.split_launches
     df, dom = adj(f, g, mask, omega, *aux)
     df2, dom2 = adj(f, g, mask, omega, *aux)
+    check(CollideStreamAdjoint.split_launches == split + 2, f"{label}: K8 did not run split by voxel class")
     same = torch.equal(df, df2) and torch.equal(dom, dom2)
     pdf, pdom = adj.plain(f, g, mask, omega, *aux)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(df).all() and torch.isfinite(dom).all()), f"{label}: non-finite K8 output")
     ref64 = None if scene64 is None else torch_tier_vjp64(scene64, f, g, omega, shifted)
     err, share, r = k8_held(df, dom, pdf, pdom, ref64)
+    faults = {launch: k8_held(*k8_without(launch, adj, f, g, mask, omega, aux[0] if aux else None), pdf, pdom,
+                              ref64)[1] for launch in (("boundary", "centred") if ref64 is not None else ("boundary",))}
     how = "vs plain"
     if ref64 is not None:
-        _, fault, _ = k8_held(*k8_without_centred(adj, f, g, mask, omega, aux[0] if aux else None), pdf, pdom,
-                               ref64)
         how = (f"vs float64 (plain {r['plain_df']:.2e} / {r['plain_dom']:.2e}; |df| max {r['df_max']:.2e} mean "
-               f"{r['df_mean']:.2e}, |dom| max {r['dom_max']:.2e} mean {r['dom_mean']:.2e}; the planted fault "
-               f"{fault:.1f} of tol)")
-        check(fault > 1.0, f"{label}: the float64 limit passes K8 without its centred term")
-    print(f"    K8 {how}: max|err| {err:.2e} ({share:.3f} of tol); two calls bit-equal {same}")
+               f"{r['df_mean']:.2e}, |dom| max {r['dom_max']:.2e} mean {r['dom_mean']:.2e})")
+    print(f"    K8 {how}: max|err| {err:.2e} ({share:.3f} of tol); two calls bit-equal {same}; planted faults "
+          + ", ".join(f"without the {k} launch {v:.1f} of tol" for k, v in faults.items()))
+    for launch, fault in faults.items():
+        check(fault > 1.0, f"{label}: the limit passes K8 without its {launch} launch")
     check(share <= 1.0, f"{label}: K8 disagrees with its reference")
     check(same, f"{label}: two K8 calls differ")
     return err, share
@@ -3000,10 +3014,12 @@ def adjoint_timing(stepper, bc_mask, missing_mask, f, omega, shifted, label, sce
     bound: f, g and the mask read once, df and dom written once, the aux
     bytes of the BCs that read them (hybrid_aux_bytes); the operations of
     the hand-derived BGK transpose (FLOPS_PER_VOXEL, the epilogues' passes
-    at BC voxels not counted). Where the plain version's autograd graph
-    over the whole scene does not fit in the card's memory beside the
-    scene, it is taken in slabs (adjoint_plain_in_slabs), and its time is
-    that of the slabs, as the record says. Returns a record."""
+    at BC voxels not counted), and the share of voxels the boundary
+    launch transposes beside it (each launch's ms: --k8). Where the plain
+    version's autograd graph over the whole scene does not fit in the
+    card's memory beside the scene, it is taken in slabs
+    (adjoint_plain_in_slabs), and its time is that of the slabs, as the
+    record says. Returns a record."""
     import torch
 
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
@@ -3021,10 +3037,9 @@ def adjoint_timing(stepper, bc_mask, missing_mask, f, omega, shifted, label, sce
     w = torch.as_tensor(vs._w, dtype=torch.float32, device=f.device).reshape(-1, 1, 1, 1)
     g = (w * torch.randn(f.shape, generator=gen, device=f.device)).contiguous()
     aux_bytes = hybrid_aux_bytes(specs, bc_mask, vs)
-    t_bytes = (f.numel() * f.element_size() + 2 * g.numel() * 4 + 2 * mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_VOXEL["collide_stream_adjoint"][int(shifted)] * mask.numel() / F32_FLOPS_PER_S * 1e3
-    rec = {"ms": cuda_ms(lambda: adj(f, g, mask, omega, *aux), 10), "aux_bytes": aux_bytes}
-    rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rec = {"ms": cuda_ms(lambda: adj(f, g, mask, omega, *aux), 10), "aux_bytes": aux_bytes,
+           "boundary_share": adj.boundary_share(mask)}
+    rec["bound_ms"], rec["bound_by"] = k8_bound(f, g, mask, aux_bytes, shifted)
     df, dom = adj(f, g, mask, omega, *aux)
     check(bool(torch.isfinite(df).all() and torch.isfinite(dom).all()), f"{label}: non-finite K8 output")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3059,7 +3074,8 @@ def adjoint_timing(stepper, bc_mask, missing_mask, f, omega, shifted, label, sce
     del df, dom, pdf, pdom, ref64
     torch.cuda.empty_cache()
     print(f"    {label}: K8 {rec['ms']:.4f} ms per call ({plain}; bound {rec['bound_ms']:.4f} ms by "
-          f"{rec['bound_by']}; aux bytes {aux_bytes}); vs {'float64' if scene64 else 'plain'} max|err| "
+          f"{rec['bound_by']}; aux bytes {aux_bytes}; boundary voxels {100 * rec['boundary_share']:.3f}%); "
+          f"vs {'float64' if scene64 else 'plain'} max|err| "
           f"{rec['max_abs_err']:.2e} ({rec['tolerance_share']:.3f} of tol)"
           + (f"; plain {readings['plain_df']:.2e} / {readings['plain_dom']:.2e} from float64" if readings else ""))
     check(rec["tolerance_share"] <= 1.0, f"{label}: K8 disagrees with its reference on the final state")
@@ -3133,20 +3149,155 @@ def train_open(device):
     return out
 
 
-def k8_launches(device):
-    """``--k8``: K8 (f32) at 512x256x256 on the 256^3 cavity's BC set (its
-    zoo form), the same with one do-nothing voxel (the kExtOpen form with
-    almost no BC voxel: its base cost), and open_bcs' "outflow2", "zouhe"
-    and "sphere" scenes: ms per call (cuda_ms) and each launch's device ms
-    from one torch.profiler trace of three calls, one line per scene."""
+def k8_bound(f, g, mask, aux_bytes, shifted):
+    """(least ms, "bytes" or "operations") of one K8 call: f, g and the mask
+    read once, df and dom written once, the aux bytes of the BCs that read
+    them; the operations of the hand-derived BGK transpose
+    (FLOPS_PER_VOXEL, the epilogues' passes at BC voxels not counted)."""
+    t_bytes = (f.numel() * f.element_size() + 2 * g.numel() * 4 + 2 * mask.numel() * 4 + aux_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_VOXEL["collide_stream_adjoint"][int(shifted)] * mask.numel() / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k8_launch_ms(call, reps=3):
+    """{K8 launch (k8_launch_name): device ms per call} from one
+    torch.profiler trace of ``reps`` calls of ``call``, as the mean of the
+    launches the trace holds (a fresh trace may miss its first one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import xlb_tpu_torch as xlb
-    from xlb_tpu_torch.boundary import DoNothingBC
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    launches = {}
+    for e in prof.key_averages():
+        name = k8_launch_name(e.key)
+        if name is not None and e.device_time_total > 0:
+            launches[name] = launches.get(name, 0.0) + e.device_time_total / 1e3 / e.count
+    return launches
+
+
+def k8_launch_name(key):
+    """The K8 launch ("adjoint", "boundary", "centred", "staging") of a
+    profiler key, or None: the boundary launch is adjoint_centred_kernel's
+    phase with its seventh template argument true."""
+    import re
+
+    m = re.search(r"xlb::adjoint(_centred|_staging)?_kernel<([^>]*)>", key)
+    if m is None:
+        return None
+    if m.group(1) == "_centred":
+        args = m.group(2).split(", ")
+        return "boundary" if len(args) == 7 and args[-1] == "true" else "centred"
+    return "staging" if m.group(1) else "adjoint"
+
+
+BENCH_SPHERE = "sphere_open_768x192x192"  # lbm_bench's training scene
+K8_CONTROL_CALLS = 20
+
+
+def bench_sphere(device, walled=False):
+    """(stepper, bc_mask, missing_mask) of lbm_bench's flow past a sphere
+    (configs/BENCH_SPHERE) through the port's public API, FP32FP32; with
+    ``walled``, the control: the same grid and solid ball, and every BC
+    voxel (the channel walls, the inlet and outlet faces, the sphere's
+    halfway shell) fullway, so K8 runs its walled (kExtNone) form. The
+    control's stepper keeps the open scene's BC list (its mask is remapped);
+    k8_scene takes its BC specs from ``walled``."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent / "lbm_bench" / "configs"
+    spec = importlib.util.spec_from_file_location("k8_bench_config", root / f"{BENCH_SPHERE}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = json.loads((root / f"{BENCH_SPHERE}.json").read_text())
+    stepper, bc_mask, missing_mask = mod.program_scene(cfg, mod.boundaries(cfg), "FP32FP32", device, "TORCH")
+    if walled:
+        walls = stepper.boundary_conditions[0]
+        for bc in stepper.boundary_conditions[1:]:
+            bc_mask[bc_mask == bc.id] = walls.id
+    return stepper, bc_mask, missing_mask
+
+
+def k8_scene(label, stepper, bc_mask, missing_mask, walled_only=False):
+    """One --k8 scene's record: K8 (f32, seeded state and cotangent) per call
+    (cuda_ms), each launch's device ms from one torch.profiler trace of
+    three calls (k8_launch_name), the bound (k8_bound), the share of voxels
+    the boundary launch transposes, and the launch shapes (resident blocks
+    per SM, registers, local bytes). ``walled_only``: the BC specs of the
+    fullway walls alone (bench_sphere's control). Returns (record, the
+    call: a function of no arguments)."""
+    import torch
+
+    from xlb_tpu_torch.kernels import _cuda
     from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.collide_stream import kernel_collision_spec
     from xlb_tpu_torch.kernels.fused_step import bc_to_spec, build_aux_field, pack_masks
+
+    vs, device = stepper.velocity_set, bc_mask.device
+    shape = tuple(stepper.grid.shape)
+    bcs = stepper.boundary_conditions[:1] if walled_only else stepper.boundary_conditions
+    specs = [bc_to_spec(b, vs) for b in bcs]
+    mask = pack_masks(bc_mask, missing_mask)
+    adj = CollideStreamAdjoint(vs, shape, collision=kernel_collision_spec(stepper), has_solids=stepper.has_solids,
+                               bc_specs=specs)
+    aux = None if walled_only else build_aux_field(stepper)
+    aux = () if aux is None else (torch.as_tensor(aux, device=device),)
+    f = perturbed(vs, shape, torch.float32, False, 3, device)
+    gen = torch.Generator(device=device).manual_seed(20)
+    w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
+    g = (w * torch.randn(f.shape, generator=gen, device=device)).contiguous()
+
+    def call():
+        return adj(f, g, mask, ADJ_OMEGA, *aux)
+
+    ms, launches = cuda_ms(call, 10), k8_launch_ms(call)
+    bound, by = k8_bound(f, g, mask, hybrid_aux_bytes(specs, bc_mask, vs), False)
+    rec = {"shape": list(shape), "walled": adj.params.walled, "ms": ms, "launches_ms": launches, "bound_ms": bound,
+           "bound_by": by, "boundary_share": adj.boundary_share(mask),
+           "launch_shape": adj.launch_shape(_cuda.load_library())}
+    print(f"K8 {label} {'x'.join(map(str, shape))} f32 (walled {rec['walled']}): {ms:.4f} ms per call, bound {bound:.4f}"
+          f" ms by {by} ({100 * bound / ms:.1f}%); launches "
+          + "; ".join(f"{k} {v:.4f}" for k, v in launches.items())
+          + f" ms; boundary voxels {100 * rec['boundary_share']:.3f}%; (blocks/SM, registers, local B) "
+          + "; ".join(f"{k} {v}" for k, v in rec["launch_shape"].items()), flush=True)
+    return rec, call
+
+
+def k8_alternating(calls, n):
+    """Device ms of each of ``calls`` (functions of no arguments), taken in
+    turns n times (CUDA events around each call): a list of n per call."""
+    import torch
+
+    times = [[] for _ in calls]
+    for _ in range(n):
+        for i, fn in enumerate(calls):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return times
+
+
+def k8_launches(device):
+    """``--k8``: K8 (f32) scene by scene (k8_scene): at 512x256x256 the
+    256^3 cavity's BC set (its zoo form), the same with one do-nothing
+    voxel (the kExtOpen form with almost no BC voxel: its base cost), and
+    open_bcs' "outflow2", "zouhe" and "sphere" scenes; lbm_bench's flow past
+    a sphere (bench_sphere) and its walled control, then the two in turns,
+    K8_CONTROL_CALLS calls each (k8_alternating); the hybrid sphere-drag
+    tunnel at D = SPHERE_BIG_D and windtunnel_3d.py --object-bc hybrid
+    (D3Q27 KBC). One line per scene. Returns {scene: record}."""
+    import statistics
+
+    import torch
+
+    import xlb_tpu_torch as xlb
+    from xlb_tpu_torch.boundary import DoNothingBC
+    from xlb_tpu_torch.examples.cfd import sphere_drag_validation, windtunnel_3d
     from xlb_tpu_torch.models import IncompressibleNavierStokesStepper
 
     P, B = xlb.PrecisionPolicy.FP32FP32, xlb.ComputeBackend.TORCH
@@ -3157,31 +3308,37 @@ def k8_launches(device):
         stepper = IncompressibleNavierStokesStepper(stepper.grid, boundary_conditions=bcs)
         return stepper, stepper.prepare_fields()
 
-    scenes = [("cavity", lambda: cavity(OPEN_BIG, P, B, device)), ("cavity + one do-nothing voxel", with_do_nothing)]
-    scenes += [(kind, lambda kind=kind: open_scene(kind, OPEN_BIG, P, B, device)) for kind in ("outflow2", "zouhe", "sphere")]
-    for label, make in scenes:
-        stepper, (_, _, bc_mask, missing_mask) = make()
-        vs = stepper.velocity_set
-        mask = pack_masks(bc_mask, missing_mask)
-        adj = CollideStreamAdjoint(vs, OPEN_BIG, collision=kernel_collision_spec(stepper), has_solids=stepper.has_solids,
-                                   bc_specs=[bc_to_spec(b, vs) for b in stepper.boundary_conditions])
-        aux = build_aux_field(stepper)
-        aux = () if aux is None else (torch.as_tensor(aux, device=device),)
-        f = perturbed(vs, OPEN_BIG, torch.float32, False, 3, device)
-        gen = torch.Generator(device=device).manual_seed(20)
-        w = torch.as_tensor(vs._w, dtype=torch.float32, device=device).reshape(-1, 1, 1, 1)
-        g = (w * torch.randn(f.shape, generator=gen, device=device)).contiguous()
-        ms = cuda_ms(lambda: adj(f, g, mask, ADJ_OMEGA, *aux), 10)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                adj(f, g, mask, ADJ_OMEGA, *aux)
-            torch.cuda.synchronize()
-        launches = "; ".join(f"{e.key.split('<')[0].split('::')[-1]} {e.device_time_total / 1e3 / e.count:.3f}"
-                             for e in prof.key_averages() if e.device_time_total > 0)
-        print(f"K8 {label} {'x'.join(map(str, OPEN_BIG))} f32 (walled {adj.params.walled}): {ms:.3f} ms ({launches})",
-              flush=True)
-        del stepper, bc_mask, missing_mask, mask, adj, aux, f, g
+    def fields(make):
+        return lambda: (lambda st, fl: (st, fl[2], fl[3]))(*make()[:2])
+
+    scenes = [("cavity", fields(lambda: cavity(OPEN_BIG, P, B, device)), False),
+              ("cavity + one do-nothing voxel", fields(with_do_nothing), False)]
+    scenes += [(kind, fields(lambda kind=kind: open_scene(kind, OPEN_BIG, P, B, device)), False)
+               for kind in ("outflow2", "zouhe", "sphere")]
+    scenes += [("bench sphere", lambda: bench_sphere(device), False),
+               ("bench sphere walled control", lambda: bench_sphere(device, walled=True), True),
+               (f"hybrid sphere-drag D={SPHERE_BIG_D}",
+                fields(lambda: sphere_drag_validation.build(d=SPHERE_BIG_D, backend="torch", device=device)), False),
+               ("windtunnel --object-bc hybrid (D3Q27 KBC)",
+                fields(lambda: windtunnel_3d.build(object_bc="hybrid", backend="torch", device=device)), False)]
+    out, control = {}, {}
+    for label, make, walled_only in scenes:
+        stepper, bc_mask, missing_mask = make()
+        out[label], call = k8_scene(label, stepper, bc_mask, missing_mask, walled_only)
+        if label.startswith("bench sphere"):
+            control[label] = call
+        del stepper, bc_mask, missing_mask, call
+        if len(control) == 2:
+            (a, ca), (b, cb) = control.items()
+            ta, tb = k8_alternating([ca, cb], K8_CONTROL_CALLS)
+            ma, mb = statistics.median(ta), statistics.median(tb)
+            out["control"] = {a: ta, b: tb, "ratio": ma / mb}
+            print(f"K8 control, {K8_CONTROL_CALLS} calls each in turns (CUDA events): {a} median {ma:.4f} ms (mean "
+                  f"{statistics.fmean(ta):.4f}), {b} median {mb:.4f} ms (mean {statistics.fmean(tb):.4f}); the "
+                  f"walled form {ma / mb:.3f}x faster", flush=True)
+            control.clear()
         torch.cuda.empty_cache()
+    return out
 
 
 # [20]: thermal convection and Shan-Chen multiphase -- K1 and K3's field modes (ade, extern_force)
@@ -3967,9 +4124,11 @@ def main():
         _cuda.load_library()
         print("PTXAS " + json.dumps({name: list(rest) for name, *rest in _cuda.ptxas_report()}))
         return 0
-    if "--k8" in sys.argv:
+    if "--k8" in sys.argv:  # with --out PATH, the records as JSON there too
         _cuda.load_library()
-        k8_launches(device)
+        rec = k8_launches(device)
+        if "--out" in sys.argv:
+            Path(sys.argv[sys.argv.index("--out") + 1]).write_text(json.dumps(rec, indent=1))
         return 0
     if "--torch-tier" in sys.argv:  # start_torch_tier's process
         import pickle

@@ -739,29 +739,35 @@ def test_hybrid_2d_kernels_match_plain_versions_on_the_card(cuda_device, method,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["sphere", "rotating", "zouhe", "outflow2"])
+@pytest.mark.parametrize("kind", ["sphere", "rotating", "zouhe", "outflow2", "sphere+force"])
 @pytest.mark.parametrize("store", ["float32", "bfloat16"])
 def test_open_adjoint_matches_plain_version_on_the_card(cuda_device, kind, store):
     """K8 in its kExtOpen form on the open scenes at 40x20x24 (f32, and
-    bf16-shifted): against its plain version (rtol 1e-4, atol 1e-6 / 1e-7),
-    D3Q27 KBC against float64 TORCH-tier autograd (no farther than twice
-    the plain version), two calls bit for bit (chip_smoke's
-    ``check_adjoint``)."""
+    bf16-shifted; "+force": with a body force, K8's forced bulk): against
+    its plain version (rtol 1e-4, atol 1e-6 / 1e-7), D3Q27 KBC against
+    float64 TORCH-tier autograd (no farther than twice the plain version),
+    two calls bit for bit, both split by voxel class, and the limit failing
+    K8 without its boundary launch (chip_smoke's ``check_adjoint``)."""
     import torch
 
     import xlb_tpu_torch as xlb
     from chip_smoke import OPEN_OMEGA, OPEN_SCENES, check_adjoint, open_kernels, perturbed
     from chip_smoke import open_scene as port_scene
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.fused_step import pack_masks
 
     shape = (40, 20, 24)
+    kind, forced = kind.split("+")[0], kind.endswith("+force")
     P, B = xlb.PrecisionPolicy, xlb.ComputeBackend
     stepper, (_, _, bc_mask, missing_mask) = port_scene(kind, shape, P.FP32FP32, B.TORCH, cuda_device)
     scene64 = port_scene(kind, shape, P.FP64FP64, B.TORCH, cuda_device) if OPEN_SCENES[kind][1] == "KBC" else None
     dtype, shifted = getattr(torch, store), store == "bfloat16"
     f = perturbed(stepper.velocity_set, shape, dtype, shifted, 3, cuda_device)
     _, aux, _ = open_kernels(stepper, dtype, shifted)
-    check_adjoint(stepper, f, pack_masks(bc_mask, missing_mask), OPEN_OMEGA, aux, dtype, shifted, kind, scene64)
+    split = CollideStreamAdjoint.split_launches
+    check_adjoint(stepper, f, pack_masks(bc_mask, missing_mask), OPEN_OMEGA, aux, dtype, shifted, kind, scene64,
+                  force_vector=(2e-5, -1e-5, 1e-5) if forced else None)
+    assert CollideStreamAdjoint.split_launches == split + 2
 
 
 @pytest.mark.gpu
@@ -778,6 +784,7 @@ def test_hybrid_adjoint_matches_plain_version_on_the_card(cuda_device, method, p
     import torch
 
     from chip_smoke import HYBRID_OMEGA, check_adjoint, hybrid_scene, open_kernels, perturbed
+    from xlb_tpu_torch.kernels.adjoint_step import CollideStreamAdjoint
     from xlb_tpu_torch.kernels.fused_step import pack_masks
 
     shape = (40, 20, 24)
@@ -786,7 +793,9 @@ def test_hybrid_adjoint_matches_plain_version_on_the_card(cuda_device, method, p
     dtype, shifted = getattr(torch, store), store == "bfloat16"
     f = perturbed(stepper.velocity_set, shape, dtype, shifted, 3, cuda_device)
     _, aux, _ = open_kernels(stepper, dtype, shifted)
+    split = CollideStreamAdjoint.split_launches
     check_adjoint(stepper, f, pack_masks(bc_mask, missing_mask), HYBRID_OMEGA, aux, dtype, shifted, method, scene64)
+    assert CollideStreamAdjoint.split_launches == split + 2
 
 
 @pytest.mark.gpu

@@ -9,8 +9,9 @@
 // collide_stream_*_{open,hybrid}_adjoint.cu -- and launched through
 // collide_stream.cu's xlb_collide_stream_adjoint.
 //
-// adjoint_kernel, with adjoint_centred_kernel and adjoint_staging_kernel
-// after it where the scene needs them, replaces the TPU kernel xlb_tpu/kernels/adjoint_step.py::
+// adjoint_kernel, with adjoint_centred_kernel (its boundary and centred
+// phases) and adjoint_staging_kernel after it where the scene needs them,
+// replaces the TPU kernel xlb_tpu/kernels/adjoint_step.py::
 // build_fused_adjoint_3d for every configuration the forward K1 takes:
 // every collision, D3Q27, the body force, the streaming-step "equilibrium"
 // and "halfway" BCs, the collision-step "fullway" BC, the solid keep-out,
@@ -53,11 +54,20 @@
 // - "halfway" voxel: a missing direction l took fs_l := fp_opp(l) (+ the
 //   constant wall term), so its h_l belongs to h_fp_opp(l), not h_fs_l.
 //
-// kExtOpen and kExtHybrid (the branches of adjoint_kernel and
-// adjoint_centred_kernel under ext_reads_aux(EXT), adjoint_staging_kernel).
-// The forward is out = Phi(fs, fp, st, w) with a third input, the outflow's staged reads st_m = f_m[y - t] (t = n
-// + c_m tangential), and epilogues that mix fs and fp (Zou-He, the
-// regularized closure, Tao's and Grad's hybrid closures). Per voxel y:
+// kExtOpen and kExtHybrid (the branches of adjoint_centred_kernel under
+// ext_reads_aux(EXT), adjoint_staging_kernel). The forward is out = Phi(fs,
+// fp, st, w) with a third input, the outflow's staged reads st_m = f_m[y -
+// t] (t = n + c_m tangential), and epilogues that mix fs and fp (Zou-He,
+// the regularized closure, Tao's and Grad's hybrid closures). K8 splits by
+// voxel class: ~99.7% of a flow past a sphere's voxels are solid,
+// fullway, "equilibrium" or fluid with no epilogue, where the streamed
+// populations reduce to the walled form's, so adjoint_kernel runs there as
+// the walled form does (the bulk), with no epilogue code compiled in; a
+// kernel's registers and local frame are set by its heaviest path, and the
+// forward-mode transposes below need many (on the H100 the unsplit open
+// form's adjoint_kernel ran at 2.4x the walled one's time on the same
+// grid). The voxels of an epilogue BC take a launch of their own, the
+// boundary phase of adjoint_centred_kernel. Per such voxel y:
 // - the collision's VJP (as above) gives h_post, the cotangent of the
 //   post-epilogue populations; at an outflow voxel the staged slots l =
 //   opp(m) are overwritten after the collision (out_l := cs st_m + (1 - cs)
@@ -70,11 +80,12 @@
 //   template, on Dual numbers, one pass per input (epilogue_vjp) -- q passes
 //   at BC voxels for fs, q more for fp, and none at the other voxels. The
 //   aux field enters as a constant (prescriptions carry no gradient);
-// - ownership: the h_fs terms are pushed by y's thread as above; the h_fp
-//   and staged terms belong to entries of other threads, so the second
-//   launch (adjoint_centred_kernel) adds h_fp(x) at every voxel x of an
-//   fp-reading epilogue, and a third
-//   (adjoint_staging_kernel, for scenes with an outflow) gather the staged
+// - ownership: the h_fs terms are pushed by y's thread as above, in the
+//   boundary phase; the h_fp and staged terms belong to entries of other
+//   threads, so the centred phase (adjoint_centred_kernel, after the bulk
+//   and the boundary phase have written every push) adds h_fp(x) at every
+//   voxel x of an fp-reading epilogue, and a last launch
+//   (adjoint_staging_kernel, for scenes with an outflow) gathers the staged
 //   cotangents cs g_opp(m)(x + t) from the outflow voxels that read f_m[x]
 //   -- two outflow faces may stage from one x with different t, and a
 //   gather adds both without atomics, so two calls agree bit for bit.
@@ -85,10 +96,11 @@
 // h_fp_m[x] = g_m[x] is folded into that write: when has_solids, the
 // writing thread reads the mask of x (a cache hit mostly) and adds g_m[x]
 // where x is solid. The halfway term h_fp_opp(l)[x] += h_l(x) has another
-// owner, so a second launch (adjoint_centred_kernel, only for scenes with
+// owner, so a later launch (adjoint_centred_kernel, only for scenes with
 // an epilogue that reads centred populations) recomputes h at those
 // voxels and adds it in place; its threads touch only their own voxel's
-// entries.
+// entries. In the split forms the bulk and the boundary phase each push
+// from the voxels of their class, so each (m, x) still has one writer.
 //
 // One thread per voxel, threads along z, so for each m a warp's q pulls of
 // the primal, its q cotangent loads and its q pushed stores are coalesced.
@@ -365,14 +377,32 @@ __device__ __noinline__ void epilogue_vjp(const float* pulled, const float* cent
   }
 }
 
-// K8's first launch. At the voxels of an epilogue BC of the kExtOpen and
-// kExtHybrid forms, the cotangent of the post-epilogue populations
-// (open_post_vjp) goes back to the pulled populations through the
-// epilogues' transpose (selection_pulled_vjp, or epilogue_vjp), the aux
-// field a constant (prescriptions carry no gradient). The thread of voxel
-// y writes df_m[y - c_m] = h_fs_m(y) (+ g_m there when solid); the centred
-// and staged terms belong to other entries, which adjoint_centred_kernel
-// and adjoint_staging_kernel add.
+// The pushes of one voxel: df_m[neighbour(m)] = h_m, plus the solid
+// keep-out term g_m there where that voxel is solid; neighbour(m) is the
+// voxel's pull source of direction m, its push target (periodic wrap).
+// Each (m, x) has one pushing voxel, x + c_m.
+template <class S, typename Neighbour>
+__device__ __forceinline__ void push_cotangents(const float h[S::q], const float* __restrict__ g,
+                                                const int* __restrict__ mask, float* __restrict__ df, size_t plane,
+                                                const XlbStepParams& p, const Neighbour& neighbour) {
+#pragma unroll
+  for (int m = 0; m < S::q; ++m) {
+    const size_t t = neighbour(m);
+    float d = h[m];
+    if (p.has_solids && cell_type<S>(mask[t]) == S::solid_id) d += g[m * plane + t];
+    df[m * plane + t] = d;
+  }
+}
+
+// K8's first launch. The thread of voxel y writes df_m[y - c_m] = h_fs_m(y)
+// (+ g_m there when solid, push_cotangents) and dom(y). In the kExtOpen and
+// kExtHybrid forms it is the bulk: it returns at the voxels of an epilogue
+// BC, whose pushes and dom the boundary launch writes (adjoint_centred_kernel
+// with BOUNDARY), and runs the walled form's path everywhere else -- the
+// solid, fullway and "equilibrium" voxels and the fluid with no epilogue,
+// where the open form's populations reduce to the walled form's -- with
+// none of the epilogues' transposes compiled in. Its FORCE follows the
+// scene's force (launch_ext_adjoint_impl).
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 __global__ void __launch_bounds__(kAdjointThreads)
     adjoint_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
@@ -396,14 +426,14 @@ __global__ void __launch_bounds__(kAdjointThreads)
   };
   auto pull = [&](int l) { return to_f32(f[l * plane + neighbour(l)]); };
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
-  const AuxAt aux_at{aux, plane, v};
 
   const int packed = mask[v];
   const int bc = cell_type<S>(packed);
+  if constexpr (ext_reads_aux(EXT)) {
+    if (epilogue_bc(bc, p) >= 0) return;  // the boundary launch's voxel
+  }
   float fs[S::q];
-  bool fixed;
-  if constexpr (ext_reads_aux(EXT)) fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux_at);
-  else fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
+  const bool fixed = streamed_populations<S, SHIFTED, ext_reads_aux(EXT) ? kExtNone : EXT>(pull, center, packed, p, fs);
 
   float gv[S::q];
 #pragma unroll
@@ -417,25 +447,9 @@ __global__ void __launch_bounds__(kAdjointThreads)
   } else if (is_fullway(bc, p)) {
 #pragma unroll
     for (int m = 0; m < S::q; ++m) h[m] = gv[S::opp(m)];
-  } else if constexpr (ext_reads_aux(EXT)) {
-    const int b = epilogue_bc(bc, p);
-    open_post_vjp<S, C, FORCE>(fs, gv, packed, b, omega, p, h, d_omega);
-    if (b >= 0 && !fixed) {
-      if (is_selection(p.bc_kind[b])) {
-        selection_pulled_vjp<S>(packed, p, b, h);
-      } else {
-        // copies for the call, so that h itself need not live in local memory
-        float fr[S::q], fc[S::q], hp[S::q], hin[S::q];
-#pragma unroll
-        for (int l = 0; l < S::q; ++l) fr[l] = pull(l), fc[l] = center(l), hp[l] = h[l];
-        epilogue_vjp<S, SHIFTED, EXT>(fr, fc, packed, p, aux_at, hp, 0, S::q, hin);
-#pragma unroll
-        for (int m = 0; m < S::q; ++m) h[m] = hin[m];
-      }
-    }
   } else {
     voxel_vjp<S, C, FORCE>(fs, gv, omega, p, h, d_omega);
-    if constexpr (EXT != kExtNone) {
+    if constexpr (EXT == kExtHalfway) {
       if (has_bc_kind(bc, p, XLB_BC_HALFWAY)) {
 #pragma unroll
         for (int m = 0; m < S::q; ++m)
@@ -447,65 +461,117 @@ __global__ void __launch_bounds__(kAdjointThreads)
 #pragma unroll
     for (int m = 0; m < S::q; ++m) h[m] = 0.0f;
   }
-
-#pragma unroll
-  for (int m = 0; m < S::q; ++m) {
-    const size_t t = neighbour(m);
-    float d = h[m];
-    if (p.has_solids && cell_type<S>(mask[t]) == S::solid_id) d += g[m * plane + t];
-    df[m * plane + t] = d;
-  }
+  push_cotangents<S>(h, g, mask, df, plane, p, neighbour);
   dom[v] = d_omega;
 }
 
-// K8's second launch, after adjoint_kernel, for scenes with an epilogue
-// that reads centred populations (reads_centred: halfway, and in the
-// kExtOpen and kExtHybrid forms do-nothing, free-slip, the outflow and the
-// hybrid wall): at such a voxel x, df_m[x] += h_fp_m(x), recomputed as in
-// adjoint_kernel. The halfway epilogue's transpose is a selection (a
-// missing l took the centred opp(l): df_opp(l)[x] += h_l(x)); the open
-// epilogues go through selection_centred_vjp, or epilogue_vjp with the
-// centred inputs seeded. Its thread x touches only voxel x's entries of
-// df, as the third launch's (adjoint_staging_kernel), so no two threads
-// write one entry and no atomics are needed.
-template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
-__global__ void __launch_bounds__(kAdjointThreads)
-    adjoint_centred_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
-                           const float* __restrict__ aux, float* __restrict__ df, int X, int Y, int Z, float omega,
-                           const __grid_constant__ XlbStepParams p) {
-  const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
-  const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= n) return;
-  const int packed = mask[v];
-  const int bc = cell_type<S>(packed);
-  int b = -1;
-  if constexpr (ext_reads_aux(EXT)) {
-    b = epilogue_bc(bc, p);
-    if (b < 0 || !reads_centred(p, b)) return;
-  } else {
-    if ((packed & ((1 << S::q) - 1)) == 0 || !has_bc_kind(bc, p, XLB_BC_HALFWAY)) return;
+// The epilogue launches' scan in the kExtOpen and kExtHybrid forms: a block
+// reads the mask of kEpilogueScan chunks of kAdjointThreads voxels, one
+// voxel of each per thread, lists those of its phase in shared memory, in
+// voxel order, and its threads then take the list in turn, so that warps
+// run the epilogues' transposes with every lane busy. One thread per
+// voxel, as the walled form's centred launch has, leaves a warp with one
+// wall voxel to run them for one lane, and a block that exits on the mask
+// costs a read's latency. Chunk k of block b is chunk k G + b of the grid
+// (G blocks): a face that is BC voxels end to end spans consecutive
+// chunks, so its voxels spread over as many blocks, one per thread, where
+// contiguous tiles would queue kEpilogueScan of them on each thread of a
+// few blocks.
+constexpr int kEpilogueScan = 8;
+constexpr int kEpilogueTile = kAdjointThreads * kEpilogueScan;
+
+// Lists the voxels v of this block's chunks whose cell type has an
+// epilogue BC (BOUNDARY: any; else one that reads centred populations)
+// into list, in voxel order, and returns their number; warp_count holds
+// kEpilogueScan x the block's warps, count one word, all in shared memory.
+// The offsets come from ballots and one prefix sum, so the list is the
+// same on every call.
+template <class S, bool BOUNDARY>
+__device__ __forceinline__ unsigned epilogue_voxels(const int* __restrict__ mask, unsigned n, const XlbStepParams& p,
+                                                    unsigned* list, unsigned* warp_count, unsigned* count) {
+  constexpr int kWarps = kAdjointThreads / 32;
+  const unsigned lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  auto voxel = [&](int k) { return (k * gridDim.x + blockIdx.x) * unsigned(kAdjointThreads) + threadIdx.x; };
+  int packed[kEpilogueScan];
+#pragma unroll
+  for (int k = 0; k < kEpilogueScan; ++k) packed[k] = voxel(k) < n ? mask[voxel(k)] : 0;
+  unsigned ballot[kEpilogueScan];
+#pragma unroll
+  for (int k = 0; k < kEpilogueScan; ++k) {
+    const int b = epilogue_bc(cell_type<S>(packed[k]), p);
+    const bool in = voxel(k) < n && b >= 0 && (BOUNDARY || reads_centred(p, b));
+    ballot[k] = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) warp_count[k * kWarps + warp] = __popc(ballot[k]);
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // exclusive prefix sum in voxel order: k, then warp
+    unsigned sum = 0;
+    for (int i = 0; i < kEpilogueScan * kWarps; ++i) {
+      const unsigned c = warp_count[i];
+      warp_count[i] = sum;
+      sum += c;
+    }
+    *count = sum;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kEpilogueScan; ++k)
+    if ((ballot[k] >> lane) & 1u) list[warp_count[k * kWarps + warp] + __popc(ballot[k] & below)] = voxel(k);
+  __syncthreads();
+  return *count;
+}
+
+// One voxel v of an epilogue BC b in the kExtOpen and kExtHybrid forms:
+// with BOUNDARY its pushes and dom (the boundary phase), else its centred
+// term (the centred phase), as adjoint_centred_kernel says.
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE, bool BOUNDARY>
+__device__ __forceinline__ void epilogue_voxel_vjp(unsigned v, const T* __restrict__ f, const float* __restrict__ g,
+                                                   const int* __restrict__ mask, const float* __restrict__ aux,
+                                                   float* __restrict__ df, float* __restrict__ dom, int X, int Y,
+                                                   int Z, float omega, const XlbStepParams& p) {
+  const size_t plane = size_t(X) * Y * Z;
+  const int packed = mask[v];
+  const int b = epilogue_bc(cell_type<S>(packed), p);
   const int z = int(v % unsigned(Z));
   const unsigned xy = v / unsigned(Z);
   const int y = int(xy % unsigned(Y));
   const int x = int(xy / unsigned(Y));
-  const size_t plane = n;
-
-  auto pull = [&](int l) {
+  auto neighbour = [&](int l) {
     const int xs = wrap1(x - S::c(0, l), X);
     const int ys = wrap1(y - S::c(1, l), Y);
     const int zs = wrap1(z - S::c(2, l), Z);
-    return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
+    return (size_t(xs) * Y + ys) * Z + zs;
   };
+  auto pull = [&](int l) { return to_f32(f[l * plane + neighbour(l)]); };
   auto center = [&](int l) { return to_f32(f[l * plane + v]); };
+  const AuxAt aux_at{aux, plane, v};
   float fs[S::q], gv[S::q], h[S::q], d_omega;
-  if constexpr (ext_reads_aux(EXT)) {
-    const AuxAt aux_at{aux, plane, v};
-    float acc[S::q];
-    streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux_at);
+  [[maybe_unused]] const bool fixed = streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs, aux_at);
 #pragma unroll
-    for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v], acc[l] = 0.0f;
-    open_post_vjp<S, C, FORCE>(fs, gv, packed, b, omega, p, h, d_omega);
+  for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v];
+  open_post_vjp<S, C, FORCE>(fs, gv, packed, b, omega, p, h, d_omega);
+  if constexpr (BOUNDARY) {
+    if (fixed) {
+#pragma unroll
+      for (int m = 0; m < S::q; ++m) h[m] = 0.0f;
+    } else if (is_selection(p.bc_kind[b])) {
+      selection_pulled_vjp<S>(packed, p, b, h);
+    } else {
+      // copies for the call, so that h itself need not live in local memory
+      float fr[S::q], fc[S::q], hp[S::q], hin[S::q];
+#pragma unroll
+      for (int l = 0; l < S::q; ++l) fr[l] = pull(l), fc[l] = center(l), hp[l] = h[l];
+      epilogue_vjp<S, SHIFTED, EXT>(fr, fc, packed, p, aux_at, hp, 0, S::q, hin);
+#pragma unroll
+      for (int m = 0; m < S::q; ++m) h[m] = hin[m];
+    }
+    push_cotangents<S>(h, g, mask, df, plane, p, neighbour);
+    dom[v] = d_omega;
+  } else {
+    float acc[S::q];
+#pragma unroll
+    for (int l = 0; l < S::q; ++l) acc[l] = 0.0f;
     if (is_selection(p.bc_kind[b])) {
       selection_centred_vjp<S>(packed, p, b, h, acc);
     } else {
@@ -516,7 +582,62 @@ __global__ void __launch_bounds__(kAdjointThreads)
     }
 #pragma unroll
     for (int m = 0; m < S::q; ++m) df[m * plane + v] += acc[m];
+  }
+}
+
+// K8's launch at the voxels of the epilogues, in two phases. With
+// BOUNDARY (the kExtOpen and kExtHybrid forms' boundary launch, before
+// the centred phase): at each voxel y of an epilogue BC, the cotangent of
+// the post-epilogue populations (open_post_vjp) goes back to the pulled
+// populations through the epilogues' transpose (selection_pulled_vjp, or
+// epilogue_vjp), the aux field a constant (prescriptions carry no
+// gradient); the thread writes y's pushes and dom, as adjoint_kernel does
+// at the other voxels. Without it, after the pushes of every voxel: for
+// scenes with an epilogue that reads centred populations (reads_centred:
+// halfway, and in the kExtOpen and kExtHybrid forms do-nothing, free-slip,
+// the outflow and the hybrid wall), at such a voxel x, df_m[x] +=
+// h_fp_m(x), recomputed as in the boundary phase. The halfway epilogue's
+// transpose is a selection (a missing l took the centred opp(l):
+// df_opp(l)[x] += h_l(x)); the open epilogues go through
+// selection_centred_vjp, or epilogue_vjp with the centred inputs seeded.
+// This phase's thread x touches only voxel x's entries of df, as the
+// third launch's (adjoint_staging_kernel), so no two threads write one
+// entry and no atomics are needed. The kExtOpen and kExtHybrid forms take
+// kEpilogueScan chunks of voxels per block (epilogue_voxels), the walled
+// form one voxel per thread. The two phases share one template so that
+// every K8 launch is one of three kernel names.
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE, bool BOUNDARY>
+__global__ void __launch_bounds__(kAdjointThreads)
+    adjoint_centred_kernel(const T* __restrict__ f, const float* __restrict__ g, const int* __restrict__ mask,
+                           const float* __restrict__ aux, float* __restrict__ df, float* __restrict__ dom, int X, int Y,
+                           int Z, float omega, const __grid_constant__ XlbStepParams p) {
+  static_assert(!BOUNDARY || ext_reads_aux(EXT), "the boundary phase is the kExtOpen and kExtHybrid forms'");
+  const unsigned n = unsigned(X) * unsigned(Y) * unsigned(Z);
+  if constexpr (ext_reads_aux(EXT)) {
+    __shared__ unsigned list[kEpilogueTile], warp_count[kEpilogueTile / 32], count;
+    const unsigned listed = epilogue_voxels<S, BOUNDARY>(mask, n, p, list, warp_count, &count);
+    for (unsigned i = threadIdx.x; i < listed; i += kAdjointThreads)
+      epilogue_voxel_vjp<S, C, T, SHIFTED, EXT, FORCE, BOUNDARY>(list[i], f, g, mask, aux, df, dom, X, Y, Z, omega, p);
   } else {
+    const unsigned v = blockIdx.x * blockDim.x + threadIdx.x;
+    if (v >= n) return;
+    const int packed = mask[v];
+    const int bc = cell_type<S>(packed);
+    if ((packed & ((1 << S::q) - 1)) == 0 || !has_bc_kind(bc, p, XLB_BC_HALFWAY)) return;
+    const int z = int(v % unsigned(Z));
+    const unsigned xy = v / unsigned(Z);
+    const int y = int(xy % unsigned(Y));
+    const int x = int(xy / unsigned(Y));
+    const size_t plane = n;
+
+    auto pull = [&](int l) {
+      const int xs = wrap1(x - S::c(0, l), X);
+      const int ys = wrap1(y - S::c(1, l), Y);
+      const int zs = wrap1(z - S::c(2, l), Z);
+      return to_f32(f[l * plane + (size_t(xs) * Y + ys) * Z + zs]);
+    };
+    auto center = [&](int l) { return to_f32(f[l * plane + v]); };
+    float fs[S::q], gv[S::q], h[S::q], d_omega;
     streamed_populations<S, SHIFTED, EXT>(pull, center, packed, p, fs);
 #pragma unroll
     for (int l = 0; l < S::q; ++l) gv[l] = g[l * plane + v];

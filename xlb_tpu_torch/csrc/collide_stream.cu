@@ -123,6 +123,17 @@ int xlb_collide_stream_adjoint(int store_kind, int shifted, const void* f, const
   return xlb::dispatch(a);
 }
 
+// The launch shapes of the adjoint's kernels for this configuration,
+// without a launch: for each of K8's kAdjointLaunches kernels in launch
+// order, shape[3 i .. 3 i + 2] := resident blocks per SM, registers per
+// thread, local-memory bytes per thread (zeros where the form has none).
+int xlb_collide_stream_adjoint_shape(int store_kind, int shifted, const XlbStepParams* params, int* shape) {
+  xlb::XlbLaunch a{xlb::XLB_KERNEL_ADJOINT, store_kind, shifted, nullptr, nullptr, nullptr, 1, 1, 1, 0, 0, 0, 0,
+                   0.0f, params, nullptr};
+  a.shape = shape;
+  return xlb::dispatch(a);
+}
+
 // 1 when the library holds the kernel of this configuration (kernel:
 // 1 = step, 2 = k-step, 3 = blocked, 4 = adjoint; walled: 0, 1, 2 for
 // the open-boundary epilogues, or 3 for those and the hybrid curved wall).

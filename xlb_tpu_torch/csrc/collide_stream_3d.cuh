@@ -81,12 +81,13 @@
 //
 // blocked_kernel (K0, collide_stream_blocked.cuh) is the third kernel of
 // the family, the adjoint K8 (adjoint_step.cuh: adjoint_kernel, with
-// adjoint_centred_kernel and adjoint_staging_kernel where the scene needs
-// them) the fourth.
+// adjoint_centred_kernel's boundary and centred phases and
+// adjoint_staging_kernel where the scene needs them) the fourth.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <mutex>
 #include <type_traits>
 
 #include "collide_stream.cuh"
@@ -308,8 +309,21 @@ struct XlbLaunch {
                      // a field mode: its field's channels first
   int field;         // the field mode (kFieldAde, kFieldForce) of field_step_kernel, or kFieldNone
   int seg;           // k-step: planes of x per segment
-  int* shape;        // k-step: when set, no launch; shape[0..2] := resident blocks per SM, registers, local bytes
+  int* shape;        // when set, no launch: k-step: shape[0..2] := resident blocks per SM, registers, local bytes;
+                     // adjoint: those of each of its kAdjointLaunches kernels (adjoint_launch_shape)
 };
+
+// shape[0..2] := kernel's resident blocks per SM at `threads` threads and
+// `smem` dynamic shared bytes, its registers and local bytes per thread.
+template <typename Kernel>
+cudaError_t kernel_shape(Kernel kernel, int threads, size_t smem, int* shape) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  shape[1] = attr.numRegs;
+  shape[2] = int(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[0], kernel, threads, smem);
+}
 
 }  // namespace xlb
 
@@ -349,41 +363,141 @@ constexpr bool has_open(int q, int collision) {
 template <class S, class C, int EXT>
 cudaError_t launch_ext_adjoint(const XlbLaunch& a);
 
-// K8's launches: adjoint_kernel; then adjoint_centred_kernel when a BC's
-// epilogue reads centred populations, and adjoint_staging_kernel when the
-// scene has an outflow (kExtOpen and kExtHybrid).
+// The kernels of K8's launches, in launch order, as adjoint_launch_shape
+// reports them: adjoint_kernel, the boundary phase and the centred phase of
+// adjoint_centred_kernel, adjoint_staging_kernel.
+constexpr int kAdjointLaunches = 4;
+
+// The FORCE of K8's epilogue launches: the kExtOpen and kExtHybrid forms
+// compile the force there (applied when p.has_force), as the forward does,
+// whatever the bulk's (launch_ext_adjoint_impl).
+__host__ __device__ constexpr bool epilogue_force(int ext, bool force) { return force || ext_reads_aux(ext); }
+
+// a.shape[3 i .. 3 i + 2] := kernel_shape of K8's launch i of this form
+// (kAdjointLaunches of them), zeros where the form has no such kernel.
+template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
+cudaError_t adjoint_launch_shape(const XlbLaunch& a) {
+  constexpr bool EF = epilogue_force(EXT, FORCE);
+  for (int i = 0; i < 3 * kAdjointLaunches; ++i) a.shape[i] = 0;
+  cudaError_t e = kernel_shape(adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE>, kAdjointThreads, 0, a.shape);
+  if constexpr (ext_reads_aux(EXT)) {
+    if (e == cudaSuccess)
+      e = kernel_shape(adjoint_centred_kernel<S, C, T, SHIFTED, EXT, EF, true>, kAdjointThreads, 0, a.shape + 3);
+  }
+  if constexpr (EXT != kExtNone) {
+    if (e == cudaSuccess)
+      e = kernel_shape(adjoint_centred_kernel<S, C, T, SHIFTED, EXT, EF, false>, kAdjointThreads, 0, a.shape + 6);
+  }
+  if constexpr (ext_reads_aux(EXT)) {
+    if (e == cudaSuccess) e = kernel_shape(adjoint_staging_kernel<S>, kAdjointThreads, 0, a.shape + 9);
+  }
+  return e;
+}
+
+// The stream and events per device on which K8's boundary phase runs beside
+// the bulk (launch_adjoint), made at first use; lock orders the enqueues
+// of concurrent callers.
+struct AdjointSide {
+  cudaStream_t stream;
+  cudaEvent_t fork, join;
+  std::mutex lock;
+};
+
+inline cudaError_t adjoint_side(AdjointSide*& side) {
+  constexpr int kMaxDevices = 64;
+  static AdjointSide table[kMaxDevices];
+  static bool made[kMaxDevices];
+  static std::mutex lock;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (!made[dev]) {
+    int least, greatest;  // the boundary phase's few long blocks first, so that the bulk fills in around them
+    e = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (e == cudaSuccess) e = cudaStreamCreateWithPriority(&table[dev].stream, cudaStreamNonBlocking, greatest);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&table[dev].fork, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&table[dev].join, cudaEventDisableTiming);
+    if (e != cudaSuccess) return e;
+    made[dev] = true;
+  }
+  side = &table[dev];
+  return cudaSuccess;
+}
+
+// K8's launches: adjoint_kernel (in the kExtOpen and kExtHybrid forms the
+// bulk); in those forms the boundary phase of adjoint_centred_kernel at the
+// voxels of an epilogue BC, on a side stream beside the bulk (the two write
+// disjoint entries of df and dom, and the boundary phase's transposes are
+// long chains that the bulk's blocks fill in around); then, on the
+// caller's stream after both, the centred phase when a BC's epilogue reads
+// centred populations, and adjoint_staging_kernel when the scene has an
+// outflow.
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
 cudaError_t launch_adjoint(const XlbLaunch& a) {
+  if (a.shape) return adjoint_launch_shape<S, C, T, SHIFTED, EXT, FORCE>(a);
+  constexpr bool EF = epilogue_force(EXT, FORCE);
   const XlbStepParams& p = *a.p;
   const T* f = static_cast<const T*>(a.f);
   const int* mask = static_cast<const int*>(a.mask);
   const float* g = static_cast<const float*>(a.g);
   float* df = static_cast<float*>(a.out);
+  float* dom = static_cast<float*>(a.dom);
   const unsigned n = unsigned(a.X) * unsigned(a.Y) * unsigned(a.Z);
   const unsigned blocks = (n + kAdjointThreads - 1) / kAdjointThreads;
-  adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
-      f, g, mask, a.aux, df, static_cast<float*>(a.dom), a.X, a.Y, a.Z, a.omega, p);
-  if constexpr (EXT != kExtNone) {
-    bool centred = false, staged = false;
-    for (int b = 0; b < p.n_bc; ++b) {
-      centred = centred || reads_centred(p, b);
-      staged = staged || p.bc_kind[b] == XLB_BC_OUTFLOW;
-    }
-    if (centred) {
-      const cudaError_t e = cudaGetLastError();
+  bool boundary = false, centred = false, staged = false;
+  for (int b = 0; b < p.n_bc; ++b) {
+    boundary = boundary || (ext_reads_aux(EXT) && p.bc_kind[b] >= XLB_BC_HALFWAY);
+    centred = centred || (EXT != kExtNone && reads_centred(p, b));
+    staged = staged || (ext_reads_aux(EXT) && p.bc_kind[b] == XLB_BC_OUTFLOW);
+  }
+  auto bulk = [&]() {
+    adjoint_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
+        f, g, mask, a.aux, df, dom, a.X, a.Y, a.Z, a.omega, p);
+    return cudaGetLastError();
+  };
+  cudaError_t e = cudaSuccess;
+  if constexpr (ext_reads_aux(EXT)) {
+    // the epilogue launches take kEpilogueScan chunks of voxels per block (epilogue_voxels)
+    const unsigned epilogue_blocks = (n + kEpilogueTile - 1) / kEpilogueTile;
+    if (boundary) {
+      AdjointSide* side;
+      e = adjoint_side(side);
       if (e != cudaSuccess) return e;
-      adjoint_centred_kernel<S, C, T, SHIFTED, EXT, FORCE><<<blocks, kAdjointThreads, 0, a.stream>>>(
-          f, g, mask, a.aux, df, a.X, a.Y, a.Z, a.omega, p);
+      std::lock_guard<std::mutex> hold(side->lock);
+      e = cudaEventRecord(side->fork, a.stream);
+      if (e == cudaSuccess) e = cudaStreamWaitEvent(side->stream, side->fork, 0);
+      if (e != cudaSuccess) return e;
+      adjoint_centred_kernel<S, C, T, SHIFTED, EXT, EF, true><<<epilogue_blocks, kAdjointThreads, 0, side->stream>>>(
+          f, g, mask, a.aux, df, dom, a.X, a.Y, a.Z, a.omega, p);
+      e = cudaGetLastError();
+      if (e == cudaSuccess) e = cudaEventRecord(side->join, side->stream);
+      if (e == cudaSuccess) e = bulk();
+      if (e == cudaSuccess) e = cudaStreamWaitEvent(a.stream, side->join, 0);
+    } else {
+      e = bulk();
     }
-    if constexpr (ext_reads_aux(EXT)) {
-      if (staged) {
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return e;
-        adjoint_staging_kernel<S><<<blocks, kAdjointThreads, 0, a.stream>>>(g, mask, df, a.X, a.Y, a.Z, p);
+    if (e == cudaSuccess && centred) {
+      adjoint_centred_kernel<S, C, T, SHIFTED, EXT, EF, false><<<epilogue_blocks, kAdjointThreads, 0, a.stream>>>(
+          f, g, mask, a.aux, df, nullptr, a.X, a.Y, a.Z, a.omega, p);
+      e = cudaGetLastError();
+    }
+    if (e == cudaSuccess && staged) {
+      adjoint_staging_kernel<S><<<blocks, kAdjointThreads, 0, a.stream>>>(g, mask, df, a.X, a.Y, a.Z, p);
+      e = cudaGetLastError();
+    }
+  } else {
+    e = bulk();
+    if constexpr (EXT != kExtNone) {
+      if (e == cudaSuccess && centred) {
+        adjoint_centred_kernel<S, C, T, SHIFTED, EXT, EF, false><<<blocks, kAdjointThreads, 0, a.stream>>>(
+            f, g, mask, a.aux, df, nullptr, a.X, a.Y, a.Z, a.omega, p);
+        e = cudaGetLastError();
       }
     }
   }
-  return cudaGetLastError();
+  return e;
 }
 
 template <class S, class C, typename T, bool SHIFTED, int EXT, bool FORCE>
@@ -411,14 +525,7 @@ cudaError_t launch_kernel(const XlbLaunch& a) {
         const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
         if (e != cudaSuccess) return e;
       }
-      if (a.shape) {
-        cudaFuncAttributes attr;
-        cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-        if (e != cudaSuccess) return e;
-        a.shape[1] = attr.numRegs;
-        a.shape[2] = int(attr.localSizeBytes);
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.shape[0], kernel, kKstepThreads, smem);
-      }
+      if (a.shape) return kernel_shape(kernel, kKstepThreads, smem, a.shape);
       const dim3 grid((a.Z + a.TZ - 1) / a.TZ, (a.Y + a.TY - 1) / a.TY, (a.X + a.seg - 1) / a.seg);
       kstep_kernel<S, C, T, SHIFTED, EXT, FORCE><<<grid, kKstepThreads, smem, a.stream>>>(
           f, mask, out, a.X, a.Y, a.Z, a.seg, a.TY, a.TZ, a.K, a.omega, p, a.aux);
@@ -452,12 +559,20 @@ cudaError_t launch_open(const XlbLaunch& a);
 template <class S, class C>
 cudaError_t launch_hybrid(const XlbLaunch& a);
 
+template <class S, class C, int EXT, bool FORCE>
+cudaError_t launch_ext_adjoint_store(const XlbLaunch& a) {
+  // f32 is never shifted (has_form, checked by dispatch)
+  if (a.store_kind == 0) return launch_adjoint<S, C, float, false, EXT, FORCE>(a);
+  return a.shifted ? launch_adjoint<S, C, __nv_bfloat16, true, EXT, FORCE>(a)
+                   : launch_adjoint<S, C, __nv_bfloat16, false, EXT, FORCE>(a);
+}
+
+// The bulk adjoint_kernel compiled without the force where the scene has
+// none (p.has_force), so that its registers and frame are the walled
+// form's; the epilogue launches compile it either way (epilogue_force).
 template <class S, class C, int EXT>
 cudaError_t launch_ext_adjoint_impl(const XlbLaunch& a) {
-  // the force compiled in, as the forward's; f32 is never shifted (has_form, checked by dispatch)
-  if (a.store_kind == 0) return launch_adjoint<S, C, float, false, EXT, true>(a);
-  return a.shifted ? launch_adjoint<S, C, __nv_bfloat16, true, EXT, true>(a)
-                   : launch_adjoint<S, C, __nv_bfloat16, false, EXT, true>(a);
+  return a.p->has_force ? launch_ext_adjoint_store<S, C, EXT, true>(a) : launch_ext_adjoint_store<S, C, EXT, false>(a);
 }
 
 template <class S, class C, int EXT>

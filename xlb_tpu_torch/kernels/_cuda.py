@@ -230,6 +230,8 @@ def load_library():
     lib.xlb_collide_stream_adjoint.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr, params,
                                                ptr]
     lib.xlb_collide_stream_adjoint.restype = i32
+    lib.xlb_collide_stream_adjoint_shape.argtypes = [i32, i32, params, ctypes.POINTER(i32)]
+    lib.xlb_collide_stream_adjoint_shape.restype = i32
     # ... omega, aux (or null), params, stream
     lib.xlb_collide_stream_2d_step.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, f32, ptr, params, ptr]
     lib.xlb_collide_stream_2d_step.restype = i32

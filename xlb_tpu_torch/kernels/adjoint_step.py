@@ -21,7 +21,10 @@ The TPU kernel takes the per-voxel Jacobian-transpose from ``jax.vjp`` of
 ``pointwise_core``; the CUDA kernel derives unforced BGK's collision by
 hand and takes every other collision, and every epilogue, in forward
 mode, differentiating the forward's own device code on dual numbers (the
-source says how). The aux field of the per-voxel prescriptions enters as
+source says how). In the open and hybrid forms it runs split by voxel
+class (``split``, counted by ``split_launches``): the bulk of the voxels
+through ``adjoint_kernel`` compiled as the walled form's, the voxels of an
+epilogue BC (``boundary_voxels``) through a launch of their own. The aux field of the per-voxel prescriptions enters as
 a constant: prescriptions carry no gradient, as in the TPU kernel. The
 plain version is ``torch.func.vjp`` of the plain step with omega promoted
 to a per-voxel field, as the TPU kernel's own ``jax.vjp`` is.
@@ -33,7 +36,13 @@ import numpy as np
 import torch
 
 from xlb_tpu_torch.kernels import _cuda
+from xlb_tpu_torch.kernels.collide_stream import bc_id_mask, bc_id_shift, kernel_bc_id
 from xlb_tpu_torch.kernels.collide_stream_dma import OPEN_KINDS_3D, FusedKernel, plain_collide
+
+# K8's kernels in launch order, as xlb_collide_stream_adjoint_shape reports them
+ADJOINT_LAUNCHES = ("adjoint", "boundary", "centred", "staging")
+# the BC kinds whose streaming-step epilogue K8's boundary launch transposes
+EPILOGUE_KINDS = frozenset(k for k, code in _cuda.BC_KIND.items() if code >= _cuda.BC_KIND["halfway"])
 
 # BC kinds the adjoint kernel does not take: none, as in xlb_tpu (the hook
 # stays for epilogues that are not voxel-local)
@@ -97,10 +106,18 @@ class CollideStreamAdjoint(FusedKernel):
     scene's BCs read one."""
 
     launches = 0
+    split_launches = 0  # the CUDA calls in a split form (``split``)
     plain_calls = 0
     zoo = True
     bc_kinds = OPEN_KINDS_3D
     kernel_kind = 4  # XLB_KERNEL_ADJOINT
+
+    @property
+    def split(self):
+        """Whether K8 runs split by voxel class (the kExtOpen and kExtHybrid
+        forms): a bulk ``adjoint_kernel`` with no epilogue transpose, and a
+        boundary launch at the voxels of an epilogue BC."""
+        return self.params.walled >= 2
 
     def plain(self, f_primal, g, mask_i32, omega, aux=None):
         CollideStreamAdjoint.plain_calls += 1
@@ -126,4 +143,32 @@ class CollideStreamAdjoint(FusedKernel):
             )
             return (df, dom), err
 
-        return self._dispatch(f_primal, lambda: self.plain(f_primal, g, mask_i32, omega, aux), launch)
+        out = self._dispatch(f_primal, lambda: self.plain(f_primal, g, mask_i32, omega, aux), launch)
+        if f_primal.device.type != "cpu" and self.split:
+            CollideStreamAdjoint.split_launches += 1
+        return out
+
+    def launch_shape(self, lib):
+        """{launch: (resident blocks per SM, registers, local bytes per
+        thread)} of this configuration's K8 kernels on the current device,
+        for each of ``ADJOINT_LAUNCHES`` that the form has."""
+        shape = (ctypes.c_int * (3 * len(ADJOINT_LAUNCHES)))()
+        _cuda.check(lib, lib.xlb_collide_stream_adjoint_shape(
+            _cuda.STORE_KIND[self.store_dtype], int(self.shifted), ctypes.byref(self.params), shape),
+            f"{type(self).__name__} launch shape")
+        return {name: tuple(shape[3 * i:3 * i + 3]) for i, name in enumerate(ADJOINT_LAUNCHES) if shape[3 * i + 1]}
+
+    def boundary_voxels(self, mask_i32):
+        """Where the packed mask ``mask_i32`` has a BC of
+        ``EPILOGUE_KINDS`` (bool, (X, Y, Z)): in the split forms the voxels
+        of the boundary launch (each BC has an id of its own, never the
+        solid's)."""
+        q = self.vs.q
+        ids = [kernel_bc_id(int(s["id"]), q) for s in self.bc_specs if s["kind"] in EPILOGUE_KINDS]
+        cell = (mask_i32 >> bc_id_shift(q)) & bc_id_mask(q)
+        return torch.isin(cell, torch.tensor(ids, dtype=cell.dtype, device=cell.device))
+
+    def boundary_share(self, mask_i32):
+        """The share of the voxels that ``boundary_voxels`` holds: a
+        reduction over the mask, off the hot path."""
+        return float(self.boundary_voxels(mask_i32).sum()) / mask_i32.numel()
