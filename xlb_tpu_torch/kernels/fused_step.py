@@ -149,6 +149,13 @@ def build_aux_field(stepper):
     return aux
 
 
+def device_aux_field(stepper, device):
+    """``build_aux_field``'s field as a contiguous tensor on ``device``:
+    built on the host and copied over inside the span ``xlb.window.aux``."""
+    with span("xlb.window.aux", device):
+        return torch.as_tensor(build_aux_field(stepper), device=device).contiguous()
+
+
 def ring_val(q):
     """Packed mask value of a multires ring or refined-region cell: cell
     type 254 with no missing directions (254 << 19 for q <= 19)."""
@@ -247,7 +254,11 @@ class _FusedSweeps:
     why. The aux field of the BCs' per-voxel prescriptions is built at the
     first call, after ``prepare_fields`` gave mesh BCs their indices; the
     reverse sweep passes it to the replayed steps and the adjoint kernel
-    (a constant: prescriptions carry no gradient)."""
+    (a constant: prescriptions carry no gradient). ``aux_bytes`` counts the
+    bytes of the aux fields put on a device, over all instances, as the
+    kernel wrappers count ``launches``."""
+
+    aux_bytes = 0
 
     def __init__(self, stepper, num_steps, shifted, temporal_steps=None, kernel="dma", tile=None):
         vs = stepper.velocity_set
@@ -306,7 +317,8 @@ class _FusedSweeps:
         if not self.single.aux_channels:
             return ()
         if self._aux is None:  # built at the first call: mesh BCs have their indices after prepare_fields
-            self._aux = torch.as_tensor(build_aux_field(self.stepper), device=device).contiguous()
+            self._aux = device_aux_field(self.stepper, device)
+            _FusedSweeps.aux_bytes += self._aux.numel() * self._aux.element_size()
         return (self._aux,)
 
     def value(self, f_0, mask_i32, omega):
@@ -479,7 +491,7 @@ class _FieldStep:
         aux = field.to(torch.float32)
         if self.has_bc_aux:
             if self._aux_bc is None:
-                self._aux_bc = torch.as_tensor(build_aux_field(self.stepper), device=f_0.device)
+                self._aux_bc = device_aux_field(self.stepper, f_0.device)
             aux = torch.cat([aux, self._aux_bc])
         return self.kernel(f_0, self._mask(bc_mask, missing_mask), _host_float(omega), aux.contiguous())
 
